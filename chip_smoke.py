@@ -13,8 +13,11 @@ Phases (any failure exits non-zero before the result line):
      shapes (B·H, 88, 32), window 11, B = 1 and 2, all-true / partial / no mask,
      atol 1e-5; kernel, plain and SDPA (block-causal boolean mask) times;
   4. encoder-layer kernel vs the plain layer at (1, 89, 256) and (2, 89, 256)
-     with 8 layers of seeded weights, each layer at atol 1e-4; kernel, plain
-     and nn.TransformerEncoderLayer times;
+     with 8 layers of seeded weights, in both operand modes: float32 (3xTF32,
+     the main path) at atol 1e-4 per layer, `mxu_bf16` against the plain bf16
+     layer at atol 1e-2 per layer; two calls on the same input bitwise equal;
+     kernel, plain and nn.TransformerEncoderLayer times (under bf16 autocast
+     for the bf16 mode), each mode with the bound of its tensor-core work;
   5. end to end at full width through `cli.sample.main`: a seeded random MDM
      (1141 / 256 / 8 layers / 4 heads / ff 1024) and WavLM-Large (24 layers,
      d 1024) in reference checkpoint layout, a seeded 12.5 s wav (3 windows);
@@ -40,10 +43,13 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 F32_FLOPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
+TF32_FLOPS_PER_S = 495e12   # H100 SXM TF32 tensor cores, dense
+BF16_FLOPS_PER_S = 989e12   # H100 SXM bf16 tensor cores, dense
 SEED = 20260
 
 ATOL_LOCAL_ATTENTION = 1e-5
 ATOL_ENCODER_LAYER = 1e-4
+ATOL_ENCODER_LAYER_BF16 = 1e-2
 E2E_REL = 2e-3
 
 
@@ -82,9 +88,9 @@ def device_ms(fn, iters: int = 30, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(bytes_moved: float, flops: float):
+def bound(bytes_moved: float, flops: float, flops_per_s: float = F32_FLOPS_PER_S):
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    t_ops = flops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -145,6 +151,13 @@ def encoder_layer_cost(B, T, D, H, F):
     return nbytes, flops
 
 
+# Kernel B's operand modes: (wrapper flag, per-layer bar, operations per
+# float32-accurate product and the tensor-core rate they run at). The f32 mode
+# is 3xTF32: three TF32 products per product.
+ENCODER_MODES = {"f32": (False, ATOL_ENCODER_LAYER, 3, TF32_FLOPS_PER_S),
+                 "bf16": (True, ATOL_ENCODER_LAYER_BF16, 1, BF16_FLOPS_PER_S)}
+
+
 def phase_encoder_layer(dev):
     import torch
     from torch import nn
@@ -155,23 +168,11 @@ def phase_encoder_layer(dev):
     T, D, H, F, L = 89, 256, 4, 1024, 8
     torch.manual_seed(SEED)
     trunk = TorchTransformerEncoder(L, D, H, F, "gelu").to(dev).eval()
-    max_err = 0.0
-    timings = {}
+    max_err = {mode: 0.0 for mode in ENCODER_MODES}
+    timings = {mode: {} for mode in ENCODER_MODES}
     with torch.no_grad():
         for B in (1, 2):
             x = torch.randn(B, T, D, device=dev)
-            h = x
-            for i, layer in enumerate(trunk.layers):
-                out = el.encoder_layer(h, layer)
-                torch.cuda.synchronize()
-                err = (out - layer(h)).abs().max().item()
-                check(err <= ATOL_ENCODER_LAYER, f"encoder_layer B={B} layer {i} err {err}")
-                max_err = max(max_err, err)
-                h = out
-            stack_err = (h - trunk(x, impl="plain")).abs().max().item()
-            print(f"encoder_layer B={B}: max per-layer err {max_err:.3e}, "
-                  f"8-layer stack err {stack_err:.3e}")
-
             layer = trunk.layers[0]
             ref = nn.TransformerEncoderLayer(D, H, F, dropout=0.0, activation="gelu",
                                              batch_first=True, norm_first=False).to(dev).eval()
@@ -179,12 +180,43 @@ def phase_encoder_layer(dev):
             lib_err = (ref(x) - el.encoder_layer(x, layer)).abs().max().item()
             check(lib_err <= 1e-3, f"nn.TransformerEncoderLayer disagrees: {lib_err}")
             nbytes, flops = encoder_layer_cost(B, T, D, H, F)
-            timings[B] = dict(
-                ms=device_ms(lambda: el.encoder_layer(x, layer)),
-                plain_ms=device_ms(lambda: layer(x)),
-                library_ms=device_ms(lambda: ref(x)),
-                bound=bound(nbytes, flops))
-            print(f"encoder_layer B={B} timings: {json.dumps(timings[B])}")
+            for mode, (bf16, atol, products, rate) in ENCODER_MODES.items():
+                h = x
+                for i, lyr in enumerate(trunk.layers):
+                    out = el.encoder_layer(h, lyr, mxu_bf16=bf16)
+                    torch.cuda.synchronize()
+                    err = (out - lyr(h, mxu_bf16=bf16)).abs().max().item()
+                    check(err <= atol, f"encoder_layer {mode} B={B} layer {i} err {err}")
+                    max_err[mode] = max(max_err[mode], err)
+                    h = out
+                stack_err = (h - trunk(x, impl="plain", mxu_bf16=bf16)).abs().max().item()
+                again = el.encoder_layer(x, layer, mxu_bf16=bf16)
+                check(torch.equal(again, el.encoder_layer(x, layer, mxu_bf16=bf16)),
+                      f"encoder_layer {mode} B={B}: two calls on one input differ")
+                print(f"encoder_layer {mode} B={B}: max per-layer err {max_err[mode]:.3e} "
+                      f"(atol {atol:g}), 8-layer stack err {stack_err:.3e}, repeat calls "
+                      f"bitwise equal")
+
+                def library():
+                    if not bf16:
+                        return ref(x)
+                    with torch.autocast("cuda", dtype=torch.bfloat16):
+                        return ref(x)
+
+                if bf16:
+                    auto_err = (library().float() - layer(x, mxu_bf16=True)).abs().max().item()
+                    print(f"nn.TransformerEncoderLayer under bf16 autocast vs the plain bf16 "
+                          f"layer: max abs err {auto_err:.3e}")
+                    check(auto_err <= 0.1, f"bf16 autocast layer disagrees: {auto_err}")
+                # the plain bf16 layer and the autocast layer launch ~3x the
+                # kernels of the f32 ones: 10 calls stay within the launch queue
+                iters = 10 if bf16 else 30
+                timings[mode][B] = dict(
+                    ms=device_ms(lambda: el.encoder_layer(x, layer, mxu_bf16=bf16)),
+                    plain_ms=device_ms(lambda: layer(x, mxu_bf16=bf16), iters=iters),
+                    library_ms=device_ms(library, iters=iters),
+                    bound=bound(nbytes, products * flops, rate))
+                print(f"encoder_layer {mode} B={B} timings: {json.dumps(timings[mode][B])}")
     return max_err, timings
 
 
@@ -274,6 +306,7 @@ def phase_end_to_end(dev, tmp):
                                           ("dpmpp5", ["--sampler", "dpmpp", "--respace", "5"], 5)):
         la.launches = 0
         el.launches = 0
+        el.launches_bf16 = 0
         t0 = time.perf_counter()
         res = sample_cli.main(["--config", cfg_path, "--model_path", mdm_pt,
                                "--audiowavlm_path", wav_path,
@@ -281,6 +314,7 @@ def phase_end_to_end(dev, tmp):
                                "--seed", "123456"] + extra)
         wall = time.perf_counter() - t0
         counts = (la.launches, el.launches)
+        bf16_launches = el.launches_bf16
         calls = windows * calls_per_window
         poses = res["poses"]
         check(len(res["paths"]) == 1 and os.path.getsize(res["paths"][0]) > 0,
@@ -291,6 +325,7 @@ def phase_end_to_end(dev, tmp):
               f"{mode}: launches {counts}, expected {(calls, 8 * calls)}")
         results[mode] = dict(denoiser_calls=calls, local_attention_launches=counts[0],
                              encoder_layer_launches=counts[1],
+                             encoder_layer_bf16_launches=bf16_launches,
                              generate_s=res["generate_seconds"], cli_wall_s=wall,
                              frames=frames, frames_per_s=frames / res["generate_seconds"])
         print(f"e2e {mode}: {json.dumps(results[mode])}")
@@ -335,7 +370,7 @@ def phase_end_to_end(dev, tmp):
         step = {}
         for impl in ("kernel", "plain"):
             model = load_reference_mdm(mdm_pt, MDMConfig(impl=impl), device=dev)
-            # 110 (kernel) to 200 (plain) launches a call: 4 calls stay
+            # 86 (kernel) to 203 (plain) launches a call: 4 calls stay
             # within the launch queue
             step[impl + "_device_ms"] = device_ms(lambda: model(x, tt, cond), iters=4, warmup=2)
             torch.cuda.synchronize()
@@ -394,21 +429,25 @@ def main() -> int:
 
     # 6. lines
     kernels = []
-    for name, src, replaces, err, t, launches, shape in (
-            ("local_attention", "diffusestylegesture_torch/csrc/local_attention.cu",
-             "diffusestylegesture_tpu/ops/local_attention_pallas.py:80", la_err, la_t,
-             e2e["ddpm1000"]["local_attention_launches"], "q=k=v (8, 88, 32), w=11"),
-            ("encoder_layer", "diffusestylegesture_torch/csrc/encoder_layer.cu",
-             "diffusestylegesture_tpu/ops/encoder_layer_pallas.py:120", el_err, el_t,
-             e2e["ddpm1000"]["encoder_layer_launches"], "x (1, 89, 256), H=4, F=1024")):
+    el_src = ("diffusestylegesture_torch/csrc/encoder_layer.cu",
+              "diffusestylegesture_tpu/ops/encoder_layer_pallas.py:120")
+    for name, (src, replaces), err, t, shape in (
+            ("local_attention", ("diffusestylegesture_torch/csrc/local_attention.cu",
+                                 "diffusestylegesture_tpu/ops/local_attention_pallas.py:80"),
+             la_err, la_t, "q=k=v (8, 88, 32), w=11"),
+            ("encoder_layer", el_src, el_err["f32"], el_t["f32"],
+             "x (1, 89, 256), H=4, F=1024, float32 (3xTF32)"),
+            ("encoder_layer_bf16", el_src, el_err["bf16"], el_t["bf16"],
+             "x (1, 89, 256), H=4, F=1024, mxu_bf16")):
         kernels.append(dict(
-            name=name, route="cuda", source=src, replaces=replaces, launches=launches,
+            name=name, route="cuda", source=src, replaces=replaces,
+            launches=e2e["ddpm1000"][f"{name}_launches"],
             max_abs_err=err, ms=t[1]["ms"], plain_ms=t[1]["plain_ms"],
             bound_ms=t[1]["bound"][0], bound_by=t[1]["bound"][1],
             library_ms=t[1]["library_ms"], shape=shape,
             launches_dpmpp5=e2e["dpmpp5"][f"{name}_launches"],
             b2=dict(ms=t[2]["ms"], plain_ms=t[2]["plain_ms"], library_ms=t[2]["library_ms"],
-                    bound_ms=t[2]["bound"][0])))
+                    bound_ms=t[2]["bound"][0], bound_by=t[2]["bound"][1])))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"e2e": e2e, "build_s": build_s}))

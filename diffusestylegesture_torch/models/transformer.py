@@ -8,6 +8,11 @@ LayerNorm (eps 1e-5), MLP with the configured activation, residual +
 LayerNorm. Parameter names are nn.TransformerEncoderLayer's, so a
 reference state_dict (and `nn.TransformerEncoderLayer` itself) loads as
 it is. Batch-first (B, T, D).
+
+`mxu_bf16=True` is the port of the Pallas kernel's mode of that name: each
+matmul operand (x, W_in, q, k, the softmax probabilities, v, the attention
+output, W_out, y, W1, the activated hidden rows, W2) is rounded to bf16 and
+the product is taken in float32. The default is float32 throughout.
 """
 from __future__ import annotations
 
@@ -29,6 +34,11 @@ def activation_fn(name: str):
     raise ValueError(f"unknown activation {name!r} (one of {ACTIVATIONS})")
 
 
+def _operand(mxu_bf16: bool):
+    """The rounding of a matmul operand: to bf16 and back, or none."""
+    return (lambda t: t.to(torch.bfloat16).float()) if mxu_bf16 else (lambda t: t)
+
+
 class TorchMultiheadAttention(nn.Module):
     """`nn.MultiheadAttention` self-attention: packed (3D, D) in-projection, out-projection."""
 
@@ -43,15 +53,17 @@ class TorchMultiheadAttention(nn.Module):
         nn.init.xavier_uniform_(self.in_proj_weight)
         nn.init.zeros_(self.out_proj.bias)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mxu_bf16: bool = False) -> torch.Tensor:
         B, T, D = x.shape
         H = self.num_heads
         hd = D // H
-        q, k, v = F.linear(x, self.in_proj_weight, self.in_proj_bias).chunk(3, dim=-1)
+        r = _operand(mxu_bf16)
+        q, k, v = F.linear(r(x), r(self.in_proj_weight), self.in_proj_bias).chunk(3, dim=-1)
         q, k, v = (t.reshape(B, T, H, hd).transpose(1, 2) for t in (q, k, v))
-        sim = torch.matmul(q, k.transpose(-1, -2)) * hd ** -0.5
-        out = torch.matmul(torch.softmax(sim, dim=-1), v)
-        return self.out_proj(out.transpose(1, 2).reshape(B, T, D))
+        sim = torch.matmul(r(q), r(k).transpose(-1, -2)) * hd ** -0.5
+        out = torch.matmul(r(torch.softmax(sim, dim=-1)), r(v))
+        return F.linear(r(out.transpose(1, 2).reshape(B, T, D)), r(self.out_proj.weight),
+                        self.out_proj.bias)
 
 
 class TorchEncoderLayer(nn.Module):
@@ -68,9 +80,12 @@ class TorchEncoderLayer(nn.Module):
         self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
         self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.norm1(x + self.self_attn(x))
-        h = self.linear2(activation_fn(self.activation)(self.linear1(x)))
+    def forward(self, x: torch.Tensor, mxu_bf16: bool = False) -> torch.Tensor:
+        r = _operand(mxu_bf16)
+        x = self.norm1(x + self.self_attn(x, mxu_bf16))
+        h = F.linear(r(x), r(self.linear1.weight), self.linear1.bias)
+        h = F.linear(r(activation_fn(self.activation)(h)), r(self.linear2.weight),
+                     self.linear2.bias)
         return self.norm2(x + h)
 
 
@@ -84,17 +99,19 @@ class TorchTransformerEncoder(nn.Module):
             TorchEncoderLayer(d_model, nhead, dim_feedforward, activation)
             for _ in range(num_layers))
 
-    def forward(self, x: torch.Tensor, impl: str = "kernel") -> torch.Tensor:
+    def forward(self, x: torch.Tensor, impl: str = "kernel",
+                mxu_bf16: bool = False) -> torch.Tensor:
         """impl="kernel": each layer through the CUDA kernel on a CUDA tensor
-        (its plain version on a CPU tensor); impl="plain": plain everywhere."""
+        (its plain version on a CPU tensor); impl="plain": plain everywhere.
+        mxu_bf16: the bf16-operand mode of every layer (module docstring)."""
         if impl == "plain":
             for layer in self.layers:
-                x = layer(x)
+                x = layer(x, mxu_bf16)
             return x
         if impl != "kernel":
             raise ValueError(f"unknown trunk impl {impl!r}")
         from ..ops.encoder_layer import encoder_layer
 
         for layer in self.layers:
-            x = encoder_layer(x, layer)
+            x = encoder_layer(x, layer, mxu_bf16)
         return x

@@ -4,8 +4,9 @@ the port of `ops/encoder_layer_pallas.py`).
 A CPU tensor goes to the plain PyTorch layer
 (`models/transformer.py::TorchEncoderLayer.forward`); a CUDA tensor
 launches the kernel or raises. One launch is one layer: a single host
-call that issues the layer's seven CUDA grids on the current stream.
-`launches` counts those layer launches.
+call that issues the layer's four CUDA grids on the current stream.
+`launches` counts the float32 (3xTF32) layer launches, `launches_bf16`
+those in the `mxu_bf16` operand mode.
 """
 from __future__ import annotations
 
@@ -18,8 +19,14 @@ from . import build
 
 ACT_CODES = {"gelu": 1, "gelu_tanh": 2, "relu": 3}
 SMEM_LIMIT = 227 * 1024
+MAX_WIDTH = 1024
+
+# dsg_encoder_layer(which, x, 12 weights, work, out, B, T, D, H, F, act, bf16, scale, eps, stream)
+LAYER_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 15 + [ctypes.c_int] * 7
+                  + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
 
 launches = 0
+launches_bf16 = 0
 _lib = None
 
 
@@ -27,15 +34,12 @@ def _library():
     global _lib
     if _lib is None:
         lib = build.load("encoder_layer")
-        lib.dsg_encoder_layer.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 6
-                                          + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
+        lib.dsg_encoder_layer.argtypes = LAYER_ARGTYPES
         lib.dsg_encoder_layer.restype = ctypes.c_int
-        lib.dsg_encoder_layer_attention_smem_bytes.argtypes = [ctypes.c_int] * 3
-        lib.dsg_encoder_layer_attention_smem_bytes.restype = ctypes.c_size_t
+        lib.dsg_encoder_layer_smem_bytes.argtypes = [ctypes.c_int] * 4
+        lib.dsg_encoder_layer_smem_bytes.restype = ctypes.c_size_t
         lib.dsg_encoder_layer_workspace_floats.argtypes = [ctypes.c_int] * 4
         lib.dsg_encoder_layer_workspace_floats.restype = ctypes.c_size_t
-        lib.dsg_encoder_layer_max_width.argtypes = []
-        lib.dsg_encoder_layer_max_width.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -48,10 +52,13 @@ def layer_weights(layer: TorchEncoderLayer):
             layer.linear2.weight, layer.linear2.bias, layer.norm2.weight, layer.norm2.bias)
 
 
-def encoder_layer(x: torch.Tensor, layer: TorchEncoderLayer) -> torch.Tensor:
-    """x: (B, T, D) float32 → one post-norm encoder layer."""
+def encoder_layer(x: torch.Tensor, layer: TorchEncoderLayer,
+                  mxu_bf16: bool = False) -> torch.Tensor:
+    """x: (B, T, D) float32 → one post-norm encoder layer. mxu_bf16=True rounds
+    the matmul operands to bf16 and sums in float32, as the Pallas kernel's
+    mode of that name; the default is float32 throughout."""
     if x.device.type == "cpu":
-        return layer(x)
+        return layer(x, mxu_bf16=mxu_bf16)
     if x.device.type != "cuda":
         raise ValueError(f"encoder_layer: unsupported device {x.device}")
     if x.dim() != 3 or x.dtype != torch.float32 or not x.is_contiguous():
@@ -71,21 +78,25 @@ def encoder_layer(x: torch.Tensor, layer: TorchEncoderLayer) -> torch.Tensor:
         raise ValueError(f"encoder_layer: head dim {D // H} and F={F} must be multiples of 4")
     if any(t.data_ptr() % 16 for t in (x,) + weights):
         raise ValueError("encoder_layer: x and the weights must be 16-byte aligned")
+    if D > MAX_WIDTH:
+        raise ValueError(f"encoder_layer: D={D} above {MAX_WIDTH}")
     lib = _library()
-    if D > lib.dsg_encoder_layer_max_width():
-        raise ValueError(f"encoder_layer: D={D} above {lib.dsg_encoder_layer_max_width()}")
-    if lib.dsg_encoder_layer_attention_smem_bytes(T, D, H) > SMEM_LIMIT:
-        raise ValueError(f"encoder_layer: T={T}, D={D}, H={H} exceed the shared-memory limit")
+    if lib.dsg_encoder_layer_smem_bytes(T, D, H, F) > SMEM_LIMIT:
+        raise ValueError(f"encoder_layer: T={T}, D={D}, H={H}, F={F} need more shared memory "
+                         f"than a block has ({SMEM_LIMIT} bytes)")
 
     work = torch.empty(lib.dsg_encoder_layer_workspace_floats(B, T, D, F), device=x.device,
                        dtype=torch.float32)
     out = torch.empty_like(x)
     err = lib.dsg_encoder_layer(
-        x.data_ptr(), *(w.data_ptr() for w in weights), work.data_ptr(), out.data_ptr(),
-        B, T, D, H, F, ACT_CODES[layer.activation], (D // H) ** -0.5, layer.norm1.eps,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        0, x.data_ptr(), *(w.data_ptr() for w in weights), work.data_ptr(), out.data_ptr(),
+        B, T, D, H, F, ACT_CODES[layer.activation], int(mxu_bf16), (D // H) ** -0.5,
+        layer.norm1.eps, torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"encoder_layer kernel launch failed: CUDA error {err}")
-    global launches
-    launches += 1
+    global launches, launches_bf16
+    if mxu_bf16:
+        launches_bf16 += 1
+    else:
+        launches += 1
     return out

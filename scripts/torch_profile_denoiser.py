@@ -11,7 +11,9 @@ heads / ff 1024) is called `--iters` times per batch size and path
 versions) under `torch.profiler` (CUPTI). For each, it prints one JSON line:
 the device time per call of every CUDA kernel by name, the device-busy
 time per call (union of kernel intervals), the host wall time per call
-with the profiler on, and the busy share of that wall time. Batch 2 is the
+with the profiler on, the busy share of that wall time, and the encoder-layer
+kernel's grids per call and per layer (its kernels are the ones named
+`encoder_layer_*`) with their device time. Batch 2 is the
 classifier-free-guidance batch. Imports nothing of JAX.
 """
 from __future__ import annotations
@@ -44,7 +46,10 @@ def short_name(name: str) -> str:
     return name.split("(")[0].split("<")[0][:80]
 
 
-def profile_calls(model, args_, iters: int):
+ENCODER_LAYER_KERNEL = "encoder_layer_"
+
+
+def profile_calls(model, args_, iters: int, layers: int):
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -68,8 +73,13 @@ def profile_calls(model, args_, iters: int):
         d[1] += 1
     busy = busy_us((e.time_range.start, e.time_range.end) for e in kernels)
     rows = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    el_grids = sum(c for n, (_, c) in rows if ENCODER_LAYER_KERNEL in n) / iters
     return dict(
         kernels_per_call=[dict(name=n, us=t / iters, count=c / iters) for n, (t, c) in rows],
+        encoder_layer_grids_per_call=el_grids,
+        encoder_layer_grids_per_layer=el_grids / layers,
+        encoder_layer_us_per_call=sum(
+            t for n, (t, _) in rows if ENCODER_LAYER_KERNEL in n) / iters,
         device_busy_us_per_call=busy / iters,
         wall_us_per_call_profiled=wall_us / iters,
         busy_share=busy / wall_us)
@@ -111,7 +121,8 @@ def main(argv=None) -> int:
                     "mask_local": torch.ones(B, 88, dtype=torch.bool, device=dev)}
             t = torch.full((B,), 500, device=dev)
             for impl, model in (("kernel", kernel_model), ("plain", plain_model)):
-                res = profile_calls(model, (x, t, cond), args.iters)
+                res = profile_calls(model, (x, t, cond), args.iters,
+                                    kernel_model.cfg.num_layers)
                 print(json.dumps(dict(profile="denoiser_call", batch=B, impl=impl, card=card,
                                       **res)))
     return 0

@@ -6,8 +6,10 @@ machine with a card and no JAX:
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_isolation.py
 
 There the `cuda` tests hold each CUDA kernel against its plain PyTorch
-version (local attention atol 1e-5; encoder layer atol 1e-4, float32 sums
-in another order) and check the launch counters; elsewhere they skip.
+version (local attention atol 1e-5; encoder layer atol 1e-4 in float32,
+where the kernel's 3xTF32 products sum in another order, and 1e-2 in the
+`mxu_bf16` mode, where a sum in another order can round an operand to the
+other bf16 neighbour) and check the launch counters; elsewhere they skip.
 """
 import importlib
 import os
@@ -167,19 +169,52 @@ def test_cuda_local_attention_matches_plain(cuda_device, b, masked):
     assert (out - ref).abs().max().item() <= 1e-5
 
 
+# the denoiser's shapes (B = 2 under CFG), BEAT's / TWH's trunk widths and the
+# widest layer the wrapper takes (head dim 256)
+ENCODER_SHAPES = [(1, 89, 256), (2, 89, 256), (1, 151, 384), (1, 151, 512), (1, 89, 1024)]
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("mxu_bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", ENCODER_SHAPES, ids=lambda s: "x".join(map(str, s)))
 @pytest.mark.parametrize("activation", ["gelu", "gelu_tanh", "relu"])
-def test_cuda_encoder_layer_matches_plain(cuda_device, activation):
+def test_cuda_encoder_layer_matches_plain(cuda_device, activation, shape, mxu_bf16):
     torch.manual_seed(0)
-    layer = TorchEncoderLayer(256, 4, 1024, activation).to(cuda_device).eval()
+    B, T, D = shape
+    layer = TorchEncoderLayer(D, 4, 1024, activation).to(cuda_device).eval()
+    x = torch.randn(B, T, D, device=cuda_device)
+    before = (ops_encoder_layer.launches, ops_encoder_layer.launches_bf16)
+    with torch.no_grad():
+        out = ops_encoder_layer.encoder_layer(x, layer, mxu_bf16=mxu_bf16)
+        torch.cuda.synchronize()
+        ref = layer(x, mxu_bf16=mxu_bf16)
+    after = (ops_encoder_layer.launches, ops_encoder_layer.launches_bf16)
+    assert after == (before[0] + (not mxu_bf16), before[1] + mxu_bf16)
+    assert (out - ref).abs().max().item() <= (1e-2 if mxu_bf16 else 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mxu_bf16", [False, True], ids=["f32", "bf16"])
+def test_cuda_encoder_layer_is_deterministic(cuda_device, mxu_bf16):
+    torch.manual_seed(0)
+    layer = TorchEncoderLayer(256, 4, 1024).to(cuda_device).eval()
     x = torch.randn(2, 89, 256, device=cuda_device)
+    with torch.no_grad():
+        first = ops_encoder_layer.encoder_layer(x, layer, mxu_bf16=mxu_bf16)
+        second = ops_encoder_layer.encoder_layer(x, layer, mxu_bf16=mxu_bf16)
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+def test_cuda_encoder_layer_rejects_what_shared_memory_cannot_hold(cuda_device):
+    # the attention grid holds all keys of a head: at head dim 64, T 336 is the most
+    layer = TorchEncoderLayer(256, 4, 1024).to(cuda_device).eval()
     before = ops_encoder_layer.launches
     with torch.no_grad():
-        out = ops_encoder_layer.encoder_layer(x, layer)
-        torch.cuda.synchronize()
-        ref = layer(x)
+        ops_encoder_layer.encoder_layer(torch.randn(1, 336, 256, device=cuda_device), layer)
+        with pytest.raises(ValueError, match="shared memory"):
+            ops_encoder_layer.encoder_layer(torch.randn(1, 400, 256, device=cuda_device), layer)
     assert ops_encoder_layer.launches == before + 1
-    assert (out - ref).abs().max().item() <= 1e-4
 
 
 @pytest.mark.cuda
