@@ -9,9 +9,13 @@ Phases (any failure exits non-zero before the result line):
   1. record the card (nvidia-smi name and power limit); TF32 off;
   2. build every CUDA kernel from `diffusestylegesture_torch/csrc/` (one nvcc
      per source, all at once) and time the build;
-  3. local-attention kernel vs its plain PyTorch version at the denoiser's
-     shapes (B·H, 88, 32), window 11, B = 1 and 2, all-true / partial / no mask,
-     atol 1e-5; kernel, plain and SDPA (block-causal boolean mask) times;
+  3. local-attention kernel vs its plain PyTorch version at the ZEGGS, BEAT and
+     TWH denoisers' shapes ((B·8, 88, 32) window 11, (B·8, 150, 48) and
+     (B·8, 150, 64) window 15), B = 1 and 2, all-true / partial / no mask,
+     aliased (q = k = v) and distinct q, k, v, packed contiguous and
+     strided-in / merged-out, atol 1e-5; two calls bitwise equal; times of the
+     kernel with the boolean mask and with no mask, of an empty kernel launched
+     the same way, of the plain version and of SDPA (block-causal boolean mask);
   4. encoder-layer kernel vs the plain layer at (1, 89, 256) and (2, 89, 256)
      with 8 layers of seeded weights, in both operand modes: float32 (3xTF32,
      the main path) at atol 1e-4 per layer, `mxu_bf16` against the plain bf16
@@ -97,6 +101,10 @@ def bound(bytes_moved: float, flops: float, flops_per_s: float = F32_FLOPS_PER_S
 # ---- phase 3 --------------------------------------------------------------------
 
 
+# (N, w, D) of the local attention in the ZEGGS, BEAT and TWH denoisers, 8 heads each
+LOCAL_ATTENTION_SHAPES = {"zeggs": (88, 11, 32), "beat": (150, 15, 48), "twh": (150, 15, 64)}
+
+
 def phase_local_attention(dev):
     import torch
     import torch.nn.functional as F
@@ -104,40 +112,79 @@ def phase_local_attention(dev):
     from diffusestylegesture_torch.models.local_attention import local_attention_plain
     from diffusestylegesture_torch.ops import local_attention as la
 
-    n, w, d, H = 88, 11, 32, 8
+    H = 8
     g = torch.Generator(device="cpu").manual_seed(SEED)
     max_err = 0.0
     timings = {}
-    for B in (1, 2):
-        q, k, v = (torch.randn(B * H, n, d, generator=g).to(dev) for _ in range(3))
-        full = torch.ones(B, n, dtype=torch.bool, device=dev)
-        partial = full.clone()
-        partial[-1, -7:] = False
-        for name, mask in (("all", full), ("partial", partial), ("none", None)):
-            out = la.local_attention(q, k, v, w, mask, heads=H)
-            torch.cuda.synchronize()
-            err = (out - local_attention_plain(q, k, v, w, mask, heads=H)).abs().max().item()
-            print(f"local_attention B={B} mask={name}: max_abs_err {err:.3e}")
-            check(err <= ATOL_LOCAL_ATTENTION, f"local_attention B={B} mask={name} err {err}")
-            max_err = max(max_err, err)
+    for shape, (n, w, d) in LOCAL_ATTENTION_SHAPES.items():
+        timings[shape] = {}
+        for B in (1, 2):
+            # (B, N, H·D) activations, their strided (B, H, N, D) views (what the
+            # denoiser hands the kernel) and packed contiguous (B·H, N, D) copies
+            base = [torch.randn(B, n, H * d, generator=g).to(dev) for _ in range(3)]
+            views = [t.view(B, n, H, d).transpose(1, 2) for t in base]
+            packed = [t.reshape(B * H, n, d) for t in views]
+            merged = torch.empty(B, n, H * d, device=dev)
+            merged_view = merged.view(B, n, H, d).transpose(1, 2)
+            full = torch.ones(B, n, dtype=torch.bool, device=dev)
+            partial = full.clone()
+            partial[-1, -7:] = False
+            worst = 0.0
+            for mask in (full, partial, None):
+                for aliased in (True, False):
+                    pk = [packed[0]] * 3 if aliased else packed
+                    vw = [views[0]] * 3 if aliased else views
+                    ref = local_attention_plain(*pk, w, mask, heads=H)
+                    out = la.local_attention(*pk, w, mask, heads=H)
+                    merged.fill_(float("nan"))
+                    la.local_attention(*vw, w, mask, heads=H, out=merged_view)
+                    torch.cuda.synchronize()
+                    worst = max(worst, (out - ref).abs().max().item(),
+                                (merged_view.reshape(ref.shape) - ref).abs().max().item())
+            print(f"local_attention {shape} B={B}: max_abs_err {worst:.3e} over masks all / "
+                  f"partial / none, aliased and distinct q/k/v, packed and strided-in / "
+                  f"merged-out")
+            check(worst <= ATOL_LOCAL_ATTENTION, f"local_attention {shape} B={B} err {worst}")
+            max_err = max(max_err, worst)
+            first = la.local_attention(*packed, w, partial, heads=H)
+            check(torch.equal(first, la.local_attention(*packed, w, partial, heads=H)),
+                  f"local_attention {shape} B={B}: two calls on one input differ")
+            # and the denoiser's variant: q = k = v strided in, merged out
+            x = views[0]
+            first = la.local_attention(x, x, x, w, full, heads=H, out=merged_view).clone()
+            merged.fill_(float("nan"))
+            check(torch.equal(first, la.local_attention(x, x, x, w, full, heads=H,
+                                                        out=merged_view)),
+                  f"local_attention {shape} B={B}: two aliased merged-out calls differ")
 
-        # the main path's mask is all True: window 0's pad keys are masked, so
-        # each query sees the keys of its own and the previous window up to itself
-        pos = torch.arange(n, device=dev)
-        allowed = (pos[None, :] <= pos[:, None]) & (pos[None, :] >= (pos[:, None] // w - 1) * w)
-        sdpa = F.scaled_dot_product_attention(q, k, v, attn_mask=allowed)
-        sdpa_err = (sdpa - la.local_attention(q, k, v, w, full, heads=H)).abs().max().item()
-        check(sdpa_err <= 1e-4, f"SDPA yardstick disagrees with the kernel: {sdpa_err}")
+            # the main path's mask is all True: window 0's pad keys are masked, so
+            # each query sees the keys of its own and the previous window up to itself
+            q, k, v = packed
+            pos = torch.arange(n, device=dev)
+            allowed = (pos[None, :] <= pos[:, None]) & (pos[None, :] >= (pos[:, None] // w - 1) * w)
+            sdpa = F.scaled_dot_product_attention(q, k, v, attn_mask=allowed)
+            sdpa_err = (sdpa - la.local_attention(q, k, v, w, full, heads=H)).abs().max().item()
+            check(sdpa_err <= 1e-4, f"SDPA yardstick disagrees with the kernel: {sdpa_err}")
 
-        nbytes = 4 * (3 * B * H * n * d + B * H * n * d) + B * n
-        flops = 2 * 2 * B * H * n * 2 * w * d
-        timings[B] = dict(
-            ms=device_ms(lambda: la.local_attention(q, k, v, w, full, heads=H)),
-            plain_ms=device_ms(lambda: local_attention_plain(q, k, v, w, full, heads=H)),
-            library_ms=device_ms(
-                lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=allowed)),
-            bound=bound(nbytes, flops))
-        print(f"local_attention B={B} timings: {json.dumps(timings[B])}")
+            # the denoiser's call reads one tensor (q = k = v) and the mask and
+            # writes one; with distinct q, k, v there are three to read
+            tensor_bytes = 4 * B * H * n * d
+            flops = 2 * 2 * B * H * n * 2 * w * d
+            timings[shape][B] = dict(
+                # the denoiser's call: q = k = v strided in, merged out, boolean mask
+                ms=device_ms(lambda: la.local_attention(x, x, x, w, full, heads=H,
+                                                        out=merged_view)),
+                no_mask_ms=device_ms(lambda: la.local_attention(x, x, x, w, None, heads=H,
+                                                                out=merged_view)),
+                # three tiles instead of one, packed contiguous in and out
+                distinct_ms=device_ms(lambda: la.local_attention(q, k, v, w, full, heads=H)),
+                empty_launch_ms=device_ms(lambda: la.launch_empty(B, H, n, w, d, dev)),
+                plain_ms=device_ms(lambda: local_attention_plain(q, k, v, w, full, heads=H)),
+                library_ms=device_ms(
+                    lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=allowed)),
+                bound=bound(2 * tensor_bytes + B * n, flops),
+                distinct_bound_ms=bound(4 * tensor_bytes + B * n, flops)[0])
+            print(f"local_attention {shape} B={B} timings: {json.dumps(timings[shape][B])}")
     return max_err, timings
 
 
@@ -370,7 +417,7 @@ def phase_end_to_end(dev, tmp):
         step = {}
         for impl in ("kernel", "plain"):
             model = load_reference_mdm(mdm_pt, MDMConfig(impl=impl), device=dev)
-            # 86 (kernel) to 203 (plain) launches a call: 4 calls stay
+            # 83 (kernel) to 203 (plain) launches a call: 4 calls stay
             # within the launch queue
             step[impl + "_device_ms"] = device_ms(lambda: model(x, tt, cond), iters=4, warmup=2)
             torch.cuda.synchronize()
@@ -431,23 +478,32 @@ def main() -> int:
     kernels = []
     el_src = ("diffusestylegesture_torch/csrc/encoder_layer.cu",
               "diffusestylegesture_tpu/ops/encoder_layer_pallas.py:120")
-    for name, (src, replaces), err, t, shape in (
+    la_keys = ("ms", "no_mask_ms", "distinct_ms", "distinct_bound_ms", "empty_launch_ms",
+               "plain_ms", "library_ms")
+    la_extra = dict(
+        {key: la_t["zeggs"][1][key] for key in la_keys[1:5]},
+        shapes={shape: {f"b{B}": dict({key: t[key] for key in la_keys},
+                                      bound_ms=t["bound"][0], bound_by=t["bound"][1])
+                        for B, t in la_t[shape].items()}
+                for shape in ("beat", "twh")})
+    for name, (src, replaces), err, t, shape, extra in (
             ("local_attention", ("diffusestylegesture_torch/csrc/local_attention.cu",
                                  "diffusestylegesture_tpu/ops/local_attention_pallas.py:80"),
-             la_err, la_t, "q=k=v (8, 88, 32), w=11"),
+             la_err, la_t["zeggs"], "q=k=v (1, 8, 88, 32) strided in, merged out, w=11", la_extra),
             ("encoder_layer", el_src, el_err["f32"], el_t["f32"],
-             "x (1, 89, 256), H=4, F=1024, float32 (3xTF32)"),
+             "x (1, 89, 256), H=4, F=1024, float32 (3xTF32)", {}),
             ("encoder_layer_bf16", el_src, el_err["bf16"], el_t["bf16"],
-             "x (1, 89, 256), H=4, F=1024, mxu_bf16")):
+             "x (1, 89, 256), H=4, F=1024, mxu_bf16", {})):
+        b2 = dict(ms=t[2]["ms"], plain_ms=t[2]["plain_ms"], library_ms=t[2]["library_ms"],
+                  bound_ms=t[2]["bound"][0], bound_by=t[2]["bound"][1])
+        b2.update({key: t[2][key] for key in la_keys[1:5] if key in t[2]})
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
             launches=e2e["ddpm1000"][f"{name}_launches"],
             max_abs_err=err, ms=t[1]["ms"], plain_ms=t[1]["plain_ms"],
             bound_ms=t[1]["bound"][0], bound_by=t[1]["bound"][1],
             library_ms=t[1]["library_ms"], shape=shape,
-            launches_dpmpp5=e2e["dpmpp5"][f"{name}_launches"],
-            b2=dict(ms=t[2]["ms"], plain_ms=t[2]["plain_ms"], library_ms=t[2]["library_ms"],
-                    bound_ms=t[2]["bound"][0], bound_by=t[2]["bound"][1])))
+            launches_dpmpp5=e2e["dpmpp5"][f"{name}_launches"], b2=b2, **extra))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"e2e": e2e, "build_s": build_s}))

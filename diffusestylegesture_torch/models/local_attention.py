@@ -57,13 +57,17 @@ def local_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, win
 
 def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window_size: int,
                     mask: Optional[torch.Tensor] = None, *, heads: int = 1,
-                    impl: str = "kernel") -> torch.Tensor:
+                    impl: str = "kernel", out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """impl="kernel": the CUDA kernel on a CUDA tensor (its plain version on
-    a CPU tensor); impl="plain": the plain version on any device."""
+    a CPU tensor), which also takes strided or (B, H, N, D) q, k, v and writes
+    into `out` when given (`ops/local_attention.py`); impl="plain": the plain
+    version on any device, packed (B·H, N, D) tensors only."""
     if impl == "plain":
+        if out is not None:
+            raise ValueError("out= needs impl='kernel'")
         return local_attention_plain(q, k, v, window_size, mask, heads=heads)
     if impl != "kernel":
         raise ValueError(f"unknown local attention impl {impl!r}")
     from ..ops import local_attention as ops_local_attention
 
-    return ops_local_attention.local_attention(q, k, v, window_size, mask, heads=heads)
+    return ops_local_attention.local_attention(q, k, v, window_size, mask, heads=heads, out=out)

@@ -130,10 +130,18 @@ class MDM(nn.Module):
 
         # local block: cat(token, pose, audio) → Linear → RoPE → windowed attention
         cat = torch.cat([token[:, None, :].expand(B, T, D), x_, enc_audio], dim=-1)
-        hh = rotary.rope(rotary.heads_split(self.input_process2(cat), H)).contiguous()
-        hh = local_attention(hh, hh, hh, cfg.window_size, cond.get("mask_local"), heads=H,
-                             impl=cfg.impl)
-        h = rotary.heads_merge(hh, B, H)
+        if cfg.impl == "kernel":
+            # RoPE in the (B, T, H, hd) layout the Linear wrote; the kernel reads
+            # the heads through strides and writes the merged (B, T, D) layout
+            hh = rotary.rope_heads(self.input_process2(cat), H).transpose(1, 2)
+            h = torch.empty(B, T, D, dtype=hh.dtype, device=hh.device)
+            local_attention(hh, hh, hh, cfg.window_size, cond.get("mask_local"), heads=H,
+                            out=h.view(B, T, H, D // H).transpose(1, 2))
+        else:
+            hh = rotary.rope(rotary.heads_split(self.input_process2(cat), H)).contiguous()
+            hh = local_attention(hh, hh, hh, cfg.window_size, cond.get("mask_local"), heads=H,
+                                 impl="plain")
+            h = rotary.heads_merge(hh, B, H)
 
         # trunk: prepend token → RoPE over heads → encoder layers → drop token
         seq = torch.cat([token[:, None, :], h], dim=1)

@@ -41,6 +41,15 @@ def heads_merge(x: torch.Tensor, B: int, heads: int) -> torch.Tensor:
     return x.reshape(B, heads, T, hd).transpose(1, 2).reshape(B, T, heads * hd)
 
 
+def rope_heads(x: torch.Tensor, heads: int) -> torch.Tensor:
+    """(B, T, D) → (B, T, heads, D/heads), each head rotated with the table for
+    T: what `rope(heads_split(x, heads))` computes, element for element, left
+    in the layout x has (no transposing copy)."""
+    B, T, D = x.shape
+    freqs = sinusoidal_freqs(T, D // heads, device=x.device)
+    return apply_rotary(x.reshape(B, T, heads, D // heads), freqs[:, None, :])
+
+
 def rope(x: torch.Tensor) -> torch.Tensor:
     """Rotate (•, T, d) with the table for x's length."""
     return apply_rotary(x, sinusoidal_freqs(x.shape[1], x.shape[2], device=x.device))

@@ -6,7 +6,8 @@ machine with a card and no JAX:
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_isolation.py
 
 There the `cuda` tests hold each CUDA kernel against its plain PyTorch
-version (local attention atol 1e-5; encoder layer atol 1e-4 in float32,
+version (local attention atol 1e-5, at the ZEGGS, BEAT and TWH shapes and odd
+ones, aliased and distinct q/k/v, packed and strided-in / merged-out; encoder layer atol 1e-4 in float32,
 where the kernel's 3xTF32 products sum in another order, and 1e-2 in the
 `mxu_bf16` mode, where a sum in another order can round an operand to the
 other bf16 neighbour) and check the launch counters; elsewhere they skip.
@@ -22,6 +23,7 @@ import pytest
 import torch
 import yaml
 
+import chip_smoke
 import diffusestylegesture_torch
 from diffusestylegesture_torch import resolve_device
 from diffusestylegesture_torch.models.local_attention import local_attention_plain
@@ -152,21 +154,88 @@ def test_cli_refuses_cuda_without_a_card(tmp_path, monkeypatch):
 # ---- on the card ---------------------------------------------------------------
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("b,masked", [(1, "all"), (2, "partial"), (1, "none")])
-def test_cuda_local_attention_matches_plain(cuda_device, b, masked):
-    g = torch.Generator().manual_seed(b)
-    q, k, v = (torch.randn(b * 8, 88, 32, generator=g).to(cuda_device) for _ in range(3))
-    mask = torch.ones(b, 88, dtype=torch.bool, device=cuda_device)
+# (N, w, D) at 8 heads: the ZEGGS, BEAT and TWH denoisers' shapes, an odd one on
+# the scalar path (D % 4 != 0), one with two keys a lane (2w > 32), the largest
+LOCAL_ATTENTION_SHAPES = [*chip_smoke.LOCAL_ATTENTION_SHAPES.values(), (40, 5, 30), (80, 20, 64),
+                          (64, 32, 128)]
+
+
+def local_attention_case(device, shape, b, masked, aliased, layout, heads=8):
+    """(q, k, v, mask, out, packed q/k/v): `layout` "packed" is contiguous
+    (B·H, N, D) tensors and a new output; "merged" is the (B, H, N, D) view of
+    (B, N, H·D) activations, with `out` such a view too."""
+    n, w, d = shape
+    g = torch.Generator().manual_seed(1000 * b + n + d)
+    base = [torch.randn(b, n, heads * d, generator=g).to(device) for _ in range(3)]
+    if aliased:
+        base = [base[0]] * 3
+    views = [t.view(b, n, heads, d).transpose(1, 2) for t in base]
+    packed = [t.reshape(b * heads, n, d) for t in views]
+    mask = torch.ones(b, n, dtype=torch.bool, device=device)
     if masked == "partial":
         mask[-1, -7:] = False
-    mask = None if masked == "none" else mask
+        mask[0, 3] = False
+    elif masked == "row":
+        mask[0] = False  # every key of batch element 0: its rows are uniform averages
+    elif masked == "none":
+        mask = None
+    if layout == "packed":
+        if aliased:
+            packed = [packed[0]] * 3
+        return packed, mask, None, packed
+    out = torch.full((b, n, heads * d), float("nan"), device=device)
+    return views, mask, out.view(b, n, heads, d).transpose(1, 2), packed
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["packed", "merged"])
+@pytest.mark.parametrize("aliased", [True, False], ids=["aliased", "distinct"])
+@pytest.mark.parametrize("masked", ["all", "partial", "none", "row"])
+@pytest.mark.parametrize("b", [1, 2])
+@pytest.mark.parametrize("shape", LOCAL_ATTENTION_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_cuda_local_attention_matches_plain(cuda_device, shape, b, masked, aliased, layout):
+    w = shape[1]
+    qkv, mask, out, packed = local_attention_case(cuda_device, shape, b, masked, aliased, layout)
     before = ops_local_attention.launches
-    out = ops_local_attention.local_attention(q, k, v, 11, mask, heads=8)
+    res = ops_local_attention.local_attention(*qkv, w, mask, heads=8, out=out)
     torch.cuda.synchronize()
     assert ops_local_attention.launches == before + 1
-    ref = local_attention_plain(q, k, v, 11, mask, heads=8)
-    assert (out - ref).abs().max().item() <= 1e-5
+    ref = local_attention_plain(*packed, w, mask, heads=8)
+    if out is not None:
+        assert res is out
+        res = res.reshape(ref.shape)  # the merged buffer, read back packed
+    assert res.shape == ref.shape
+    assert (res - ref).abs().max().item() <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", LOCAL_ATTENTION_SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("aliased,layout", [(False, "packed"), (True, "merged")],
+                         ids=["distinct-packed", "aliased-merged"])
+def test_cuda_local_attention_is_deterministic(cuda_device, shape, aliased, layout):
+    qkv, mask, out, _ = local_attention_case(cuda_device, shape, 2, "partial", aliased, layout)
+    first = ops_local_attention.local_attention(*qkv, shape[1], mask, heads=8, out=out).clone()
+    if out is not None:
+        out.fill_(float("nan"))
+    second = ops_local_attention.local_attention(*qkv, shape[1], mask, heads=8, out=out)
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+def test_cuda_local_attention_rejects_shapes_beyond_its_limits(cuda_device):
+    before = ops_local_attention.launches
+    wide = torch.randn(8, 22, ops_local_attention.MAX_DIM + 4, device=cuda_device)
+    with pytest.raises(ValueError, match=f"head dim .* {ops_local_attention.MAX_DIM}"):
+        ops_local_attention.local_attention(wide, wide, wide, 11, heads=8)
+    long = torch.randn(8, 66, 32, device=cuda_device)
+    with pytest.raises(ValueError, match=f"window 33 .* {ops_local_attention.MAX_WINDOW}"):
+        ops_local_attention.local_attention(long, long, long, 33, heads=8)
+    with pytest.raises(ValueError, match="divide N=66"):
+        ops_local_attention.local_attention(long, long, long, 12, heads=8)
+    with pytest.raises(ValueError, match="mask must be a contiguous bool"):
+        ops_local_attention.local_attention(
+            long, long, long, 11, torch.ones(1, 66, dtype=torch.uint8, device=cuda_device), heads=8)
+    assert ops_local_attention.launches == before
 
 
 # the denoiser's shapes (B = 2 under CFG), BEAT's / TWH's trunk widths and the
