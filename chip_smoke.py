@@ -25,9 +25,17 @@ Phases (any failure exits non-zero before the result line):
   5. end to end at full width through `cli.sample.main`: a seeded random MDM
      (1141 / 256 / 8 layers / 4 heads / ff 1024) and WavLM-Large (24 layers,
      d 1024) in reference checkpoint layout, a seeded 12.5 s wav (3 windows);
-     DDPM-1000 and the gated dpmpp5 mode; launch counters reset before and read
-     after each run and held to the expected counts; then dpmpp5 through the
-     kernel path and the plain path on the same injected noise, ≤ 2e-3 rel;
+     DDPM-1000, the gated dpmpp5 mode and dpmpp5 with --serve_fast, each on the
+     CUDA-graph engine, launch counters reset before and read after each run
+     and held to the expected counts (kernel B only in its bf16 mode under
+     --serve_fast), capture seconds beside generate seconds; the same runs in
+     this process through a captured engine and through the eager loop,
+     timed, bitwise equal to each other and to the CLI's poses; graph vs
+     eager bitwise equal at guidance 1.5 and for a 2-clip generate_multi_clip;
+     --serve_fast within RMS/std 2e-2 of float32 and the kernel path within
+     2e-3 rel of the plain path, dpmpp5 on the same injected noise; WavLM-Large
+     in float32 and bf16, and one denoiser call eager, replayed from a graph
+     and through the plain path (device and wall ms);
   6. print the card line, a `kernels` JSON line, an `e2e` JSON line and, last,
      {"ok": true, "device": {...}}.
 
@@ -37,6 +45,7 @@ Imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -55,6 +64,7 @@ ATOL_LOCAL_ATTENTION = 1e-5
 ATOL_ENCODER_LAYER = 1e-4
 ATOL_ENCODER_LAYER_BF16 = 1e-2
 E2E_REL = 2e-3
+BF16_TOL = 2e-2  # bench.py's gate of the bf16 serving mode: RMS(bf16 - f32) / std(f32)
 
 
 class SmokeFailure(RuntimeError):
@@ -328,7 +338,25 @@ def write_full_width_run(tmp, dev):
     return cfg_path, mdm_pt, wav_path
 
 
-def phase_end_to_end(dev, tmp):
+def zeggs_sampler(dev, sched, sampler="dpmpp", guidance=0.0, graphs=None):
+    """The CLI's engine at the chip run's configuration (3 windows, B = 1)."""
+    from diffusestylegesture_torch.models.wavlm import make_zeggs_wavlm_fn
+    from diffusestylegesture_torch.sample import ZeggsEngineConfig, ZeggsSampler
+
+    return ZeggsSampler(lambda m, x, t, c, uncond=None: m(x, t, c, uncond=uncond),
+                        make_zeggs_wavlm_fn(88), sched,
+                        ZeggsEngineConfig(sampler=sampler, guidance_scale=guidance),
+                        device=dev, graphs=graphs)
+
+
+def timed(fn):
+    """(result, wall seconds) of fn(), whose result is on the host."""
+    t0 = time.perf_counter()
+    res = fn()
+    return res, time.perf_counter() - t0
+
+
+def phase_end_to_end(dev, tmp, card):
     import numpy as np
     import torch
 
@@ -337,100 +365,170 @@ def phase_end_to_end(dev, tmp):
     from diffusestylegesture_torch.config import load_yaml_config
     from diffusestylegesture_torch.data import load_wav_16k
     from diffusestylegesture_torch.models.convert import load_reference_mdm, load_wavlm_checkpoint
-    from diffusestylegesture_torch.models.mdm import MDMConfig
     from diffusestylegesture_torch.models.wavlm import make_zeggs_wavlm_fn
+    from diffusestylegesture_torch.motion import zeggs_features as zf
     from diffusestylegesture_torch.ops import encoder_layer as el
     from diffusestylegesture_torch.ops import local_attention as la
-    from diffusestylegesture_torch.sample import ZeggsEngineConfig, ZeggsSampler, slice_audio_windows
+    from diffusestylegesture_torch.sample import (ZeggsEngineConfig, generate_multi_clip,
+                                                  slice_audio_windows)
+    from diffusestylegesture_torch.utils.graphs import GraphSet
 
     t0 = time.perf_counter()
     cfg_path, mdm_pt, wav_path = write_full_width_run(tmp, dev)
     setup_s = time.perf_counter() - t0
     print(f"full-width checkpoints written in {setup_s:.1f} s")
+    cfg = load_yaml_config(cfg_path)
+    betas = D.named_beta_schedule("cosine", 1000)
+    scheds = {"ddpm1000": D.Schedule.create(betas, device=dev),
+              "dpmpp5": D.spaced_schedule(betas, D.space_timesteps(1000, "ddim5"), device=dev)}
+    audio = load_wav_16k(wav_path)
+    mean = np.load(os.path.join(cfg.data_dir, "mean.npz"))["mean"]
+    std = np.load(os.path.join(cfg.data_dir, "std.npz"))["std"]
+    style = zf.style_onehot("Happy")[None]  # as the CLI infers it from the file name
+    stats = dict(mean=mean, std=std)
     windows, frames = 3, 3 * 80 - 8
     results = {}
-    for mode, extra, calls_per_window in (("ddpm1000", [], 1000),
-                                          ("dpmpp5", ["--sampler", "dpmpp", "--respace", "5"], 5)):
-        la.launches = 0
-        el.launches = 0
-        el.launches_bf16 = 0
-        t0 = time.perf_counter()
-        res = sample_cli.main(["--config", cfg_path, "--model_path", mdm_pt,
-                               "--audiowavlm_path", wav_path,
-                               "--save_dir", os.path.join(tmp, "out_" + mode),
-                               "--seed", "123456"] + extra)
-        wall = time.perf_counter() - t0
-        counts = (la.launches, el.launches)
-        bf16_launches = el.launches_bf16
+
+    # each path through the CLI, on the graph engine: counters from 0 around the run
+    runs = (("ddpm1000", [], 1000, False), ("dpmpp5", ["--sampler", "dpmpp", "--respace", "5"], 5,
+                                           False),
+            ("dpmpp5_serve_fast", ["--sampler", "dpmpp", "--respace", "5", "--serve_fast"], 5,
+             True))
+    cli_poses = {}
+    for mode, extra, calls_per_window, bf16 in runs:
+        la.launches = el.launches = el.launches_bf16 = 0
+        res, wall = timed(lambda: sample_cli.main(
+            ["--config", cfg_path, "--model_path", mdm_pt, "--audiowavlm_path", wav_path,
+             "--save_dir", os.path.join(tmp, "out_" + mode), "--seed", "123456"] + extra))
+        counts = (la.launches, el.launches, el.launches_bf16)
         calls = windows * calls_per_window
-        poses = res["poses"]
+        poses = cli_poses[mode] = res["poses"]
         check(len(res["paths"]) == 1 and os.path.getsize(res["paths"][0]) > 0,
               f"{mode}: no BVH written")
         check(poses.shape == (1, frames, 1141), f"{mode}: poses shape {poses.shape}")
         check(bool(np.isfinite(poses).all()), f"{mode}: non-finite poses")
-        check(counts == (calls, 8 * calls),
-              f"{mode}: launches {counts}, expected {(calls, 8 * calls)}")
+        expected = (calls, 0, 8 * calls) if bf16 else (calls, 8 * calls, 0)
+        check(counts == expected, f"{mode}: launches {counts}, expected {expected}")
+        gen_s, cap_s = res["generate_seconds"], res["capture_seconds"]
         results[mode] = dict(denoiser_calls=calls, local_attention_launches=counts[0],
                              encoder_layer_launches=counts[1],
-                             encoder_layer_bf16_launches=bf16_launches,
-                             generate_s=res["generate_seconds"], cli_wall_s=wall,
-                             frames=frames, frames_per_s=frames / res["generate_seconds"])
-        print(f"e2e {mode}: {json.dumps(results[mode])}")
+                             encoder_layer_bf16_launches=counts[2],
+                             generate_s=gen_s, capture_s=cap_s, cli_wall_s=wall, frames=frames,
+                             frames_per_s=frames / gen_s)
+        print(f"e2e {mode} (CLI, graphs, capture included) [{card}]: "
+              f"{json.dumps(results[mode])}")
 
-    # kernel path vs plain path, dpmpp5, same weights and injected noise
-    cfg = load_yaml_config(cfg_path)
-    wcfg, wavlm = load_wavlm_checkpoint(cfg.wavlm_path, device=dev)
-    sched = D.spaced_schedule(D.named_beta_schedule("cosine", 1000),
-                              D.space_timesteps(1000, "ddim5"), device=dev)
-    audio = load_wav_16k(wav_path)
+    # the same runs again in this process: graphs captured, then timed, and eager
+    models = {}
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        wcfg, wavlm = load_wavlm_checkpoint(cfg.wavlm_path, device=dev, dtype=dtype)
+        mcfg = sample_cli.mdm_config(cfg, wcfg.encoder_embed_dim, serve_fast=name == "bf16")
+        models[name] = (load_reference_mdm(mdm_pt, mcfg, device=dev), wavlm)
+    for mode, _, _, bf16 in runs:
+        model, wavlm = models["bf16" if bf16 else "f32"]
+        sched = scheds[mode.split("_")[0]]
+        sampler = "ddpm" if mode == "ddpm1000" else "dpmpp"
+        out = {}
+        for path, flag in (("graph", None), ("eager", False)):
+            s = zeggs_sampler(dev, sched, sampler, graphs=flag)
+            if flag is None:  # capture first, then time a call that replays
+                s.generate(model, wavlm, audio, style,
+                           torch.Generator(device=dev).manual_seed(123456), **stats)
+            out[path] = timed(lambda: s.generate(
+                model, wavlm, audio, style, torch.Generator(device=dev).manual_seed(123456),
+                **stats))
+        same = bool(np.array_equal(out["graph"][0], out["eager"][0]))
+        as_cli = bool(np.array_equal(out["graph"][0], cli_poses[mode]))
+        check(same, f"{mode}: graph and eager poses differ "
+                    f"(max {np.abs(out['graph'][0] - out['eager'][0]).max()})")
+        check(as_cli, f"{mode}: the CLI's poses differ from the same run in this process")
+        results[mode].update(
+            graph_generate_s=out["graph"][1], graph_frames_per_s=frames / out["graph"][1],
+            eager_generate_s=out["eager"][1], eager_frames_per_s=frames / out["eager"][1],
+            graph_equals_eager=same)
+        print(f"e2e {mode} in one process [{card}]: graph {out['graph'][1]:.4f} s "
+              f"({frames / out['graph'][1]:.1f} frames/s), eager {out['eager'][1]:.4f} s "
+              f"({frames / out['eager'][1]:.1f} frames/s), equal {same}")
+
+    # graph vs eager with guidance (B = 2 inside the denoiser) and two clips at once
+    gen = lambda: torch.Generator(device=dev).manual_seed(99)  # noqa: E731
+    model, wavlm = models["f32"]
+    cfg_out = [zeggs_sampler(dev, scheds["dpmpp5"], guidance=1.5, graphs=flag).generate(
+        model, wavlm, audio, style, gen(), **stats) for flag in (None, False)]
+    clips = [audio, audio[: 16000 * 5]]
+    multi = [generate_multi_clip(zeggs_sampler(dev, scheds["dpmpp5"], graphs=flag), model, wavlm,
+                                 clips, np.eye(6, dtype=np.float32)[[0, 3]], gen(), **stats)
+             for flag in (None, False)]
+    results["cfg15_graph_equals_eager"] = bool(np.array_equal(*cfg_out))
+    results["multi_clip_graph_equals_eager"] = all(
+        np.array_equal(a, b) for a, b in zip(*multi)) and len(multi[0][1]) == 72
+    print(f"graph vs eager: CFG 1.5 equal {results['cfg15_graph_equals_eager']}, 2-clip "
+          f"generate_multi_clip equal {results['multi_clip_graph_equals_eager']}")
+    check(results["cfg15_graph_equals_eager"], "CFG: graph and eager poses differ")
+    check(results["multi_clip_graph_equals_eager"], "multi-clip: graph and eager poses differ")
+
+    # bf16 serving against float32, dpmpp5 on the same injected noise; kernel
+    # path against plain path
     noise = np.random.default_rng(SEED + 1).standard_normal(
         (windows, 1, 1141, 1, 88)).astype(np.float32)
-    mean = np.load(os.path.join(cfg.data_dir, "mean.npz"))["mean"]
-    std = np.load(os.path.join(cfg.data_dir, "std.npz"))["std"]
-    style = np.eye(6, dtype=np.float32)[:1]
     poses = {}
-    for impl in ("kernel", "plain"):
-        model = load_reference_mdm(mdm_pt, MDMConfig(impl=impl), device=dev)
-        sampler = ZeggsSampler(lambda m, x, t, c, uncond=None: m(x, t, c, uncond=uncond),
-                               make_zeggs_wavlm_fn(88), sched,
-                               ZeggsEngineConfig(sampler="dpmpp"), device=dev)
-        gen = torch.Generator(device=dev).manual_seed(123456)
-        poses[impl] = sampler.generate(model, wavlm, audio, style, gen, mean=mean, std=std,
-                                       noise_windows=noise)
+    for name in ("f32", "bf16"):
+        poses[name] = zeggs_sampler(dev, scheds["dpmpp5"]).generate(
+            *models[name], audio, style, gen(), noise_windows=noise, **stats)
+    plain = load_reference_mdm(mdm_pt, dataclasses.replace(models["f32"][0].cfg, impl="plain"),
+                               device=dev)
+    poses["plain"] = zeggs_sampler(dev, scheds["dpmpp5"]).generate(
+        plain, models["f32"][1], audio, style, gen(), noise_windows=noise, **stats)
+    bf16_err = float(np.sqrt(np.mean((poses["bf16"] - poses["f32"]) ** 2)) / poses["f32"].std())
+    print(f"serve_fast vs float32 (dpmpp5, same noise): RMS/std {bf16_err:.3e} "
+          f"(bar {BF16_TOL})")
+    check(bf16_err < BF16_TOL, f"serve_fast: RMS/std {bf16_err} >= {BF16_TOL}")
     scale = float(np.abs(poses["plain"]).mean())
-    err = float(np.abs(poses["kernel"] - poses["plain"]).max())
+    err = float(np.abs(poses["f32"] - poses["plain"]).max())
     print(f"kernel path vs plain path (dpmpp5): max abs err {err:.3e}, scale {scale:.3f}")
     check(err <= E2E_REL * max(scale, 1.0), f"kernel vs plain path: {err} > {E2E_REL} rel")
 
-    # WavLM-Large over the clip's windows, and one denoiser call per path
+    # WavLM-Large over the clip's windows in each dtype, replayed from a graph
+    # as the engine runs it (700-1,000 launches a call: eager calls queued
+    # behind the sleep outlast it), and one denoiser call per path: eager
+    # kernel path, one graph replay of it, eager plain path
     feats_fn = make_zeggs_wavlm_fn(88)
     win = torch.as_tensor(slice_audio_windows(audio, ZeggsEngineConfig()), device=dev)
+    step, wavlm_ms = {}, {}
     with torch.inference_mode():
-        # ~700 launches a call: one call stays within the launch queue
-        wavlm_ms = device_ms(lambda: feats_fn(wavlm, win), iters=1, warmup=1)
+        for name in ("f32", "bf16"):
+            encoder, _ = GraphSet(dev).capture(lambda: feats_fn(models[name][1], win))
+            wavlm_ms[name] = device_ms(encoder.replay, iters=5, warmup=1)
         x = torch.randn(1, 1141, 1, 88, device=dev)
         cond = {"style": torch.as_tensor(style, device=dev),
                 "seed": torch.zeros(1, 1141, 1, 8, device=dev),
-                "audio": feats_fn(wavlm, win)[:1],
+                "audio": feats_fn(models["f32"][1], win)[:1],
                 "mask_local": torch.ones(1, 88, dtype=torch.bool, device=dev)}
         tt = torch.tensor([500], device=dev)
-        step = {}
-        for impl in ("kernel", "plain"):
-            model = load_reference_mdm(mdm_pt, MDMConfig(impl=impl), device=dev)
-            # 83 (kernel) to 203 (plain) launches a call: 4 calls stay
-            # within the launch queue
-            step[impl + "_device_ms"] = device_ms(lambda: model(x, tt, cond), iters=4, warmup=2)
+        out = torch.empty_like(x)
+        replay, _ = GraphSet(dev).capture(lambda: out.copy_(models["f32"][0](x, tt, cond)))
+        replay.launches = (0, 0, 0)  # timing calls are not main-path launches
+        for name, fn, iters in (("kernel", lambda: models["f32"][0](x, tt, cond), 4),
+                                ("graph_replay", replay.replay, 40),
+                                ("plain", lambda: plain(x, tt, cond), 4)):
+            # 83 (kernel) to 203 (plain) launches a call: 4 calls stay within
+            # the launch queue; a replay is one
+            step[name + "_device_ms"] = device_ms(fn, iters=iters, warmup=2)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             for _ in range(50):
-                model(x, tt, cond)
+                fn()
             torch.cuda.synchronize()
-            step[impl + "_wall_ms"] = (time.perf_counter() - t0) / 50 * 1e3
-    results["kernel_vs_plain_max_abs_err"] = err
-    results["kernel_vs_plain_scale"] = scale
-    results["wavlm_large_3_windows_ms"] = wavlm_ms
-    results["denoiser_call_b1"] = step
-    print(f"denoiser call B=1: {json.dumps(step)}; WavLM-Large 3 windows {wavlm_ms:.3f} ms")
+            step[name + "_wall_ms"] = (time.perf_counter() - t0) / 50 * 1e3
+        replayed = out.clone()
+        check(torch.equal(replayed, models["f32"][0](x, tt, cond)),
+              "a replayed denoiser call differs from the eager call")
+    results.update(kernel_vs_plain_max_abs_err=err, kernel_vs_plain_scale=scale,
+                   serve_fast_rms_over_std=bf16_err,
+                   wavlm_large_3_windows_ms=wavlm_ms["f32"],
+                   wavlm_large_3_windows_bf16_ms=wavlm_ms["bf16"], denoiser_call_b1=step)
+    print(f"denoiser call B=1 [{card}]: {json.dumps(step)}; WavLM-Large 3 windows "
+          f"{wavlm_ms['f32']:.3f} ms f32, {wavlm_ms['bf16']:.3f} ms bf16")
     return results
 
 
@@ -457,8 +555,14 @@ def main() -> int:
     dev = resolve_device("cuda")  # also switches TF32 off for matmuls and cuDNN
     check(not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32,
           "TF32 still enabled")
-    print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
-          f"{torch.cuda.get_device_name(0)}")
+    nvcc = subprocess.run([build.nvcc_path(), "--version"], capture_output=True, text=True,
+                          timeout=60).stdout.strip().splitlines()[-1]
+    kernel_module = subprocess.run(
+        ["nvidia-smi", "--query-gpu=driver_version", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip()
+    print(f"torch {torch.__version__} (CUDA runtime {torch.version.cuda}) on "
+          f"{torch.cuda.get_device_name(0)}, NVIDIA kernel module {kernel_module}, "
+          f"kernels built by {nvcc}")
 
     # 2. build
     t0 = time.perf_counter()
@@ -472,7 +576,7 @@ def main() -> int:
     la_err, la_t = phase_local_attention(dev)
     el_err, el_t = phase_encoder_layer(dev)
     with tempfile.TemporaryDirectory(prefix="dsg_chip_smoke_") as tmp:
-        e2e = phase_end_to_end(dev, tmp)
+        e2e = phase_end_to_end(dev, tmp, card)
 
     # 6. lines
     kernels = []
@@ -486,24 +590,28 @@ def main() -> int:
                                       bound_ms=t["bound"][0], bound_by=t["bound"][1])
                         for B, t in la_t[shape].items()}
                 for shape in ("beat", "twh")})
-    for name, (src, replaces), err, t, shape, extra in (
+    # each kernel's launches on its path: DDPM-1000 (f32), and the dpmpp5
+    # --serve_fast run for kernel B's bf16 mode
+    for name, (src, replaces), err, t, shape, path, extra in (
             ("local_attention", ("diffusestylegesture_torch/csrc/local_attention.cu",
                                  "diffusestylegesture_tpu/ops/local_attention_pallas.py:80"),
-             la_err, la_t["zeggs"], "q=k=v (1, 8, 88, 32) strided in, merged out, w=11", la_extra),
+             la_err, la_t["zeggs"], "q=k=v (1, 8, 88, 32) strided in, merged out, w=11",
+             "ddpm1000", la_extra),
             ("encoder_layer", el_src, el_err["f32"], el_t["f32"],
-             "x (1, 89, 256), H=4, F=1024, float32 (3xTF32)", {}),
+             "x (1, 89, 256), H=4, F=1024, float32 (3xTF32)", "ddpm1000", {}),
             ("encoder_layer_bf16", el_src, el_err["bf16"], el_t["bf16"],
-             "x (1, 89, 256), H=4, F=1024, mxu_bf16", {})):
+             "x (1, 89, 256), H=4, F=1024, mxu_bf16", "dpmpp5_serve_fast", {})):
         b2 = dict(ms=t[2]["ms"], plain_ms=t[2]["plain_ms"], library_ms=t[2]["library_ms"],
                   bound_ms=t[2]["bound"][0], bound_by=t[2]["bound"][1])
         b2.update({key: t[2][key] for key in la_keys[1:5] if key in t[2]})
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
-            launches=e2e["ddpm1000"][f"{name}_launches"],
+            launches=e2e[path][f"{name}_launches"], launches_path=path,
             max_abs_err=err, ms=t[1]["ms"], plain_ms=t[1]["plain_ms"],
             bound_ms=t[1]["bound"][0], bound_by=t[1]["bound"][1],
             library_ms=t[1]["library_ms"], shape=shape,
             launches_dpmpp5=e2e["dpmpp5"][f"{name}_launches"], b2=b2, **extra))
+    check(all(k["launches"] > 0 for k in kernels), "a kernel was not launched on its path")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"e2e": e2e, "build_s": build_s}))

@@ -13,6 +13,7 @@
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Mapping, Union
 
 import numpy as np
@@ -147,12 +148,14 @@ def load_reference_mdm(path: str, cfg: MDMConfig = MDMConfig(),
     return model.to(dev).eval()
 
 
-def load_wavlm_checkpoint(path: str, device: Union[str, torch.device] = "cuda"):
+def load_wavlm_checkpoint(path: str, device: Union[str, torch.device] = "cuda",
+                          dtype: torch.dtype = torch.float32):
     """`WavLM-Large.pt` layout ({'cfg': dict, 'model': state_dict}) →
-    (WavLMConfig, eval-mode `WavLM` on `device`)."""
+    (WavLMConfig, eval-mode `WavLM` on `device`); `dtype=torch.bfloat16`
+    casts the weights and runs the encoder in bf16 (`WavLMConfig.dtype`)."""
     dev = resolve_device(device)
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
-    cfg = WavLMConfig.from_torch_cfg(ckpt["cfg"])
+    cfg = dataclasses.replace(WavLMConfig.from_torch_cfg(ckpt["cfg"]), dtype=dtype)
     sd = dict(ckpt["model"])
     g = sd.pop("encoder.pos_conv.0.weight_g", None)
     v = sd.pop("encoder.pos_conv.0.weight_v", None)

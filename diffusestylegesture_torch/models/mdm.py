@@ -12,7 +12,16 @@ Port of `diffusestylegesture_tpu/models/mdm.py` and of its serving twin
 
 The local attention and each trunk layer run through the hand-written
 CUDA kernels on a CUDA tensor (`ops/`); ``impl='plain'`` runs their plain
-PyTorch versions instead. Parameter names are the reference module's, so
+PyTorch versions instead.
+
+``dtype=torch.bfloat16`` is the serving mode (`--serve_fast`, with
+``activation='gelu_tanh'``): every trunk layer runs kernel B in its
+`mxu_bf16` mode (bf16 matmul operands, float32 sums; on the CPU the plain
+twin `TorchTransformerEncoder(..., mxu_bf16=True)`). The rest stays float32,
+the local block included: kernel A takes float32 only. The JAX model with
+``dtype=bfloat16`` (and bf16-cast params) runs the local block and the trunk's
+activations in bf16 as well; the port is held to it by the bench gate's
+bar, RMS/std 2e-2 of the final poses. Parameter names are the reference module's, so
 a reference state_dict loads with `load_state_dict` once `clip_model.*`
 and the unused buffers are dropped (`models/convert.py`).
 """
@@ -57,6 +66,8 @@ class MDMConfig:
     # "kernel": the CUDA kernels on CUDA tensors; "plain": the plain
     # PyTorch versions everywhere (the comparison path)
     impl: str = "kernel"
+    # torch.float32, or torch.bfloat16: the trunk's matmul operands in bf16
+    dtype: torch.dtype = torch.float32
 
     @property
     def audio_feat_dim(self) -> int:
@@ -88,6 +99,8 @@ class MDMConfig:
                 "+ wavlm denoiser; unsupported: " + ", ".join(unsupported))
         if self.impl not in ("kernel", "plain"):
             raise ValueError(f"unknown impl {self.impl!r}")
+        if self.dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"dtype must be torch.float32 or torch.bfloat16, not {self.dtype}")
 
 
 class MDM(nn.Module):
@@ -146,5 +159,6 @@ class MDM(nn.Module):
         # trunk: prepend token → RoPE over heads → encoder layers → drop token
         seq = torch.cat([token[:, None, :], h], dim=1)
         seq = rotary.heads_merge(rotary.rope(rotary.heads_split(seq, H)), B, H).contiguous()
-        out = self.seqTransEncoder(seq, impl=cfg.impl)[:, 1:]
+        out = self.seqTransEncoder(seq, impl=cfg.impl,
+                                   mxu_bf16=cfg.dtype == torch.bfloat16)[:, 1:]
         return self.output_process(out)

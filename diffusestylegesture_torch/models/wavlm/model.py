@@ -15,7 +15,11 @@ Port of `diffusestylegesture_tpu/models/wavlm/model.py` (reference
     from its own queries, pre-LN (Large) or post-LN (Base) blocks.
 
 Plain PyTorch ops (the JAX package leaves this encoder to XLA; it has no
-Pallas kernel). Module names follow the reference, so a reference
+Pallas kernel). ``WavLMConfig.dtype=torch.bfloat16`` (`--serve_fast`) holds
+the weights and runs the convolutions and matmuls in bf16, with LayerNorm /
+GroupNorm statistics and the attention softmax in float32, as the JAX
+config's `dtype` does (`models/wavlm/model.py:44-54`, `:282-288`); the
+features come out in bf16. Module names follow the reference, so a reference
 state_dict loads once the pos-conv weight-norm is folded
 (`models/convert.py::load_wavlm_checkpoint`).
 """
@@ -52,6 +56,7 @@ class WavLMConfig:
     num_buckets: int = 320
     max_distance: int = 800
     gru_rel_pos: bool = True
+    dtype: torch.dtype = torch.float32  # compute dtype: float32 or bfloat16
 
     @classmethod
     def from_torch_cfg(cls, cfg: dict) -> "WavLMConfig":
@@ -61,8 +66,15 @@ class WavLMConfig:
         if isinstance(layers, str):
             layers = _parse_conv_layers(layers)
         layers = tuple(tuple(int(v) for v in t) for t in layers)
-        keep = {f.name for f in dataclasses.fields(cls)} - {"conv_feature_layers"}
+        keep = {f.name for f in dataclasses.fields(cls)} - {"conv_feature_layers", "dtype"}
         return cls(conv_feature_layers=layers, **{k: v for k, v in cfg.items() if k in keep})
+
+
+def _ln(norm: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
+    """LayerNorm with float32 statistics, cast back to x's dtype (a no-op cast
+    in float32)."""
+    return F.layer_norm(x.float(), norm.normalized_shape, norm.weight.float(),
+                        norm.bias.float(), norm.eps).to(x.dtype)
 
 
 def _parse_conv_layers(spec: str):
@@ -119,9 +131,11 @@ class ConvFeatureExtractor(nn.Module):
         for i, layer in enumerate(self.conv_layers):
             h = layer[0](h)
             if self.mode == "layer_norm":
-                h = layer[2][1](h.transpose(1, 2)).transpose(1, 2)
+                h = _ln(layer[2][1], h.transpose(1, 2)).transpose(1, 2)
             elif i == 0:
-                h = layer[2](h)
+                gn = layer[2]
+                h = F.group_norm(h.float(), gn.num_groups, gn.weight.float(), gn.bias.float(),
+                                 gn.eps).to(h.dtype)
             h = F.gelu(h)
         return h.transpose(1, 2)
 
@@ -175,7 +189,7 @@ class GatedRelPosAttention(nn.Module):
         kh = self.k_proj(x).reshape(B, T, H, hd).transpose(1, 2)
         vh = self.v_proj(x).reshape(B, T, H, hd).transpose(1, 2)
 
-        sim = torch.matmul(qh * hd ** -0.5, kh.transpose(-1, -2))
+        sim = torch.matmul(qh * hd ** -0.5, kh.transpose(-1, -2)).float()
         if position_bias is not None:
             bias = position_bias[None]
             if cfg.gru_rel_pos:
@@ -186,7 +200,7 @@ class GatedRelPosAttention(nn.Module):
             sim = sim + bias
         if padding_mask is not None:
             sim = sim.masked_fill(padding_mask[:, None, None, :], torch.finfo(torch.float32).min)
-        out = torch.matmul(torch.softmax(sim, dim=-1), vh)
+        out = torch.matmul(torch.softmax(sim, dim=-1).to(vh.dtype), vh)
         out = out.transpose(1, 2).reshape(B, T, D)
         return self.out_proj(out), position_bias
 
@@ -204,14 +218,14 @@ class EncoderLayer(nn.Module):
 
     def forward(self, x, position_bias, padding_mask=None):
         if self.layer_norm_first:
-            h, position_bias = self.self_attn(self.self_attn_layer_norm(x), position_bias,
+            h, position_bias = self.self_attn(_ln(self.self_attn_layer_norm, x), position_bias,
                                               padding_mask)
             x = x + h
-            x = x + self.fc2(F.gelu(self.fc1(self.final_layer_norm(x))))
+            x = x + self.fc2(F.gelu(self.fc1(_ln(self.final_layer_norm, x))))
         else:
             h, position_bias = self.self_attn(x, position_bias, padding_mask)
-            x = self.self_attn_layer_norm(x + h)
-            x = self.final_layer_norm(x + self.fc2(F.gelu(self.fc1(x))))
+            x = _ln(self.self_attn_layer_norm, x + h)
+            x = _ln(self.final_layer_norm, x + self.fc2(F.gelu(self.fc1(x))))
         return x, position_bias
 
 
@@ -242,13 +256,16 @@ class WavLM(nn.Module):
         self.post_extract_proj = (nn.Linear(conv_dim, cfg.encoder_embed_dim)
                                   if conv_dim != cfg.encoder_embed_dim else None)
         self.encoder = TransformerEncoder(cfg)
+        if cfg.dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"dtype must be torch.float32 or torch.bfloat16, not {cfg.dtype}")
+        self.to(cfg.dtype)
 
     def forward(self, source: torch.Tensor, padding_mask: Optional[torch.Tensor] = None,
                 output_layer: Optional[int] = None) -> torch.Tensor:
         # NB input wav normalisation (cfg.normalize) is the adapter's job;
         # the ZEGGS adapter skips it (reference quirk)
         cfg = self.cfg
-        feats = self.layer_norm(self.feature_extractor(source))
+        feats = _ln(self.layer_norm, self.feature_extractor(source.to(cfg.dtype)))
         if self.post_extract_proj is not None:
             feats = self.post_extract_proj(feats)
 
@@ -258,13 +275,13 @@ class WavLM(nn.Module):
         x = feats + F.gelu(pos)
 
         if not cfg.layer_norm_first:
-            x = self.encoder.layer_norm(x)
+            x = _ln(self.encoder.layer_norm, x)
         position_bias = None
         n_layers = cfg.encoder_layers if output_layer is None else output_layer
         for layer in self.encoder.layers[:n_layers]:
             x, position_bias = layer(x, position_bias, padding_mask)
         if cfg.layer_norm_first and output_layer is None:
-            x = self.encoder.layer_norm(x)
+            x = _ln(self.encoder.layer_norm, x)
         return x
 
 

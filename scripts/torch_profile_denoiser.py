@@ -8,10 +8,12 @@ Run from the repository root on a machine with one NVIDIA card:
 A seeded random MDM at the published widths (1141 / 256 / 8 layers / 4
 heads / ff 1024) is called `--iters` times per batch size and path
 ("kernel": the hand-written CUDA kernels; "plain": their plain PyTorch
-versions) under `torch.profiler` (CUPTI). For each, it prints one JSON line:
-the device time per call of every CUDA kernel by name, the device-busy
-time per call (union of kernel intervals), the host wall time per call
-with the profiler on, the busy share of that wall time, and the encoder-layer
+versions; "graph": the kernel path's call captured once into a CUDA graph
+by `utils/graphs.py` and replayed) under `torch.profiler` (CUPTI). For each,
+it prints one JSON line: the device time per call of every CUDA kernel by
+name, the kernels launched per call, the device-busy time per call (union of
+kernel intervals), the host wall time per call with the profiler on, the
+busy share of that wall time, and the encoder-layer
 kernel's grids per call and per layer (its kernels are the ones named
 `encoder_layer_*`) with their device time. Batch 2 is the
 classifier-free-guidance batch. Imports nothing of JAX.
@@ -49,18 +51,18 @@ def short_name(name: str) -> str:
 ENCODER_LAYER_KERNEL = "encoder_layer_"
 
 
-def profile_calls(model, args_, iters: int, layers: int):
+def profile_calls(call, iters: int, layers: int):
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(5):
-        model(*args_)
+        call()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(iters):
-            model(*args_)
+            call()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -76,6 +78,7 @@ def profile_calls(model, args_, iters: int, layers: int):
     el_grids = sum(c for n, (_, c) in rows if ENCODER_LAYER_KERNEL in n) / iters
     return dict(
         kernels_per_call=[dict(name=n, us=t / iters, count=c / iters) for n, (t, c) in rows],
+        launches_per_call=len(kernels) / iters,
         encoder_layer_grids_per_call=el_grids,
         encoder_layer_grids_per_layer=el_grids / layers,
         encoder_layer_us_per_call=sum(
@@ -99,6 +102,7 @@ def main(argv=None) -> int:
     from diffusestylegesture_torch import resolve_device
     from diffusestylegesture_torch.models.mdm import MDM, MDMConfig
     from diffusestylegesture_torch.ops import build
+    from diffusestylegesture_torch.utils.graphs import GraphSet
 
     dev = resolve_device("cuda")
     build.build_all()
@@ -120,9 +124,12 @@ def main(argv=None) -> int:
                     "audio": torch.randn(B, 88, 1024, generator=g).to(dev),
                     "mask_local": torch.ones(B, 88, dtype=torch.bool, device=dev)}
             t = torch.full((B,), 500, device=dev)
-            for impl, model in (("kernel", kernel_model), ("plain", plain_model)):
-                res = profile_calls(model, (x, t, cond), args.iters,
-                                    kernel_model.cfg.num_layers)
+            out = torch.empty_like(x)
+            replay, _ = GraphSet(dev).capture(lambda: out.copy_(kernel_model(x, t, cond)))
+            for impl, call in (("kernel", lambda: kernel_model(x, t, cond)),
+                               ("graph", replay.replay),
+                               ("plain", lambda: plain_model(x, t, cond))):
+                res = profile_calls(call, args.iters, kernel_model.cfg.num_layers)
                 print(json.dumps(dict(profile="denoiser_call", batch=B, impl=impl, card=card,
                                       **res)))
     return 0

@@ -6,6 +6,9 @@ per-window x_T: final un-normalized poses agree within 2e-3 relative (the
 `PARITY.md` row-24 bar) for DDIM over a 10-step respaced schedule and
 DPM-Solver++(2M) over 5 steps, at guidance 0 and 2. Window slicing and
 crossfade weights are exact; window buckets leave the output unchanged.
+`generate_multi_clip` (3 clips of unequal length, one shorter than a stride)
+agrees per clip at the same bar; `transfer_dtype=float16` agrees with the
+JAX float16 result within that bar plus one float16 rounding.
 """
 import numpy as np
 import pytest
@@ -131,3 +134,49 @@ def test_unnormalize_matches_jax():
     np.testing.assert_allclose(torch_engine.unnormalize_poses(seq, mean, std), ref, rtol=1e-6)
     np.testing.assert_allclose(
         torch_engine.unnormalize_poses(torch.from_numpy(seq), mean, std).numpy(), ref, rtol=1e-6)
+
+
+def _jax_sampler(s, sampler, steps, guidance=0.0):
+    betas = JD.named_beta_schedule("cosine", 1000)
+    jsched = JD.spaced_schedule(betas, JD.space_timesteps(1000, f"ddim{steps}"))
+    jcfg = jax_engine.ZeggsEngineConfig(njoints=NJ, sampler=sampler, guidance_scale=guidance)
+    return jax_engine.ZeggsSampler(
+        lambda p, x, t, c, uncond=None: s["fm"].apply(p, x, t, c, uncond=uncond),
+        jax_make_zeggs_wavlm_fn(s["fw"], N_POSES), jsched, jcfg)
+
+
+def test_generate_multi_clip_matches_jax(shared):
+    s = shared
+    audio = s["audio"]
+    # 2 windows, 1 window and a clip shorter than one stride (no window)
+    audios = [audio, audio[: 80 * 800 + 4000] * 0.5, audio[:30000]]
+    styles = np.eye(6, dtype=np.float32)[[0, 3, 5]]
+    noise = np.random.default_rng(7).standard_normal(
+        (WINDOWS, 3, NJ, 1, N_POSES)).astype(np.float32)
+    ref = jax_engine.generate_multi_clip(_jax_sampler(s, "dpmpp", 5), s["mparams"], s["wparams"],
+                                         audios, styles, jax.random.PRNGKey(0),
+                                         noise_windows=noise, **s["stats"])
+    out = torch_engine.generate_multi_clip(_torch_sampler("dpmpp", 5, 0.0), s["mdm"], s["wavlm"],
+                                           audios, styles, noise_windows=noise, **s["stats"])
+    assert [o.shape for o in out] == [r.shape for r in ref] == [
+        (2 * 80 - N_SEED, NJ), (80 - N_SEED, NJ), (0, NJ)]
+    for o, r in zip(out[:2], ref[:2]):
+        scale = max(float(np.abs(r).mean()), 1.0)
+        err = float(np.abs(o - r).max())
+        assert err < 2e-3 * scale, f"max abs err {err} (scale {scale})"
+
+
+def test_transfer_dtype_float16_matches_jax(shared):
+    s = shared
+    style = np.array([[0, 1, 0, 0, 0, 0]], np.float32)
+    ref = _jax_sampler(s, "ddim", 10).generate(
+        s["mparams"], s["wparams"], s["audio"], style, jax.random.PRNGKey(0),
+        noise_windows=s["noise"], transfer_dtype=jnp.float16, **s["stats"])
+    out = _torch_sampler("ddim", 10, 0.0).generate(
+        s["mdm"], s["wavlm"], s["audio"], style, None, noise_windows=s["noise"],
+        transfer_dtype=torch.float16, **s["stats"])
+    assert out.dtype == ref.dtype == np.float32 and out.shape == ref.shape
+    np.testing.assert_array_equal(out, out.astype(np.float16).astype(np.float32))
+    scale = max(float(np.abs(ref).mean()), 1.0)
+    # one float16 step at |ref| (10 mantissa bits) on top of the engine bar
+    assert (np.abs(out - ref) <= 2e-3 * scale + np.abs(ref) * 2.0 ** -10).all()

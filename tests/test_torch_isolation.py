@@ -58,8 +58,9 @@ def test_package_imports_no_jax_in_a_fresh_interpreter():
         "for m in mods: importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'orbax', 'diffusestylegesture_tpu'))\n"
-        "print(len(mods), bad)\n"
-        "sys.exit(1 if bad or len(mods) < 20 else 0)\n")
+        "new = {'diffusestylegesture_torch.audio.loudness', 'diffusestylegesture_torch.utils.graphs'}\n"
+        "print(len(mods), bad, sorted(new - set(mods)))\n"
+        "sys.exit(1 if bad or len(mods) < 24 or not new <= set(mods) else 0)\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
                          timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
@@ -124,8 +125,10 @@ def write_tiny_run(tmp_path, diffusion_steps=4, seconds=8):
     return cfg_path, mdm_pt, wav
 
 
-@pytest.mark.parametrize("extra", [[], ["--sampler", "dpmpp", "--respace", "2"]],
-                         ids=["ddpm", "dpmpp"])
+@pytest.mark.parametrize("extra", [[], ["--sampler", "dpmpp", "--respace", "2"],
+                                   ["--sampler", "dpmpp", "--respace", "2", "--serve_fast"],
+                                   ["--normalize_loudness", "--use_ema"]],
+                         ids=["ddpm", "dpmpp", "serve_fast", "loudness"])
 def test_cli_writes_bvh_on_cpu(tmp_path, extra):
     from diffusestylegesture_torch.cli import sample as sample_cli
 
