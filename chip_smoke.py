@@ -36,8 +36,22 @@ Phases (any failure exits non-zero before the result line):
      2e-3 rel of the plain path, dpmpp5 on the same injected noise; WavLM-Large
      in float32 and bf16, and one denoiser call eager, replayed from a graph
      and through the plain path (device and wall ms);
-  6. print the card line, a `kernels` JSON line, an `e2e` JSON line and, last,
-     {"ok": true, "device": {...}}.
+  6. ZEGGS training at full width (MDM 1141 / 256 / 8 layers / 4 heads / ff 1024,
+     batch 300 × 88 frames, cosine 1000): four seeded 60 s clips (wav + a 60 fps
+     BVH of the 75-joint skeleton, written by the port's `bvh.save`) →
+     `cli.prepare_data` → `cli.train` on `configs/zeggs.yml` with WavLM-Large
+     features from phase 5's checkpoint, in float32 (TF32 off, stopped at 20
+     steps and resumed to 40), `--bf16`, `--device_cache` and both (30 steps
+     each);
+     every logged loss finite; no kernel launched while training (the training
+     path runs the plain ops); after one step every MDM parameter has a finite,
+     non-zero gradient; master weights, moments and EMA float32 under bf16; on
+     one fixed batch at lr 1e-3 the loss falls over 20 steps; the checkpoint
+     served by `cli.sample --model_path <dir>/40` in dpmpp5 on the CUDA-graph
+     engine through kernels A (15 launches) and B (120); steady-state ms/step,
+     windows/s, peak memory and the share of the f32 and bf16 peaks;
+  7. print the card line, a `kernels` JSON line, an `e2e` JSON line, a `train`
+     JSON line and, last, {"ok": true, "device": {...}}.
 
 Device times of the kernels come from CUDA events around back-to-back calls
 queued behind a sleep kernel, so host launch overhead is not in them.
@@ -532,6 +546,194 @@ def phase_end_to_end(dev, tmp, card):
     return results
 
 
+# ---- phase 6 --------------------------------------------------------------------
+
+
+ZEGGS_CLIPS = ("001_Happy_0_x_1_0", "002_Sad_0_x_1_0", "003_Neutral_0_x_1_0", "004_Old_0_x_1_0")
+TRAIN_STEPS = 30
+RESUME_AT = 20
+TRAIN_BATCH = 300  # configs/zeggs.yml's
+
+
+def write_zeggs_clips(src, seconds=60, fps=60, sr=16000):
+    """Seeded ZEGGS-style clips: a 16 kHz wav and a 60 fps BVH of the 75-joint
+    skeleton with smooth rotations and a wandering root, per clip."""
+    import numpy as np
+    from scipy.io import wavfile
+
+    from diffusestylegesture_torch.motion import bvh, zeggs_features as zf
+
+    for i, name in enumerate(ZEGGS_CLIPS):
+        rng = np.random.default_rng(SEED + 10 + i)
+        t = np.arange(seconds * sr) / sr
+        wav = (0.3 * np.sin(2 * np.pi * (140 + 30 * i) * t) * (1 + np.sin(2 * np.pi * 1.5 * t))
+               + 0.05 * rng.standard_normal(t.shape))
+        wavfile.write(os.path.join(src, name + ".wav"), sr, (wav * 12000).astype(np.int16))
+        T, J = seconds * fps, zf.ZEGGS_NJOINTS
+        ft = np.arange(T)[:, None, None] / fps
+        rot = rng.uniform(5, 30, (1, J, 3)) * np.sin(
+            2 * np.pi * rng.uniform(0.2, 1.5, (1, J, 3)) * ft + rng.uniform(0, 2 * np.pi, (1, J, 3)))
+        offsets = rng.uniform(-10, 10, (J, 3)).astype(np.float32)
+        pos = np.broadcast_to(offsets, (T, J, 3)).copy()
+        pos[:, 0] = [0.0, 100.0, 0.0] + np.cumsum(rng.normal(0, 0.2, (T, 3)), axis=0) * [1, 0, 1]
+        bvh.save(os.path.join(src, name + ".bvh"),
+                 dict(rotations=rot.astype(np.float32), positions=pos.astype(np.float32),
+                      offsets=offsets, parents=zf.ZEGGS_PARENTS, names=list(zf.ZEGGS_BONE_NAMES),
+                      order="zyx", frametime=1.0 / fps))
+
+
+def train_flops_per_window(T=88, njoints=1141, D=256, F=1024, layers=8, n_seed=8, audio=1024,
+                           audio_d=64, style_d=64, window=11):
+    """Forward FLOPs of the ZEGGS MDM for one window, from its shapes."""
+    trunk = layers * (2 * (T + 1) * (4 * D * D + 2 * D * F) + 2 * 2 * (T + 1) ** 2 * D)
+    pose = 2 * 2 * T * njoints * D                            # input_process, output_process
+    cond = (2 * T * audio * audio_d + 2 * T * (2 * D + audio_d) * D   # audio, input_process2
+            + 2 * njoints * n_seed * (D - style_d) + 2 * 2 * D * D)  # seed, timestep MLP
+    local = 2 * 2 * T * 2 * window * D                        # each query: 2 windows of keys
+    return trunk + pose + cond + local
+
+
+def steady_ms(runs):
+    """Steady-state ms per step from the loops' log boundaries, skipping each
+    run's first window (warm-up, graph of the first batch, cache fill)."""
+    steps = secs = 0.0
+    for loop in runs:
+        b = loop.boundaries[1:]
+        steps += b[-1][0] - b[0][0]
+        secs += b[-1][1] - b[0][1]
+    return secs / steps * 1e3
+
+
+def phase_training(dev, tmp, card, wavlm_pt, wav_path):
+    import numpy as np
+    import torch
+
+    from diffusestylegesture_torch import diffusion as D
+    from diffusestylegesture_torch.cli import prepare_data, sample as sample_cli, train as train_cli
+    from diffusestylegesture_torch.data.device_cache import DeviceWindowCache
+    from diffusestylegesture_torch.models.mdm import MDM, MDMConfig
+    from diffusestylegesture_torch.ops import encoder_layer as el
+    from diffusestylegesture_torch.ops import local_attention as la
+    from diffusestylegesture_torch.train import TrainConfig, TrainState, make_train_step
+
+    work = os.path.join(tmp, "zeggs_train")
+    src = os.path.join(work, "raw")
+    os.makedirs(src)
+    os.makedirs(os.path.join(work, "checkpoints"))
+    # the yaml's relative paths (./data/zeggs_processed, ./checkpoints/WavLM-Large.pt)
+    # resolve under `work`; phase 5's seeded WavLM-Large is the checkpoint
+    os.symlink(wavlm_pt, os.path.join(work, "checkpoints", "WavLM-Large.pt"))
+    config = os.path.join(HERE, "configs", "zeggs.yml")
+    res = {}
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        t0 = time.perf_counter()
+        write_zeggs_clips(src)
+        res["write_clips_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        prepare_data.main(["--dataset", "ZEGGS", "--source", src, "--target",
+                           "data/zeggs_processed", "--workers", "4"])
+        res["prepare_data_s"] = time.perf_counter() - t0
+
+        runs = {}
+        for mode, flags, steps in (("f32", [], RESUME_AT), ("f32", [], 2 * RESUME_AT),
+                                   ("bf16", ["--bf16"], TRAIN_STEPS),
+                                   ("device_cache", ["--device_cache"], TRAIN_STEPS),
+                                   ("bf16_device_cache", ["--bf16", "--device_cache"],
+                                    TRAIN_STEPS)):
+            la.launches = el.launches = el.launches_bf16 = 0
+            torch.cuda.reset_peak_memory_stats(dev)
+            out = train_cli.main(["--config", config, "--num_steps", str(steps), "--save_dir",
+                                  os.path.join(work, "out_" + mode), "--log_interval", "10",
+                                  "--seed", "0"] + flags)
+            counts = (la.launches, el.launches, el.launches_bf16)
+            loop, state = out["loop"], out["state"]
+            check(counts == (0, 0, 0), f"train {mode}: kernels launched while training {counts}")
+            check(state.step == steps, f"train {mode}: ended at step {state.step}, not {steps}")
+            losses = [d["loss"] for d in loop.logged]
+            check(len(losses) >= 2 and all(np.isfinite(losses)), f"train {mode}: losses {losses}")
+            check(bool(torch.isfinite(state.params.data).all()), f"train {mode}: non-finite weights")
+            check(state.params.data.dtype == state.optimizer.mu.dtype == state.optimizer.nu.dtype
+                  == torch.float32, f"train {mode}: master weights or moments not float32")
+            first = mode not in runs
+            r = runs.setdefault(mode, dict(loops=[], losses=[], peak_bytes=0))
+            r["loops"].append(loop)
+            r["losses"] += losses
+            r["peak_bytes"] = max(r["peak_bytes"], torch.cuda.max_memory_allocated(dev))
+            if mode == "f32" and first:
+                check(len(out["dataset"]) == 3 * 111, f"{len(out['dataset'])} windows, not 333")
+                res["windows"] = len(out["dataset"])
+                res["dataset_s"], res["wavlm_features_s"] = out["prepare_s"], out["wavlm_s"]
+                check(out["wavlm_s"] > 0, "WavLM features were not computed")
+            if mode == "f32" and not first:
+                check(loop.resume_step == RESUME_AT, f"resumed at {loop.resume_step}")
+            print(f"train {mode} [{card}]: step {state.step}, losses {losses}, "
+                  f"ms/step by window {[d['ms_per_step'] for d in loop.logged]}")
+        batch = TRAIN_BATCH
+        flops = 3 * batch * train_flops_per_window()
+        modes = {}
+        for mode, r in runs.items():
+            ms = steady_ms(r["loops"])
+            modes[mode] = dict(ms_per_step=ms, windows_per_s=batch / ms * 1e3,
+                               peak_memory_bytes=r["peak_bytes"],
+                               f32_peak_share=flops / (ms / 1e3) / F32_FLOPS_PER_S,
+                               bf16_peak_share=flops / (ms / 1e3) / BF16_FLOPS_PER_S,
+                               first_loss=r["losses"][0], last_loss=r["losses"][-1],
+                               steps=r["loops"][-1].state.step)
+        res.update(modes=modes, model_flops_per_step=flops, batch=batch,
+                   resumed=dict(stopped_at=RESUME_AT, ended_at=runs["f32"]["loops"][-1].state.step))
+
+        # one step on a fresh full-width model: gradients, dtypes under bf16, EMA
+        dataset = out["dataset"]
+        cache = DeviceWindowCache.from_zeggs(dataset, dev)
+        fixed = cache.sample_batch(cache.arrays, torch.Generator(device=dev).manual_seed(1), batch)
+        sched = D.Schedule.create(D.named_beta_schedule("cosine", 1000), device=dev)
+
+        def fresh(cfg):
+            with torch.random.fork_rng(devices=[]):
+                torch.manual_seed(SEED)
+                model = MDM(MDMConfig(audio_in_dim=dataset.wavlm.shape[-1], impl="plain")).to(dev)
+            return TrainState(model, cfg, 1000), make_train_step(sched, cfg)
+
+        state, step = fresh(TrainConfig(compute_dtype="bfloat16", ema_rate=0.9999))
+        step(state, fixed, torch.Generator(device=dev).manual_seed(0))
+        bad = [n for n, p in state.model.named_parameters()
+               if not (bool(torch.isfinite(p.grad).all()) and float(p.grad.abs().sum()) > 0)]
+        check(not bad, f"parameters without a finite non-zero gradient: {bad}")
+        f32 = all(t.dtype == torch.float32 for t in (state.params.data, state.optimizer.mu,
+                                                      state.optimizer.nu, state.ema))
+        check(f32, "bf16: master weights, moments or EMA not float32")
+        res["all_params_have_gradients"] = len(list(state.model.parameters()))
+
+        state, step = fresh(TrainConfig(lr=1e-3))
+        fixed_losses = [float(step(state, fixed, torch.Generator(device=dev).manual_seed(0))["loss"])
+                        for _ in range(20)]
+        check(fixed_losses[-1] < fixed_losses[0], f"fixed batch: loss did not fall {fixed_losses}")
+        res["fixed_batch_lr1e-3_losses"] = [fixed_losses[0], fixed_losses[-1]]
+        del state, step, cache, fixed
+
+        # the trained checkpoint, served through the kernels
+        la.launches = el.launches = el.launches_bf16 = 0
+        ckpt = os.path.join(work, "out_f32", str(2 * RESUME_AT))
+        served = sample_cli.main(["--config", config, "--model_path", ckpt, "--audiowavlm_path",
+                                  wav_path, "--sampler", "dpmpp", "--respace", "5", "--save_dir",
+                                  os.path.join(work, "served"), "--seed", "123456"])
+        counts = (la.launches, el.launches, el.launches_bf16)
+        poses = served["poses"]
+        check(len(served["paths"]) == 1 and os.path.getsize(served["paths"][0]) > 0,
+              "served: no BVH written")
+        check(poses.shape == (1, 3 * 80 - 8, 1141) and bool(np.isfinite(poses).all()),
+              f"served: poses {poses.shape}, finite {np.isfinite(poses).all()}")
+        check(counts == (15, 120, 0), f"served: launches {counts}, expected (15, 120, 0)")
+        res["served"] = dict(checkpoint=os.path.relpath(ckpt, work), local_attention_launches=15,
+                             encoder_layer_launches=120, generate_s=served["generate_seconds"])
+    finally:
+        os.chdir(cwd)
+    print(f"train [{card}]: {json.dumps(res)}")
+    return res
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "diffusestylegesture_torch")):
         print("chip_smoke: the diffusestylegesture_torch package is not beside this script",
@@ -577,8 +779,11 @@ def main() -> int:
     el_err, el_t = phase_encoder_layer(dev)
     with tempfile.TemporaryDirectory(prefix="dsg_chip_smoke_") as tmp:
         e2e = phase_end_to_end(dev, tmp, card)
+        # 6
+        train = phase_training(dev, tmp, card, os.path.join(tmp, "WavLM-Large.pt"),
+                               os.path.join(tmp, "015_Happy_4_x_1_0.wav"))
 
-    # 6. lines
+    # 7. lines
     kernels = []
     el_src = ("diffusestylegesture_torch/csrc/encoder_layer.cu",
               "diffusestylegesture_tpu/ops/encoder_layer_pallas.py:120")
@@ -615,6 +820,7 @@ def main() -> int:
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"e2e": e2e, "build_s": build_s}))
+    print(json.dumps({"train": train, "card": card}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

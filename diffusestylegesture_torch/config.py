@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 from types import SimpleNamespace
+from typing import Dict, Optional
 
 import yaml
 
@@ -12,6 +13,12 @@ class Config(SimpleNamespace):
         return getattr(self, k, default)
 
 
-def load_yaml_config(path: str) -> Config:
+def load_yaml_config(path: str, overrides: Optional[Dict] = None) -> Config:
+    """The yaml as a Config; each override that is not None wins (a CLI flag
+    left at its None default keeps the yaml's value)."""
     with open(path) as f:
-        return Config(**(yaml.safe_load(f) or {}))
+        cfg = yaml.safe_load(f) or {}
+    for k, v in (overrides or {}).items():
+        if v is not None:
+            cfg[k] = v
+    return Config(**cfg)

@@ -1,3 +1,3 @@
-from .zeggs import load_wav_16k
+from .zeggs import ZeggsWindowDataset, build_zeggs_dataset, load_wav_16k
 
-__all__ = ["load_wav_16k"]
+__all__ = ["ZeggsWindowDataset", "build_zeggs_dataset", "load_wav_16k"]

@@ -10,11 +10,15 @@
   package's parameter trees (nested dicts of numpy arrays) → the port's
   state_dict. Dense kernels (in, out) transpose to (out, in); LayerNorm
   `scale` → `weight`; `layers_i` → `layers.i`; Conv (k, in, out) → (out, in, k).
+* `train_state_from_flax`: a JAX `TrainState`'s params, `optax.adamw` state
+  and EMA → the port's model state_dict, `train.state.AdamW` state_dict and
+  EMA, the moments through the same naming, so both trainers can start from
+  one state mid-run.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Mapping, Union
+from typing import Any, Dict, Mapping, Optional, Union
 
 import numpy as np
 import torch
@@ -78,6 +82,53 @@ def mdm_state_dict_from_flax(params: Mapping[str, Any]) -> StateDict:
         sd.update(encoder_layer_state_dict_from_flax(enc[f"layers_{i}"],
                                                      f"seqTransEncoder.layers.{i}."))
     return sd
+
+
+def _adam_states(tree) -> Dict[str, Any]:
+    """The leaves of an `optax.adamw` state (bare or inside `apply_if_finite`,
+    as namedtuples or as dicts): count, mu, nu and, if present, the
+    non-finite counters."""
+    out: Dict[str, Any] = {}
+
+    def get(node, key):
+        return node[key] if isinstance(node, Mapping) else getattr(node, key)
+
+    def has(node, key):
+        return key in node if isinstance(node, Mapping) else hasattr(node, key)
+
+    def walk(node):
+        if has(node, "mu") and has(node, "nu") and "mu" not in out:
+            out.update(count=get(node, "count"), mu=get(node, "mu"), nu=get(node, "nu"))
+            return
+        if has(node, "notfinite_count"):
+            out.update(notfinite_count=get(node, "notfinite_count"),
+                       total_notfinite=get(node, "total_notfinite"))
+        children = node.values() if isinstance(node, Mapping) else (
+            node if isinstance(node, (tuple, list)) else ())
+        for child in children:
+            walk(child)
+
+    walk(tree)
+    if "mu" not in out:
+        raise ValueError("train_state_from_flax: no optax Adam state (count, mu, nu) found")
+    return out
+
+
+def train_state_from_flax(params: Mapping[str, Any], opt_state, ema_params: Optional[Mapping],
+                          step: int) -> Dict[str, Any]:
+    """JAX `TrainState` parts (numpy leaves) → {'model': state_dict, 'ema':
+    state_dict or None, 'step', 'optimizer': `AdamW.state_dict()`, 'loss_aware':
+    None}; `TrainState.load_state_dict(d, d['model'], d['ema'])` takes it."""
+    adam = _adam_states(opt_state)
+    optimizer = {"count": torch.tensor(int(np.asarray(adam["count"])), dtype=torch.int32),
+                 "mu": mdm_state_dict_from_flax(adam["mu"]),
+                 "nu": mdm_state_dict_from_flax(adam["nu"])}
+    for k in ("notfinite_count", "total_notfinite"):
+        if k in adam:
+            optimizer[k] = torch.tensor(int(np.asarray(adam[k])), dtype=torch.int32)
+    return {"model": mdm_state_dict_from_flax(params),
+            "ema": None if ema_params is None else mdm_state_dict_from_flax(ema_params),
+            "step": int(np.asarray(step)), "optimizer": optimizer, "loss_aware": None}
 
 
 def wavlm_state_dict_from_flax(params: Mapping[str, Any], cfg: WavLMConfig) -> StateDict:

@@ -76,10 +76,14 @@ class WavEncoder(nn.Module):
         return self.audio_feature_map(x)
 
 
-def mask_cond(cond: torch.Tensor, uncond: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Inference-time classifier-free-guidance masking (ref `mask_cond:156-164`):
-    rows where the per-example `uncond` flag is set are zeroed."""
-    if uncond is None:
-        return cond
-    keep = 1.0 - uncond.to(cond.dtype)[:, None]
-    return cond * keep
+def mask_cond(cond: torch.Tensor, uncond: Optional[torch.Tensor] = None,
+              drop: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Classifier-free-guidance condition masking (ref `mask_cond:156-164`):
+    rows where the per-example `uncond` flag (inference) or the training
+    Bernoulli draw `drop` is set are zeroed; with both, either zeroes."""
+    keep = None
+    for flags in (uncond, drop):
+        if flags is not None:
+            k = 1.0 - flags.to(cond.dtype)[:, None]
+            keep = k if keep is None else keep * k
+    return cond if keep is None else cond * keep

@@ -43,15 +43,18 @@ def local_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, win
     q_pos = pos[..., :, None]                          # (1, W, w, 1)
     k_pos = _look_around(pos, -1)[..., None, :]        # (1, W, 1, 2w)
 
-    sim = torch.einsum("bwie,bwje->bwij", bq.float(), bk.float()) * scale
-    sim = sim.masked_fill(q_pos < k_pos, NEG_INF)
-    if mask is not None:
-        b = mask.shape[0]
-        mw = _look_around(mask.reshape(b, W, w).bool(), False)      # (b, W, 2w)
-        mw = mw[:, None, :, None, :].expand(b, heads, W, 1, 2 * w).reshape(bh, W, 1, 2 * w)
-        sim = sim.masked_fill(~mw, NEG_INF)
-    attn = torch.softmax(sim, dim=-1)
-    out = torch.einsum("bwij,bwje->bwie", attn, bv.float())
+    # float32 scores and softmax also under autocast (as the JAX path's f32
+    # accumulation): -maxfloat has no bf16 value
+    with torch.autocast(q.device.type, enabled=False):
+        sim = torch.einsum("bwie,bwje->bwij", bq.float(), bk.float()) * scale
+        sim = sim.masked_fill(q_pos < k_pos, NEG_INF)
+        if mask is not None:
+            b = mask.shape[0]
+            mw = _look_around(mask.reshape(b, W, w).bool(), False)      # (b, W, 2w)
+            mw = mw[:, None, :, None, :].expand(b, heads, W, 1, 2 * w).reshape(bh, W, 1, 2 * w)
+            sim = sim.masked_fill(~mw, NEG_INF)
+        attn = torch.softmax(sim, dim=-1)
+        out = torch.einsum("bwij,bwje->bwie", attn, bv.float())
     return out.reshape(bh, n, d).to(q.dtype)
 
 

@@ -1,4 +1,4 @@
-"""MDM denoiser, ZEGGS variant (DiffuseStyleGesture), inference.
+"""MDM denoiser, ZEGGS variant (DiffuseStyleGesture).
 
 Port of `diffusestylegesture_tpu/models/mdm.py` and of its serving twin
 `models/fused_mdm.py` for the live configuration
@@ -14,6 +14,14 @@ The local attention and each trunk layer run through the hand-written
 CUDA kernels on a CUDA tensor (`ops/`); ``impl='plain'`` runs their plain
 PyTorch versions instead.
 
+``train=True`` is the training forward: independent per-example
+Bernoulli(`cond_mask_prob`) drops of the style and of the seed on top of
+`uncond` (JAX `mdm.py:153-160`), and dropout at the trunk's four places, all
+drawn from the `generator` passed in, in that order. It needs
+``impl='plain'``, the counterpart of the JAX trainer's XLA path
+(`attn_impl="xla"`, the flax trunk): neither CUDA kernel has a backward, nor
+has either Pallas kernel.
+
 ``dtype=torch.bfloat16`` is the serving mode (`--serve_fast`, with
 ``activation='gelu_tanh'``): every trunk layer runs kernel B in its
 `mxu_bf16` mode (bf16 matmul operands, float32 sums; on the CPU the plain
@@ -28,7 +36,7 @@ and the unused buffers are dropped (`models/convert.py`).
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -50,6 +58,7 @@ class MDMConfig:
     num_layers: int = 8
     num_heads: int = 4  # transformer-encoder heads
     local_heads: int = 8  # rotary / local-attention heads
+    dropout: float = 0.1  # the trunk's, in train mode
     activation: str = "gelu"
     audio_feat: str = "wavlm"
     audio_in_dim: int = 1024  # WavLM feature width (Large: 1024)
@@ -104,12 +113,15 @@ class MDMConfig:
 
 
 class MDM(nn.Module):
-    """forward(x, timesteps, cond, uncond=None)
+    """forward(x, timesteps, cond, uncond=None, train=False, generator=None, cond_drop=None)
 
     x: (B, njoints, nfeats, T) noisy window; timesteps: (B,) int;
     cond: {'style': (B, 6), 'seed': (B, njoints, nfeats, n_seed),
            'audio': (B, T, 1024), 'mask_local': (B, T) bool};
-    uncond: optional (B,) bool, per-example condition drop for CFG.
+    uncond: optional (B,) bool, per-example condition drop for CFG;
+    train: the training forward (module docstring), which draws from
+    `generator`; cond_drop: optional ((B,) style drops, (B,) seed drops) used
+    in place of the draws, so that a test can replay another trainer's.
     Returns the x0 prediction, (B, njoints, nfeats, T).
     """
 
@@ -125,18 +137,34 @@ class MDM(nn.Module):
         self.input_process = InputProcess(cfg.input_feats, D)
         self.input_process2 = nn.Linear(2 * D + cfg.audio_feat_dim, D)
         self.seqTransEncoder = TorchTransformerEncoder(
-            cfg.num_layers, D, cfg.num_heads, cfg.ff_size, cfg.activation)
+            cfg.num_layers, D, cfg.num_heads, cfg.ff_size, cfg.activation, cfg.dropout)
         self.output_process = OutputProcess(cfg.input_feats, D, cfg.njoints, cfg.nfeats)
 
     def forward(self, x: torch.Tensor, timesteps: torch.Tensor, cond: Dict[str, torch.Tensor],
-                uncond: Optional[torch.Tensor] = None) -> torch.Tensor:
+                uncond: Optional[torch.Tensor] = None, train: bool = False,
+                generator: Optional[torch.Generator] = None,
+                cond_drop: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
         cfg = self.cfg
         B, _, _, T = x.shape
         D, H = cfg.latent_dim, cfg.local_heads
+        if train and cfg.impl != "plain":
+            raise ValueError(
+                "train=True needs MDMConfig(impl='plain'): the CUDA kernels have no backward, "
+                "as the Pallas kernels of the JAX package have none; training runs the plain "
+                "PyTorch ops, the counterpart of the JAX trainer's XLA path")
+
+        style_drop = seed_drop = None
+        if train and cond_drop is not None:
+            style_drop, seed_drop = cond_drop
+        elif train and cfg.cond_mask_prob > 0.0:
+            # independent draws for style and seed, as the reference's two mask_cond calls
+            style_drop, seed_drop = (
+                torch.rand(B, generator=generator, device=x.device) < cfg.cond_mask_prob
+                for _ in range(2))
 
         emb_t = self.embed_timestep(timesteps)
-        style_emb = mask_cond(self.embed_style(cond["style"]), uncond)
-        seed_emb = self.embed_text(mask_cond(cond["seed"].reshape(B, -1), uncond))
+        style_emb = mask_cond(self.embed_style(cond["style"]), uncond, style_drop)
+        seed_emb = self.embed_text(mask_cond(cond["seed"].reshape(B, -1), uncond, seed_drop))
         token = torch.cat([style_emb, seed_emb], dim=-1) + emb_t        # (B, D)
         enc_audio = self.WavEncoder(cond["audio"])                        # (B, T, 64)
         x_ = self.input_process(x)                                        # (B, T, D)
@@ -159,6 +187,6 @@ class MDM(nn.Module):
         # trunk: prepend token → RoPE over heads → encoder layers → drop token
         seq = torch.cat([token[:, None, :], h], dim=1)
         seq = rotary.heads_merge(rotary.rope(rotary.heads_split(seq, H)), B, H).contiguous()
-        out = self.seqTransEncoder(seq, impl=cfg.impl,
-                                   mxu_bf16=cfg.dtype == torch.bfloat16)[:, 1:]
+        out = self.seqTransEncoder(seq, impl=cfg.impl, mxu_bf16=cfg.dtype == torch.bfloat16,
+                                   train=train, generator=generator)[:, 1:]
         return self.output_process(out)

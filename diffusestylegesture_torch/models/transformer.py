@@ -13,8 +13,16 @@ it is. Batch-first (B, T, D).
 matmul operand (x, W_in, q, k, the softmax probabilities, v, the attention
 output, W_out, y, W1, the activated hidden rows, W2) is rounded to bf16 and
 the product is taken in float32. The default is float32 throughout.
+
+`train=True` is the training forward (plain PyTorch ops with autograd): dropout
+at the JAX layer's four places, the attention weights, after attention,
+after the FFN activation and after the FFN (`transformer.py:88,136,149,151`),
+its masks drawn from the `generator` passed in. The CUDA kernel has no
+backward, in this package as in the JAX one, so training never takes it.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -32,6 +40,16 @@ def activation_fn(name: str):
     if name == "relu":
         return F.relu
     raise ValueError(f"unknown activation {name!r} (one of {ACTIVATIONS})")
+
+
+def dropout(x: torch.Tensor, p: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax `nn.Dropout`: each entry kept with probability 1 − p and scaled by
+    1/(1 − p). The mask is drawn from `generator` (F.dropout would read the
+    global generator) and autograd keeps only the boolean mask."""
+    if p == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    return torch.where(keep, x / (1.0 - p), 0.0)
 
 
 def _operand(mxu_bf16: bool):
@@ -53,7 +71,8 @@ class TorchMultiheadAttention(nn.Module):
         nn.init.xavier_uniform_(self.in_proj_weight)
         nn.init.zeros_(self.out_proj.bias)
 
-    def forward(self, x: torch.Tensor, mxu_bf16: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mxu_bf16: bool = False, p_drop: float = 0.0,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         B, T, D = x.shape
         H = self.num_heads
         hd = D // H
@@ -61,55 +80,64 @@ class TorchMultiheadAttention(nn.Module):
         q, k, v = F.linear(r(x), r(self.in_proj_weight), self.in_proj_bias).chunk(3, dim=-1)
         q, k, v = (t.reshape(B, T, H, hd).transpose(1, 2) for t in (q, k, v))
         sim = torch.matmul(r(q), r(k).transpose(-1, -2)) * hd ** -0.5
-        out = torch.matmul(r(torch.softmax(sim, dim=-1)), r(v))
+        attn = dropout(torch.softmax(sim, dim=-1), p_drop, generator)
+        out = torch.matmul(r(attn), r(v))
         return F.linear(r(out.transpose(1, 2).reshape(B, T, D)), r(self.out_proj.weight),
                         self.out_proj.bias)
 
 
 class TorchEncoderLayer(nn.Module):
-    """torch-1.9 `nn.TransformerEncoderLayer` (post-norm), inference."""
+    """torch-1.9 `nn.TransformerEncoderLayer` (post-norm); `dropout` is the rate
+    of its train-mode forward."""
 
     def __init__(self, d_model: int, nhead: int, dim_feedforward: int = 2048,
-                 activation: str = "gelu"):
+                 activation: str = "gelu", dropout: float = 0.0):
         super().__init__()
         activation_fn(activation)  # validate early
         self.activation = activation
+        self.dropout = dropout
         self.self_attn = TorchMultiheadAttention(d_model, nhead)
         self.linear1 = nn.Linear(d_model, dim_feedforward)
         self.linear2 = nn.Linear(dim_feedforward, d_model)
         self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
         self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
 
-    def forward(self, x: torch.Tensor, mxu_bf16: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mxu_bf16: bool = False, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         r = _operand(mxu_bf16)
-        x = self.norm1(x + self.self_attn(x, mxu_bf16))
+        p = self.dropout if train else 0.0
+        x = self.norm1(x + dropout(self.self_attn(x, mxu_bf16, p, generator), p, generator))
         h = F.linear(r(x), r(self.linear1.weight), self.linear1.bias)
-        h = F.linear(r(activation_fn(self.activation)(h)), r(self.linear2.weight),
-                     self.linear2.bias)
-        return self.norm2(x + h)
+        h = dropout(activation_fn(self.activation)(h), p, generator)
+        h = F.linear(r(h), r(self.linear2.weight), self.linear2.bias)
+        return self.norm2(x + dropout(h, p, generator))
 
 
 class TorchTransformerEncoder(nn.Module):
     """Stack of `TorchEncoderLayer`s, no final norm (as the reference)."""
 
     def __init__(self, num_layers: int, d_model: int, nhead: int, dim_feedforward: int = 2048,
-                 activation: str = "gelu"):
+                 activation: str = "gelu", dropout: float = 0.0):
         super().__init__()
         self.layers = nn.ModuleList(
-            TorchEncoderLayer(d_model, nhead, dim_feedforward, activation)
+            TorchEncoderLayer(d_model, nhead, dim_feedforward, activation, dropout)
             for _ in range(num_layers))
 
-    def forward(self, x: torch.Tensor, impl: str = "kernel",
-                mxu_bf16: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, impl: str = "kernel", mxu_bf16: bool = False,
+                train: bool = False, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """impl="kernel": each layer through the CUDA kernel on a CUDA tensor
         (its plain version on a CPU tensor); impl="plain": plain everywhere.
-        mxu_bf16: the bf16-operand mode of every layer (module docstring)."""
+        mxu_bf16: the bf16-operand mode of every layer (module docstring).
+        train: the training forward, plain only (module docstring)."""
         if impl == "plain":
             for layer in self.layers:
-                x = layer(x, mxu_bf16)
+                x = layer(x, mxu_bf16, train, generator)
             return x
         if impl != "kernel":
             raise ValueError(f"unknown trunk impl {impl!r}")
+        if train:
+            raise ValueError("train=True needs impl='plain': the encoder-layer kernel has no "
+                             "backward (nor has the Pallas kernel it ports)")
         from ..ops.encoder_layer import encoder_layer
 
         for layer in self.layers:

@@ -1,16 +1,24 @@
-"""ZEGGS 1141-d pose vector → BVH re-synthesis, in numpy.
+"""ZEGGS 1141-d pose featurization and BVH re-synthesis, in numpy.
 
-Port of the export half of `diffusestylegesture_tpu/motion/zeggs_features.py`
-(reference `main/process/process_zeggs_bvh.py::pose2bvh:219-275`,
-`utils_zeggs.py:47-87`): optional Savitzky–Golay (15, 2) smoothing,
-6D → quaternion re-orthogonalization, 20 → 60 fps frame repetition, root
-re-application, BVH write. Layout of a frame: [root_pos(3) | root_rot(4) |
-root_vel(3) | root_vrt(3) | lpos(3J) | ltxy(6J) | lvel(3J) | lvrt(3J) |
-gaze_dir(3)], J = 75. Featurization comes with the training slice.
+Port of `diffusestylegesture_tpu/motion/zeggs_features.py` (reference
+`main/process/process_zeggs_bvh.py`):
+
+* `featurize_animation` (`preprocess_animation:95-216`): 60 → fps decimation,
+  quaternion unroll, FK, the Spine2 ground-projected root, the Hips-forward
+  root rotation, the head-lookat median gaze, root-relative localization and
+  finite-difference velocities with the reference's frame-0 extrapolation
+  v[0] = v[1] - (v[3] - v[2]). Computes in float32, as the JAX path.
+* `pose_features_to_bvh` (`pose2bvh:219-275`, `utils_zeggs.py:47-87`):
+  optional Savitzky–Golay (15, 2) smoothing, 6D → quaternion
+  re-orthogonalization, 20 → 60 fps frame repetition, root re-application,
+  BVH write.
+
+Layout of a frame: [root_pos(3) | root_rot(4) | root_vel(3) | root_vrt(3) |
+lpos(3J) | ltxy(6J) | lvel(3J) | lvrt(3J) | gaze_dir(3)], J = 75.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 
@@ -58,6 +66,94 @@ def style_onehot(name_token: str) -> Optional[np.ndarray]:
     out = np.zeros(len(STYLE_NAMES), np.float32)
     out[STYLE_NAMES.index(name_token)] = 1.0
     return out
+
+
+def _edge_extrapolate(v: np.ndarray) -> np.ndarray:
+    """The reference's frame-0 velocity fill: v[0] = v[1] - (v[3] - v[2])."""
+    if len(v) < 4:  # no 4-frame stencil: v[0] stays
+        return v
+    v[0] = v[1] - (v[3] - v[2])
+    return v
+
+
+def featurize_animation(anim: Dict, fps: int = 20) -> Dict:
+    """BVH dict (`bvh.load`) → {'features': (T, 1141) float32, and the
+    skeleton's parents, dt, order, njoints, offsets, names}."""
+    rotations = anim["rotations"]
+    positions = anim["positions"]
+    nframes = len(rotations)
+    src_fps = round(1.0 / anim["frametime"])
+    if fps != src_fps:
+        if src_fps % fps or src_fps < fps:
+            # the reference decimates by an integer stride only (`:100-104`)
+            raise ValueError(f"target fps {fps} must integer-divide source fps {src_fps}")
+        rate = src_fps // fps
+        rotations = rotations[0:nframes:rate]
+        positions = positions[0:nframes:rate]
+        dt = 1.0 / fps
+    else:
+        dt = anim["frametime"]
+    nframes = positions.shape[0]
+    names = anim["names"]
+    parents = anim["parents"]
+    njoints = len(parents)
+    f32 = np.float32
+
+    lrot = quat.unroll(quat.from_euler(np.radians(rotations), anim["order"]))
+    lpos = positions.astype(f32).copy()
+    grot, gpos = quat.fk(lrot, lpos, parents)
+
+    root_pos = gpos[:, names.index("Spine2")] * np.array([1, 0, 1], f32)
+    root_fwd = quat.mul_vec(grot[:, names.index("Hips")], np.array([[0.0, 0.0, 1.0]], f32))
+    root_fwd[:, 1] = 0
+    root_fwd = root_fwd / np.linalg.norm(root_fwd, axis=-1, keepdims=True)
+    z = np.broadcast_to(np.array([0.0, 0.0, 1.0], f32), root_fwd.shape)
+    root_rot = quat.normalize(quat.between(z, root_fwd))
+
+    gaze_lookat = quat.mul_vec(grot[:, names.index("Head")], np.array([0.0, 0.0, 1.0], f32))
+    gaze_lookat[:, 1] = 0
+    gaze_lookat = gaze_lookat / np.linalg.norm(gaze_lookat, axis=-1, keepdims=True)
+    gaze_pos = np.median(root_pos + 100.0 * gaze_lookat, axis=0)
+    gaze_pos = np.broadcast_to(gaze_pos, (nframes, 3)).copy()
+    gaze_dir = quat.mul_vec(quat.inv(root_rot), gaze_pos - root_pos)
+
+    lrot[:, 0] = quat.mul(quat.inv(root_rot), lrot[:, 0])
+    lpos[:, 0] = quat.mul_vec(quat.inv(root_rot), lpos[:, 0] - root_pos)
+
+    lvel = np.zeros_like(lpos)
+    lvel[1:] = (lpos[1:] - lpos[:-1]) / dt
+    lvel = _edge_extrapolate(lvel)
+
+    lvrt = np.zeros_like(lpos)
+    lvrt[1:] = quat.to_helical(quat.abs_(quat.mul(lrot[1:], quat.inv(lrot[:-1])))) / dt
+    lvrt = _edge_extrapolate(lvrt)
+
+    root_vrt = np.zeros_like(root_pos)
+    root_vrt[1:] = quat.to_helical(quat.abs_(quat.mul(root_rot[1:], quat.inv(root_rot[:-1])))) / dt
+    root_vrt = _edge_extrapolate(root_vrt)
+    root_vrt[1:] = quat.mul_vec(quat.inv(root_rot[:-1]), root_vrt[1:])
+    root_vrt[0] = quat.mul_vec(quat.inv(root_rot[0]), root_vrt[0])
+
+    root_vel = np.zeros_like(root_pos)
+    root_vel[1:] = (root_pos[1:] - root_pos[:-1]) / dt
+    root_vel = _edge_extrapolate(root_vel)
+    root_vel[1:] = quat.mul_vec(quat.inv(root_rot[:-1]), root_vel[1:])
+    root_vel[0] = quat.mul_vec(quat.inv(root_rot[0]), root_vel[0])
+
+    ltxy = np.zeros((nframes, njoints, 2, 3), f32)
+    ltxy[..., 0, :] = quat.mul_vec(lrot, np.array([1.0, 0.0, 0.0], f32))
+    ltxy[..., 1, :] = quat.mul_vec(lrot, np.array([0.0, 1.0, 0.0], f32))
+
+    features = np.concatenate([
+        root_pos, root_rot, root_vel, root_vrt, lpos.reshape(nframes, -1),
+        ltxy.reshape(nframes, -1), lvel.reshape(nframes, -1), lvrt.reshape(nframes, -1),
+        gaze_dir], axis=1).astype(f32)
+    return {"features": features, "parents": parents, "dt": dt, "order": anim["order"],
+            "njoints": njoints, "offsets": anim["offsets"], "names": names}
+
+
+def featurize_bvh_file(path: str, fps: int = 20) -> Dict:
+    return featurize_animation(bvh.load(path), fps=fps)
 
 
 def pose_features_to_bvh(poses: np.ndarray, outpath: str, *, smoothing: bool = True,

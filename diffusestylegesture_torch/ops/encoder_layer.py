@@ -3,7 +3,11 @@ the port of `ops/encoder_layer_pallas.py`).
 
 A CPU tensor goes to the plain PyTorch layer
 (`models/transformer.py::TorchEncoderLayer.forward`); a CUDA tensor
-launches the kernel or raises. One launch is one layer: a single host
+launches the kernel or raises. The kernel has no backward: on a CUDA
+tensor the wrapper raises when autograd is on and x or a weight of the
+layer requires grad, since its result would silently carry no gradient
+(training runs `impl="plain"`); serving calls it under `no_grad` or
+`inference_mode`. One launch is one layer: a single host
 call that issues the layer's four CUDA grids on the current stream.
 `launches` counts the float32 (3xTF32) layer launches, `launches_bf16`
 those in the `mxu_bf16` operand mode.
@@ -69,6 +73,10 @@ def encoder_layer(x: torch.Tensor, layer: TorchEncoderLayer,
     H = layer.self_attn.num_heads
     F = layer.linear1.out_features
     weights = layer_weights(layer)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x,) + weights):
+        raise RuntimeError(
+            "encoder_layer: the CUDA kernel has no backward, and x or the layer's weights "
+            "require grad; training uses impl='plain' (or call under torch.no_grad())")
     for w in weights:
         if w.device != x.device or w.dtype != torch.float32 or not w.is_contiguous():
             raise ValueError("encoder_layer: weights must be contiguous float32 on x's device")

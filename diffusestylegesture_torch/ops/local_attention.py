@@ -3,7 +3,9 @@
 
 A CPU tensor goes to the plain PyTorch version
 (`models/local_attention.py::local_attention_plain`); a CUDA tensor
-launches the kernel or raises. `launches` counts kernel launches.
+launches the kernel or raises. `launches` counts kernel launches. The
+kernel has no backward: on a CUDA tensor the wrapper raises when autograd is
+on and q, k, v or `out` requires grad (training runs `impl="plain"`).
 
 q, k and v may be packed `(B·H, N, D)` or unpacked `(B, H, N, D)`, with any
 strides on the batch, head and position axes (the feature axis is
@@ -122,6 +124,10 @@ def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window_si
         return out
     if q.device.type != "cuda":
         raise ValueError(f"local_attention: unsupported device {q.device}")
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (q, k, v, out)):
+        raise RuntimeError(
+            "local_attention: the CUDA kernel has no backward, and q, k, v or out require "
+            "grad; training uses impl='plain' (or call under torch.no_grad())")
     if not (1 <= w <= MAX_WINDOW and n % w == 0):
         raise ValueError(f"local_attention: window {w} must be in [1, {MAX_WINDOW}] and divide N={n}")
     if not 1 <= d <= MAX_DIM:
