@@ -49,9 +49,23 @@ Phases (any failure exits non-zero before the result line):
      one fixed batch at lr 1e-3 the loss falls over 20 steps; the checkpoint
      served by `cli.sample --model_path <dir>/40` in dpmpp5 on the CUDA-graph
      engine through kernels A (15 launches) and B (120); steady-state ms/step,
-     windows/s, peak memory and the share of the f32 and bf16 peaks;
-  7. print the card line, a `kernels` JSON line, an `e2e` JSON line, a `train`
-     JSON line and, last, {"ok": true, "device": {...}}.
+     windows/s, peak memory and the share of the f32 and bf16 peaks; the
+     device-cache runs replay one captured step, and the same step in float32
+     and bf16 is held bitwise equal over 3 steps to the eager one and timed
+     both ways in this process;
+  7. distillation and evaluation: `cli.distill` on phase 6's checkpoint, 2
+     stages (1000 → 500 → 250) at batch 300, each chunk of 10 steps one
+     replayed graph, the teacher through kernels A (2 launches a step) and B
+     (16); the same step captured and eager, bitwise equal over 3 steps and
+     timed; the teacher's call at B = 300 through the kernels and the plain
+     ops, and each kernel at its shapes there against its plain version (A
+     1e-5, B 1e-4 per layer) and its library call; both students served by
+     `cli.sample` through A and B with finite BVH; `cli.eval --embedding
+     autoencoder --kid --wav` on the student's poses against the teacher's
+     dpmpp5 poses (one stem), every key of the JAX CLI's line; the
+     autoencoder's step captured and eager, bitwise equal and timed;
+  8. print the card line, a `kernels` JSON line, an `e2e` JSON line, a `train`
+     JSON line, a `distill` JSON line and, last, {"ok": true, "device": {...}}.
 
 Device times of the kernels come from CUDA events around back-to-back calls
 queued behind a sleep kernel, so host launch overhead is not in them.
@@ -553,6 +567,7 @@ ZEGGS_CLIPS = ("001_Happy_0_x_1_0", "002_Sad_0_x_1_0", "003_Neutral_0_x_1_0", "0
 TRAIN_STEPS = 30
 RESUME_AT = 20
 TRAIN_BATCH = 300  # configs/zeggs.yml's
+STEADY_STEPS = 10  # steps a timing turn, captured against eager
 
 
 def write_zeggs_clips(src, seconds=60, fps=60, sr=16000):
@@ -602,6 +617,92 @@ def steady_ms(runs):
         steps += b[-1][0] - b[0][0]
         secs += b[-1][1] - b[0][1]
     return secs / steps * 1e3
+
+
+def timed_steps(fn, n):
+    """Host ms per call of fn() over n calls, the card synchronized around them."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def states_equal(a, b):
+    """Two train states bitwise equal: weights, gradients, moments, count, EMA."""
+    import torch
+
+    pairs = [(a.params.data, b.params.data), (a.params.grad, b.params.grad),
+             (a.optimizer.mu, b.optimizer.mu), (a.optimizer.nu, b.optimizer.nu),
+             (a.optimizer.count, b.optimizer.count)]
+    if a.ema is not None:
+        pairs.append((a.ema, b.ema))
+    return all(torch.equal(x, y) for x, y in pairs)
+
+
+def captured_vs_eager(make, steps=STEADY_STEPS):
+    """`make()` → (state, eager step(), capturable step(), generator) of a fresh
+    run from one seed. Three steps eagerly and three captured (an eager first
+    step, then replays) from two such runs must end bitwise equal, with equal
+    generators; then steady ms a step in turns, eager, captured, captured,
+    eager. Returns (equal, eager ms, captured ms, the CapturedStep)."""
+    import torch
+
+    from diffusestylegesture_torch.utils.graphs import CapturedStep
+
+    eager, eager_step, _, gen_e = make()
+    captured, _, device_step, gen_c = make()
+    run = CapturedStep(device_step, gen_c.device, [gen_c])
+    for _ in range(3):
+        eager_step()
+        run()
+    torch.cuda.synchronize()
+    equal = states_equal(eager, captured) and torch.equal(gen_e.get_state(), gen_c.get_state())
+    times = {"eager": [], "captured": []}
+    for path in ("eager", "captured", "captured", "eager"):
+        times[path].append(timed_steps(eager_step if path == "eager" else run, steps))
+    return equal, times["eager"], times["captured"], run
+
+
+def captured_vs_eager_training(cache, dev, card):
+    """The device-cache train step at full width, float32 and bf16: captured
+    (as `cli/train.py --device_cache` runs it) against eager, in this process."""
+    import torch
+
+    from diffusestylegesture_torch import diffusion as D
+    from diffusestylegesture_torch.data.device_cache import make_device_data_train_step
+    from diffusestylegesture_torch.models.mdm import MDM, MDMConfig
+    from diffusestylegesture_torch.train import TrainConfig, TrainState, make_zeggs_cond_builder
+
+    sched = D.Schedule.create(D.named_beta_schedule("cosine", 1000), device=dev)
+    out = {}
+    for mode, dtype in (("f32", "float32"), ("bf16", "bfloat16")):
+        cfg = TrainConfig(lr=3e-5, compute_dtype=dtype)  # configs/zeggs.yml's optimizer
+        step = make_device_data_train_step(sched, cfg, make_zeggs_cond_builder(8), TRAIN_BATCH)
+
+        def make():
+            with torch.random.fork_rng(devices=[]):
+                torch.manual_seed(SEED)
+                model = MDM(MDMConfig(audio_in_dim=cache.arrays["wavlm"].shape[-1],
+                                      impl="plain")).to(dev)
+            state = TrainState(model, cfg, 1000)
+            gen = torch.Generator(device=dev).manual_seed(0)
+            return (state, lambda: step(state, gen, cache.arrays),
+                    lambda: step.device_step(state, gen, cache.arrays), gen)
+
+        equal, eager_ms, captured_ms, run = captured_vs_eager(make)
+        check(equal, f"train {mode}: the captured step differs from the eager step")
+        out[mode] = dict(captured_equals_eager_3_steps=equal, eager_ms_per_step=eager_ms,
+                         captured_ms_per_step=captured_ms,
+                         eager_windows_per_s=[TRAIN_BATCH / ms * 1e3 for ms in eager_ms],
+                         captured_windows_per_s=[TRAIN_BATCH / ms * 1e3 for ms in captured_ms],
+                         capture_s=run.capture_seconds)
+        print(f"train {mode} device cache, captured vs eager [{card}]: {json.dumps(out[mode])}")
+        del run
+    return out
 
 
 def phase_training(dev, tmp, card, wavlm_pt, wav_path):
@@ -687,6 +788,7 @@ def phase_training(dev, tmp, card, wavlm_pt, wav_path):
         # one step on a fresh full-width model: gradients, dtypes under bf16, EMA
         dataset = out["dataset"]
         cache = DeviceWindowCache.from_zeggs(dataset, dev)
+        res["captured_vs_eager"] = captured_vs_eager_training(cache, dev, card)
         fixed = cache.sample_batch(cache.arrays, torch.Generator(device=dev).manual_seed(1), batch)
         sched = D.Schedule.create(D.named_beta_schedule("cosine", 1000), device=dev)
 
@@ -731,6 +833,249 @@ def phase_training(dev, tmp, card, wavlm_pt, wav_path):
     finally:
         os.chdir(cwd)
     print(f"train [{card}]: {json.dumps(res)}")
+    return res, dict(work=work, config=config, checkpoint=ckpt, teacher_poses=poses[0])
+
+
+# ---- phase 7 --------------------------------------------------------------------
+
+
+DISTILL_STAGES, DISTILL_STEPS, DISTILL_CHUNK = 2, 30, 10  # 3 chunks a stage
+DISTILL_LR = 1e-4  # the JAX CLI's default
+AE_BATCH = 32  # train_autoencoder's default
+# what the JAX CLI's eval prints with --kid and --wav (diffusestylegesture_tpu/cli/eval.py)
+EVAL_KEYS = {"fgd", "embedding", "diversity_generated", "diversity_reference",
+             "n_windows_generated", "n_windows_reference", "velocity_retention_min",
+             "velocity_retention_mean", "velocity_clips_matched", "frozen_clips",
+             "frozen_clip_stems", "kid_mean", "kid_std", "precision", "recall", "beat_alignment",
+             "beat_alignment_clips", "beat_alignment_reference"}
+
+
+def teacher_at_distillation_batch(dev, card, ckpt, cache):
+    """The teacher's call at B = 300 through the kernels and through the plain
+    ops, and each kernel at the shapes that call gives it against its plain
+    version (A 1e-5, B 1e-4 per layer) and its library call."""
+    import torch
+    import torch.nn.functional as F
+    from torch import nn
+
+    from diffusestylegesture_torch.models.convert import load_reference_mdm
+    from diffusestylegesture_torch.models.local_attention import local_attention_plain
+    from diffusestylegesture_torch.models.mdm import MDMConfig
+    from diffusestylegesture_torch.ops import encoder_layer as el
+    from diffusestylegesture_torch.ops import local_attention as la
+    from diffusestylegesture_torch.train import zeggs_cond_builder
+
+    B, H, n, w, d, T, D, F_, heads = TRAIN_BATCH, 8, 88, 11, 32, 89, 256, 1024, 4
+    mcfg = MDMConfig(audio_in_dim=cache.arrays["wavlm"].shape[-1])
+    kernel = load_reference_mdm(ckpt, mcfg, device=dev)
+    plain = load_reference_mdm(ckpt, dataclasses.replace(mcfg, impl="plain"), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x0, cond, _ = zeggs_cond_builder(cache.sample_batch(cache.arrays, gen, B))
+    x = torch.randn(x0.shape, generator=gen, device=dev)
+    t = torch.randint(0, 1000, (B,), generator=gen, device=dev)
+    res = {}
+    with torch.no_grad():
+        err = (kernel(x, t, cond) - plain(x, t, cond)).abs().max().item()
+        check(err <= 1e-3, f"teacher B={B}: kernel path vs plain path {err}")
+        # ~60 (kernel) and ~200 (plain) launches a call: 4 calls stay within the launch queue
+        res["teacher_call"] = dict(kernel_ms=device_ms(lambda: kernel(x, t, cond), iters=4,
+                                                       warmup=2),
+                                   plain_ms=device_ms(lambda: plain(x, t, cond), iters=4,
+                                                      warmup=2),
+                                   kernel_vs_plain_max_abs_err=err)
+
+        # kernel A: q = k = v, the (B, H, n, d) view of a (B, n, H·d) activation
+        act = torch.randn(B, n, H * d, generator=gen, device=dev)
+        view = act.view(B, n, H, d).transpose(1, 2)
+        packed = view.reshape(B * H, n, d)
+        merged = torch.empty(B, n, H * d, device=dev)
+        out = merged.view(B, n, H, d).transpose(1, 2)
+        full = torch.ones(B, n, dtype=torch.bool, device=dev)
+        a_err = (la.local_attention(view, view, view, w, full, heads=H, out=out).reshape(
+            B * H, n, d) - local_attention_plain(packed, packed, packed, w, full, heads=H)
+        ).abs().max().item()
+        check(a_err <= ATOL_LOCAL_ATTENTION, f"local_attention B={B}: err {a_err}")
+        pos = torch.arange(n, device=dev)
+        allowed = (pos[None, :] <= pos[:, None]) & (pos[None, :] >= (pos[:, None] // w - 1) * w)
+        res["local_attention"] = dict(
+            max_abs_err=a_err,
+            ms=device_ms(lambda: la.local_attention(view, view, view, w, full, heads=H, out=out)),
+            plain_ms=device_ms(lambda: local_attention_plain(packed, packed, packed, w, full,
+                                                             heads=H), iters=10),
+            library_ms=device_ms(lambda: F.scaled_dot_product_attention(
+                packed, packed, packed, attn_mask=allowed), iters=10),
+            bound=bound(2 * 4 * B * H * n * d + B * n, 2 * 2 * B * H * n * 2 * w * d))
+
+        # kernel B: the teacher's eight layers on one activation
+        h = torch.randn(B, T, D, generator=gen, device=dev)
+        b_err = 0.0
+        for layer in kernel.seqTransEncoder.layers:
+            nxt = el.encoder_layer(h, layer)
+            b_err = max(b_err, (nxt - layer(h)).abs().max().item())
+            h = nxt
+        check(b_err <= ATOL_ENCODER_LAYER, f"encoder_layer B={B}: err {b_err}")
+        layer = kernel.seqTransEncoder.layers[0]
+        ref = nn.TransformerEncoderLayer(D, heads, F_, dropout=0.0, activation="gelu",
+                                         batch_first=True, norm_first=False).to(dev).eval()
+        ref.load_state_dict(layer.state_dict())
+        nbytes, flops = encoder_layer_cost(B, T, D, heads, F_)
+        res["encoder_layer"] = dict(
+            max_abs_err=b_err, ms=device_ms(lambda: el.encoder_layer(h, layer), iters=10),
+            plain_ms=device_ms(lambda: layer(h), iters=10),
+            library_ms=device_ms(lambda: ref(h), iters=10),
+            bound=bound(nbytes, 3 * flops, TF32_FLOPS_PER_S))
+    print(f"teacher at B={B} [{card}]: {json.dumps(res)}")
+    return res
+
+
+def phase_distill_eval(dev, card, ctx, wav_path):
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from diffusestylegesture_torch.cli import distill as distill_cli
+    from diffusestylegesture_torch.cli import eval as eval_cli
+    from diffusestylegesture_torch.cli import sample as sample_cli
+    from diffusestylegesture_torch.data import ZeggsWindowDataset
+    from diffusestylegesture_torch.data.device_cache import DeviceWindowCache
+    from diffusestylegesture_torch.eval.embedding import (AEConfig, GestureAutoencoder,
+                                                          make_autoencoder_step)
+    from diffusestylegesture_torch.models.convert import load_reference_mdm
+    from diffusestylegesture_torch.models.mdm import MDMConfig
+    from diffusestylegesture_torch import diffusion as D
+    from diffusestylegesture_torch.ops import encoder_layer as el
+    from diffusestylegesture_torch.ops import local_attention as la
+    from diffusestylegesture_torch.train import TrainConfig, TrainState, zeggs_cond_builder
+
+    work, config, ckpt = ctx["work"], ctx["config"], ctx["checkpoint"]
+    res = {}
+    cwd = os.getcwd()
+    os.chdir(work)  # configs/zeggs.yml's relative paths, as in phase 6
+    try:
+        # the distillation path, through the CLI: counters from 0 around the run
+        la.launches = el.launches = el.launches_bf16 = 0
+        out = distill_cli.main(["--config", config, "--teacher", ckpt, "--save_dir",
+                                os.path.join(work, "distilled"), "--stages", str(DISTILL_STAGES),
+                                "--steps_per_stage", str(DISTILL_STEPS), "--chunk",
+                                str(DISTILL_CHUNK), "--batch_size", str(TRAIN_BATCH),
+                                "--lr", str(DISTILL_LR), "--seed", "0"])
+        counts = (la.launches, el.launches, el.launches_bf16)
+        steps = sum(s["steps"] for s in out["stages"])
+        check(steps == DISTILL_STAGES * DISTILL_STEPS, f"distill: {steps} steps")
+        check(counts == (2 * steps, 16 * steps, 0),
+              f"distill: launches {counts}, expected {(2 * steps, 16 * steps, 0)}")
+        losses = [loss for s in out["stages"] for loss in s["losses"]]
+        check(all(np.isfinite(losses)), f"distill: losses {losses}")
+        # steady ms a step from the chunk boundaries, the first chunk (eager step,
+        # capture) of each stage left out
+        steady = [(b[-1][1] - b[0][1]) / (b[-1][0] - b[0][0]) * 1e3
+                  for b in (s["boundaries"] for s in out["stages"])]
+        res["cli"] = dict(stages=[dict(dir=os.path.basename(s["dir"]), steps=s["steps"],
+                                       losses=s["losses"], capture_s=s["capture_seconds"])
+                                  for s in out["stages"]],
+                          local_attention_launches=counts[0], encoder_layer_launches=counts[1],
+                          launches_per_step=(counts[0] / steps, counts[1] / steps),
+                          steady_ms_per_step=steady)
+        print(f"distill CLI [{card}]: {json.dumps(res['cli'])}")
+
+        # the same stage-0 step in this process: captured against eager
+        data = ZeggsWindowDataset(os.path.join("data", "zeggs_processed", "train"), None)
+        cache = DeviceWindowCache.from_zeggs(data, dev)
+        mcfg = MDMConfig(audio_in_dim=data.wavlm.shape[-1])
+        sched = D.Schedule.create(D.named_beta_schedule("cosine", 1000), device=dev)
+
+        teacher_pt = distill_cli.teacher_checkpoint(ckpt)
+
+        def make():
+            teacher = load_reference_mdm(teacher_pt, mcfg, device=dev)
+            student = load_reference_mdm(teacher_pt, dataclasses.replace(mcfg, impl="plain"),
+                                         device=dev)
+            gen = torch.Generator(device=dev).manual_seed(0)
+            state, step = distill_cli.make_stage_step(student, teacher, sched, cache,
+                                                      zeggs_cond_builder, TRAIN_BATCH,
+                                                      DISTILL_LR, gen)
+            return state, step, step, gen
+
+        equal, eager_ms, captured_ms, run = captured_vs_eager(make)
+        check(equal, "distill: the captured step differs from the eager step")
+        res["step"] = dict(captured_equals_eager_3_steps=equal, eager_ms_per_step=eager_ms,
+                           captured_ms_per_step=captured_ms, capture_s=run.capture_seconds)
+        print(f"distill step, captured vs eager [{card}]: {json.dumps(res['step'])}")
+        del run
+        res["b300"] = teacher_at_distillation_batch(dev, card, teacher_pt, cache)
+
+        # both students served through the kernels on their exact DDIM grids
+        stems = os.path.splitext(os.path.basename(wav_path))[0]
+        served = {}
+        for stage in out["stages"]:
+            name = os.path.basename(stage["dir"])
+            grid = int(name.split("steps")[1])
+            la.launches = el.launches = el.launches_bf16 = 0
+            r = sample_cli.main(["--config", config, "--model_path", stage["dir"],
+                                 "--audiowavlm_path", wav_path, "--save_dir",
+                                 os.path.join(work, "served_" + name), "--seed", "123456"])
+            counts = (la.launches, el.launches, el.launches_bf16)
+            poses = r["poses"]
+            check(len(r["paths"]) == 1 and os.path.getsize(r["paths"][0]) > 0,
+                  f"{name}: no BVH written")
+            check(poses.shape == (1, 3 * 80 - 8, 1141) and bool(np.isfinite(poses).all()),
+                  f"{name}: poses {poses.shape}, finite {np.isfinite(poses).all()}")
+            check(counts == (3 * grid, 24 * grid, 0),
+                  f"{name}: launches {counts}, expected {(3 * grid, 24 * grid, 0)}")
+            served[name] = dict(local_attention_launches=counts[0],
+                                encoder_layer_launches=counts[1],
+                                generate_s=r["generate_seconds"], poses=poses[0])
+        res["served"] = {k: {kk: vv for kk, vv in v.items() if kk != "poses"}
+                         for k, v in served.items()}
+        print(f"distilled students served [{card}]: {json.dumps(res['served'])}")
+
+        # the last student's poses scored against the teacher's dpmpp5 poses
+        # (phase 6) for the same seeded audio, paired by stem
+        ev = os.path.join(work, "eval")
+        for sub in ("gen", "ref", "wav"):
+            os.makedirs(os.path.join(ev, sub))
+        np.save(os.path.join(ev, "gen", stems + ".npy"), served[name]["poses"])
+        np.save(os.path.join(ev, "ref", stems + ".npy"), ctx["teacher_poses"])
+        shutil.copy(wav_path, os.path.join(ev, "wav", stems + ".wav"))
+        t0 = time.perf_counter()
+        scores = eval_cli.main(["--generated", os.path.join(ev, "gen"), "--reference",
+                                os.path.join(ev, "ref"), "--wav", os.path.join(ev, "wav"),
+                                "--embedding", "autoencoder", "--kid", "--stride", "2",
+                                "--ae_latent", "16", "--ae_steps", "200"])
+        res["eval_s"] = time.perf_counter() - t0
+        check(set(scores) == EVAL_KEYS, f"eval keys {sorted(set(scores) ^ EVAL_KEYS)} differ")
+        check(np.isfinite(scores["fgd"]) and scores["velocity_clips_matched"] == 1,
+              f"eval: {scores}")
+        res["eval"] = scores
+
+        # the autoencoder's step at cli/eval's widths: captured against eager
+        windows = eval_cli.windowed_features({"ref": ctx["teacher_poses"]}, 40, 2).reshape(
+            -1, 40, 1141)
+        ae_data = torch.as_tensor(windows, device=dev)
+
+        def make_ae():
+            with torch.random.fork_rng(devices=[]):
+                torch.manual_seed(SEED)
+                model = GestureAutoencoder(AEConfig(latent=16)).to(dev)
+            state = TrainState(model, TrainConfig(lr=1e-3))
+            step = make_autoencoder_step(state, ae_data, AE_BATCH)
+            gen = torch.Generator(device=dev).manual_seed(0)
+            return state, lambda: step(gen), lambda: step(gen), gen
+
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                        allow_tf32=False):
+            equal, eager_ms, captured_ms, run = captured_vs_eager(make_ae, steps=50)
+        check(equal, "autoencoder: the captured step differs from the eager step")
+        res["autoencoder_step"] = dict(captured_equals_eager_3_steps=equal,
+                                       eager_ms_per_step=eager_ms,
+                                       captured_ms_per_step=captured_ms,
+                                       capture_s=run.capture_seconds, batch=AE_BATCH,
+                                       windows=len(windows))
+        print(f"autoencoder step, captured vs eager [{card}]: "
+              f"{json.dumps(res['autoencoder_step'])}")
+    finally:
+        os.chdir(cwd)
     return res
 
 
@@ -780,10 +1125,13 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="dsg_chip_smoke_") as tmp:
         e2e = phase_end_to_end(dev, tmp, card)
         # 6
-        train = phase_training(dev, tmp, card, os.path.join(tmp, "WavLM-Large.pt"),
-                               os.path.join(tmp, "015_Happy_4_x_1_0.wav"))
+        wav_path = os.path.join(tmp, "015_Happy_4_x_1_0.wav")
+        train, ctx = phase_training(dev, tmp, card, os.path.join(tmp, "WavLM-Large.pt"),
+                                    wav_path)
+        # 7
+        distill = phase_distill_eval(dev, card, ctx, wav_path)
 
-    # 7. lines
+    # 8. lines
     kernels = []
     el_src = ("diffusestylegesture_torch/csrc/encoder_layer.cu",
               "diffusestylegesture_tpu/ops/encoder_layer_pallas.py:120")
@@ -809,18 +1157,28 @@ def main() -> int:
         b2 = dict(ms=t[2]["ms"], plain_ms=t[2]["plain_ms"], library_ms=t[2]["library_ms"],
                   bound_ms=t[2]["bound"][0], bound_by=t[2]["bound"][1])
         b2.update({key: t[2][key] for key in la_keys[1:5] if key in t[2]})
+        # the distillation path (phase 7): the teacher's two calls a step at B = 300
+        b300 = distill["b300"].get(name)
+        if b300 is not None:
+            b300 = dict({k: v for k, v in b300.items() if k != "bound"},
+                        bound_ms=b300["bound"][0], bound_by=b300["bound"][1])
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
             launches=e2e[path][f"{name}_launches"], launches_path=path,
             max_abs_err=err, ms=t[1]["ms"], plain_ms=t[1]["plain_ms"],
             bound_ms=t[1]["bound"][0], bound_by=t[1]["bound"][1],
             library_ms=t[1]["library_ms"], shape=shape,
-            launches_dpmpp5=e2e["dpmpp5"][f"{name}_launches"], b2=b2, **extra))
+            launches_dpmpp5=e2e["dpmpp5"][f"{name}_launches"],
+            launches_distill=distill["cli"].get(f"{name}_launches", 0), b2=b2, b300=b300,
+            **extra))
     check(all(k["launches"] > 0 for k in kernels), "a kernel was not launched on its path")
+    check(all(k["launches_distill"] > 0 for k in kernels[:2]),
+          "a kernel was not launched on the distillation path")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"e2e": e2e, "build_s": build_s}))
     print(json.dumps({"train": train, "card": card}))
+    print(json.dumps({"distill": distill, "card": card}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -90,6 +90,8 @@
 #include <stdint.h>
 
 #include <algorithm>
+#include <atomic>
+#include <mutex>
 
 namespace cg = cooperative_groups;
 
@@ -893,13 +895,38 @@ struct LayerArgs {
   float scale, eps;
 };
 
+// Raises `Kernel`'s dynamic shared-memory limit to kSmemLimit on the current
+// device, once per device: the attribute belongs to a device, so a process that
+// launches on a second card opts in there too (at the ZEGGS shapes all four
+// grids need more than the default 48 KB: 115,968 / 71,168 / 226,944 / 211,968
+// bytes). A failed opt-in is not recorded, and its error goes back to the
+// wrapper, which raises.
+constexpr int kMaxDevices = 64;
+template <auto Kernel>
+cudaError_t allow_smem() {
+  static std::atomic<bool> done[kMaxDevices];
+  static std::mutex mu;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (done[dev].load(std::memory_order_acquire)) return cudaSuccess;
+  std::lock_guard<std::mutex> lock(mu);
+  if (!done[dev].load(std::memory_order_relaxed)) {
+    e = cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(kSmemLimit));
+    if (e != cudaSuccess) return e;
+    done[dev].store(true, std::memory_order_release);
+  }
+  return cudaSuccess;
+}
+
 // Launches `Kernel` with Programmatic Dependent Launch (and a cluster of
 // kCluster blocks along x when `cluster`) on `stream`. The kernel's dynamic
-// shared-memory limit is raised to kSmemLimit once, at its first launch.
+// shared-memory limit is raised first, once per device.
 template <auto Kernel, typename... Args>
 cudaError_t launch(dim3 grid, size_t smem, bool cluster, cudaStream_t stream, Args... args) {
-  static const cudaError_t allowed = cudaFuncSetAttribute(
-      Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kSmemLimit));
+  const cudaError_t allowed = allow_smem<Kernel>();
   if (allowed != cudaSuccess) return allowed;
   if (smem > kSmemLimit) return cudaErrorInvalidConfiguration;
   cudaLaunchAttribute attrs[2];

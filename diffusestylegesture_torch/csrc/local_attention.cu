@@ -54,6 +54,9 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include <atomic>
+#include <mutex>
+
 namespace {
 
 constexpr int kMaxWindow = 32;   // warps a block: one per query row
@@ -345,13 +348,35 @@ __global__ void __launch_bounds__(32 * kMaxWindow) local_attention_empty_kernel(
   grid_dependency_wait();
 }
 
+// Raises `Kernel`'s dynamic shared-memory limit to kSmemLimit on the current
+// device, once per device: the attribute belongs to a device, so a process that
+// launches on a second card opts in there too. A failed opt-in is not recorded,
+// and its error goes back to the wrapper, which raises.
+constexpr int kMaxDevices = 64;
+template <auto Kernel>
+cudaError_t allow_smem() {
+  static std::atomic<bool> done[kMaxDevices];
+  static std::mutex mu;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (done[dev].load(std::memory_order_acquire)) return cudaSuccess;
+  std::lock_guard<std::mutex> lock(mu);
+  if (!done[dev].load(std::memory_order_relaxed)) {
+    e = cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(kSmemLimit));
+    if (e != cudaSuccess) return e;
+    done[dev].store(true, std::memory_order_release);
+  }
+  return cudaSuccess;
+}
+
 // Launches `Kernel` with Programmatic Dependent Launch on `stream`. The
-// kernel's dynamic shared-memory limit is raised to kSmemLimit once, at its
-// first launch.
+// kernel's dynamic shared-memory limit is raised first, once per device.
 template <auto Kernel, typename... Args>
 cudaError_t launch(dim3 grid, int threads, size_t smem, cudaStream_t stream, Args... args) {
-  static const cudaError_t allowed = cudaFuncSetAttribute(
-      Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kSmemLimit));
+  const cudaError_t allowed = allow_smem<Kernel>();
   if (allowed != cudaSuccess) return allowed;
   if (smem > kSmemLimit) return cudaErrorInvalidConfiguration;
   cudaLaunchAttribute attr;

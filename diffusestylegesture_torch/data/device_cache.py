@@ -52,13 +52,21 @@ class DeviceWindowCache:
 
 def make_device_data_train_step(sched, train_cfg, cond_builder, batch_size: int) -> Callable:
     """step(state, generator, arrays) → metrics: the batch indices are drawn
-    first from `generator`, then the train step's own draws follow."""
+    first from `generator`, then the train step's own draws follow.
+    `step.device_step` leaves out the host's step count, as the train step's
+    does: it is what `cli/train.py --device_cache` captures into a CUDA graph."""
     from ..train.state import make_train_step
 
     inner = make_train_step(sched, train_cfg, cond_builder)
 
-    def step(state, generator, arrays):
-        return inner(state, DeviceWindowCache.sample_batch(arrays, generator, batch_size),
-                     generator)
+    def device_step(state, generator, arrays):
+        return inner.device_step(state, DeviceWindowCache.sample_batch(arrays, generator,
+                                                                       batch_size), generator)
 
+    def step(state, generator, arrays):
+        metrics = device_step(state, generator, arrays)
+        state.step += 1
+        return metrics
+
+    step.device_step = device_step
     return step

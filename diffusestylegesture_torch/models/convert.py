@@ -10,6 +10,9 @@
   package's parameter trees (nested dicts of numpy arrays) → the port's
   state_dict. Dense kernels (in, out) transpose to (out, in); LayerNorm
   `scale` → `weight`; `layers_i` → `layers.i`; Conv (k, in, out) → (out, in, k).
+* `autoencoder_state_dict_from_flax`: the JAX evaluation autoencoder
+  (`eval/embedding.py`) → the port's `GestureAutoencoder`; a ConvTranspose
+  kernel (k, in, out) becomes (in, out, k) flipped along its taps.
 * `train_state_from_flax`: a JAX `TrainState`'s params, `optax.adamw` state
   and EMA → the port's model state_dict, `train.state.AdamW` state_dict and
   EMA, the moments through the same naming, so both trainers can start from
@@ -81,6 +84,25 @@ def mdm_state_dict_from_flax(params: Mapping[str, Any]) -> StateDict:
     for i in range(len([k for k in enc if k.startswith("layers_")])):
         sd.update(encoder_layer_state_dict_from_flax(enc[f"layers_{i}"],
                                                      f"seqTransEncoder.layers.{i}."))
+    return sd
+
+
+def autoencoder_state_dict_from_flax(params: Mapping[str, Any]) -> StateDict:
+    """JAX `GestureAutoencoder` params → `eval.embedding.GestureAutoencoder`
+    names. flax's ConvTranspose correlates the dilated input with its kernel
+    as it is (`transpose_kernel=False`), torch's is the adjoint of a
+    correlation: the taps are flipped."""
+    p = _unwrap(params)
+    sd: StateDict = {}
+    for name in ("conv1", "conv2"):
+        sd[f"encoder.{name}.weight"] = _conv(p["encoder"][name]["kernel"])
+        sd[f"encoder.{name}.bias"] = _t(p["encoder"][name]["bias"])
+    for name in ("deconv1", "deconv2"):
+        sd[f"decoder.{name}.weight"] = _t(np.asarray(p["decoder"][name]["kernel"])[::-1]
+                                          .transpose(1, 2, 0))
+        sd[f"decoder.{name}.bias"] = _t(p["decoder"][name]["bias"])
+    _dense(sd, "encoder.proj", p["encoder"]["proj"])
+    _dense(sd, "decoder.proj", p["decoder"]["proj"])
     return sd
 
 

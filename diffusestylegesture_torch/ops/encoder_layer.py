@@ -96,10 +96,11 @@ def encoder_layer(x: torch.Tensor, layer: TorchEncoderLayer,
     work = torch.empty(lib.dsg_encoder_layer_workspace_floats(B, T, D, F), device=x.device,
                        dtype=torch.float32)
     out = torch.empty_like(x)
-    err = lib.dsg_encoder_layer(
-        0, x.data_ptr(), *(w.data_ptr() for w in weights), work.data_ptr(), out.data_ptr(),
-        B, T, D, H, F, ACT_CODES[layer.activation], int(mxu_bf16), (D // H) ** -0.5,
-        layer.norm1.eps, torch.cuda.current_stream(x.device).cuda_stream)
+    with torch.cuda.device(x.device):  # the kernel opts in and launches on x's card
+        err = lib.dsg_encoder_layer(
+            0, x.data_ptr(), *(w.data_ptr() for w in weights), work.data_ptr(), out.data_ptr(),
+            B, T, D, H, F, ACT_CODES[layer.activation], int(mxu_bf16), (D // H) ** -0.5,
+            layer.norm1.eps, torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"encoder_layer kernel launch failed: CUDA error {err}")
     global launches, launches_bf16

@@ -64,7 +64,9 @@ def launch_empty(batch: int, heads: int, n: int, window_size: int, d: int,
         fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _empty_fn = fn
-    err = _empty_fn(batch, heads, n, window_size, d, torch.cuda.current_stream(device).cuda_stream)
+    with torch.cuda.device(device):
+        err = _empty_fn(batch, heads, n, window_size, d,
+                        torch.cuda.current_stream(device).cuda_stream)
     if err:
         raise RuntimeError(f"local_attention empty launch failed: CUDA error {err}")
 
@@ -138,10 +140,11 @@ def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window_si
         out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
         strides.append(_geometry("out", out, heads)[1])
     alias = (q.data_ptr() == k.data_ptr() == v.data_ptr()) and strides[0] == strides[1] == strides[2]
-    err = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                    None if mask is None else mask.data_ptr(), out.data_ptr(),
-                    B, H, n, w, d, *strides[0], *strides[1], *strides[2], *strides[3],
-                    int(alias), d ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
+    with torch.cuda.device(q.device):  # the kernel opts in and launches on q's card
+        err = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        None if mask is None else mask.data_ptr(), out.data_ptr(),
+                        B, H, n, w, d, *strides[0], *strides[1], *strides[2], *strides[3],
+                        int(alias), d ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"local_attention kernel launch failed: CUDA error {err}")
     global launches

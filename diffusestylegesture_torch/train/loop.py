@@ -13,7 +13,11 @@ loop synchronizes the device, records (step, time) in `boundaries` (so the
 steady-state time a step is the difference of two boundaries) and keeps
 what it logged in `logged`. Batches
 come from an iterable of numpy dicts (copied to the device from pinned
-memory), or, with a `DeviceWindowCache`, are gathered on the device.
+memory), or, with a `DeviceWindowCache`, are gathered on the device; on a
+card that step (gather, forward, backward, update) is captured once as a CUDA
+graph and replayed (`utils/graphs.py::CapturedStep`), the counterpart of the
+JAX trainer's jitted step. The host-fed step stays eager: it pins and copies
+each batch on the host.
 The multi-card fields of `LoopConfig` (mesh, tensor parallel, FSDP) wait for
 the port's slice 9 and raise when set.
 """
@@ -142,6 +146,14 @@ class TrainLoop:
             self.logger.log(f"resumed from step {self.resume_step}")
         self.generator = torch.Generator(device=self.device).manual_seed(
             train_seed(seed, self.resume_step))
+        self.captured = None
+        if self.cached_step is not None:
+            from ..utils.graphs import CapturedStep
+
+            self.captured = CapturedStep(
+                lambda: self.cached_step.device_step(self.state, self.generator,
+                                                     self.device_cache.arrays),
+                self.device, [self.generator])
         self.boundaries: List[Tuple[int, float]] = []
         self.logged: List[Dict] = []  # what each log boundary dumped
 
@@ -188,8 +200,10 @@ class TrainLoop:
                     self.logger.log(f"preemption (signal {guard.requested}): checkpoint "
                                     f"written at step {step}, stopping cleanly")
                     return self.state
-                if self.cached_step is not None:
-                    metrics = self.cached_step(self.state, self.generator, self.device_cache.arrays)
+                if self.captured is not None:
+                    # a replay overwrites the graph's metrics: keep a copy of each step's
+                    metrics = {k: v.clone() for k, v in self.captured().items()}
+                    self.state.step += 1
                 else:
                     metrics = self.train_step(self.state, batch, self.generator)
                 pending.append(metrics)

@@ -108,15 +108,19 @@ class AdamW:
         self.count = torch.zeros((), dtype=torch.int32, device=dev)
         self.notfinite_count = torch.zeros((), dtype=torch.int32, device=dev)
         self.total_notfinite = torch.zeros((), dtype=torch.int32, device=dev)
+        # on the device once: a step copies nothing from the host
+        self._lr = torch.tensor(lr, device=dev)
 
     def lr_at(self, count: torch.Tensor) -> torch.Tensor:
         if self.lr_anneal_steps:
             frac = 1.0 - torch.clamp(count.float() / self.lr_anneal_steps, max=1.0)
             return self.lr * frac
-        return torch.tensor(self.lr, device=count.device)
+        return self._lr
 
     @torch.no_grad()
     def step(self) -> None:
+        """One update, written into the existing buffers (`copy_`), so that a
+        CUDA graph captured over a step keeps reading and writing them."""
         p, g = self.params.data, self.params.grad
         b1, b2 = self.b1, self.b2
         count_inc = self.count + 1
@@ -129,17 +133,19 @@ class AdamW:
         new_p = p + (-self.lr_at(self.count)) * u
         if not self.skip_nonfinite:
             p.copy_(new_p)
-            self.mu, self.nu, self.count = mu, nu, count_inc
+            self.mu.copy_(mu)
+            self.nu.copy_(nu)
+            self.count.copy_(count_inc)
             return
         finite = torch.isfinite(g).all()
-        self.notfinite_count = torch.where(finite, 0, self.notfinite_count + 1).int()
-        self.total_notfinite = torch.where(finite, self.total_notfinite,
-                                           self.total_notfinite + 1).int()
+        self.notfinite_count.copy_(torch.where(finite, 0, self.notfinite_count + 1))
+        self.total_notfinite.copy_(torch.where(finite, self.total_notfinite,
+                                               self.total_notfinite + 1))
         ok = finite | (self.notfinite_count > self.skip_nonfinite)
         p.copy_(torch.where(ok, new_p, p))
-        self.mu = torch.where(ok, mu, self.mu)
-        self.nu = torch.where(ok, nu, self.nu)
-        self.count = torch.where(ok, count_inc, self.count)
+        self.mu.copy_(torch.where(ok, mu, self.mu))
+        self.nu.copy_(torch.where(ok, nu, self.nu))
+        self.count.copy_(torch.where(ok, count_inc, self.count))
 
     def state_dict(self) -> Dict:
         """Moments per parameter name, the count and the non-finite counters."""
@@ -149,13 +155,11 @@ class AdamW:
                 "total_notfinite": self.total_notfinite.clone()}
 
     def load_state_dict(self, sd: Dict) -> None:
-        dev = self.count.device
         self.params.from_dict(self.mu, sd["mu"])
         self.params.from_dict(self.nu, sd["nu"])
-        self.count = torch.as_tensor(sd["count"], dtype=torch.int32).to(dev).reshape(())
-        for name in ("notfinite_count", "total_notfinite"):
+        for name in ("count", "notfinite_count", "total_notfinite"):
             if name in sd:
-                setattr(self, name, torch.as_tensor(sd[name], dtype=torch.int32).to(dev).reshape(()))
+                getattr(self, name).copy_(torch.as_tensor(sd[name]).reshape(()))
 
 
 class TrainState:
@@ -191,10 +195,8 @@ class TrainState:
         if self.ema is not None:
             self.params.from_dict(self.ema, ema_sd if ema_sd is not None else model_sd)
         if self.loss_aware is not None and sd.get("loss_aware") is not None:
-            dev = self.params.data.device
-            self.loss_aware = resample.LossAwareState(
-                history=sd["loss_aware"]["history"].to(dev),
-                counts=sd["loss_aware"]["counts"].to(dev))
+            self.loss_aware.history.copy_(sd["loss_aware"]["history"])
+            self.loss_aware.counts.copy_(sd["loss_aware"]["counts"])
         self.step = int(sd["step"])
 
 
@@ -213,6 +215,11 @@ def make_train_step(sched: Schedule, cfg: TrainConfig,
     dropout masks layer by layer. The metrics are device tensors (no host
     sync): the loss terms per example, `loss`, `grad_norm`, `param_norm`,
     `t` and `loss_per_example`.
+
+    `step.device_step` is the same step without the host's step count
+    (`state.step`): all of it runs on the device and every state update is
+    written into the state's buffers, so it can be captured into a CUDA graph
+    (`utils/graphs.py::CapturedStep`), whose caller then counts the steps.
     """
     if cond_builder is None:
         cond_builder = zeggs_cond_builder
@@ -221,9 +228,9 @@ def make_train_step(sched: Schedule, cfg: TrainConfig,
         raise ValueError(f"compute_dtype must be float32 or bfloat16, not {cfg.compute_dtype!r}")
     bf16 = cfg.compute_dtype == "bfloat16"
 
-    def step(state: TrainState, batch: Batch, generator: Optional[torch.Generator], *,
-             t: Optional[torch.Tensor] = None, noise: Optional[torch.Tensor] = None,
-             cond_drop=None) -> Dict[str, torch.Tensor]:
+    def device_step(state: TrainState, batch: Batch, generator: Optional[torch.Generator], *,
+                    t: Optional[torch.Tensor] = None, noise: Optional[torch.Tensor] = None,
+                    cond_drop=None) -> Dict[str, torch.Tensor]:
         x_start, cond, mask = cond_builder(batch)
         B, dev = x_start.shape[0], x_start.device
         T = sched.num_timesteps
@@ -237,7 +244,9 @@ def make_train_step(sched: Schedule, cfg: TrainConfig,
             noise = torch.randn(x_start.shape, generator=generator, device=dev)
 
         def model_fn(x, tt):
-            with torch.autocast(dev.type, dtype=torch.bfloat16, enabled=bf16):
+            # no cast cache: a CUDA graph must not keep casts cached at capture
+            with torch.autocast(dev.type, dtype=torch.bfloat16, enabled=bf16,
+                                cache_enabled=False):
                 out = state.model(x, tt, cond, train=True, generator=generator,
                                   cond_drop=cond_drop)
             return out.float()  # the diffusion loss in float32 whatever the forward's dtype
@@ -250,20 +259,27 @@ def make_train_step(sched: Schedule, cfg: TrainConfig,
         loss.backward()
         if loss_aware:
             # the unweighted per-example losses (ref `training_loop.py:256-259`)
-            state.loss_aware = resample.update_with_losses(state.loss_aware, t, terms["loss"])
+            new = resample.update_with_losses(state.loss_aware, t, terms["loss"])
+            state.loss_aware.history.copy_(new.history)
+            state.loss_aware.counts.copy_(new.counts)
         grad_norm = torch.linalg.vector_norm(state.params.grad)
         state.optimizer.step()
         with torch.no_grad():
             if state.ema is not None:
                 r = cfg.ema_rate
-                state.ema = state.ema * r + state.params.data * (1 - r)
+                state.ema.copy_(state.ema * r + state.params.data * (1 - r))
             param_norm = torch.linalg.vector_norm(state.params.data)
-        state.step += 1
         metrics = {k: v.detach() for k, v in terms.items()}
         metrics.update(loss=loss.detach(), grad_norm=grad_norm, param_norm=param_norm, t=t,
                        loss_per_example=terms["loss"].detach())
         return metrics
 
+    def step(state: TrainState, *args, **kwargs) -> Dict[str, torch.Tensor]:
+        metrics = device_step(state, *args, **kwargs)
+        state.step += 1
+        return metrics
+
+    step.device_step = device_step
     return step
 
 

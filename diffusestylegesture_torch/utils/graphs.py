@@ -23,12 +23,18 @@ and `ops/build.py` caches the compiled kernels in `_build/`.
 Launch counters. The kernel wrappers count in Python, which runs at capture
 and not at replay: a `StepGraph` records the launches its capture counted
 and adds them to the counters at each replay. The eager warm-up's launches
-are set-up and are taken off the counters again.
+are set-up and are taken off the counters again, except in a `CapturedStep`,
+whose warm-up is a real step.
+
+`CapturedStep` captures a training-style step (forward, backward and the
+optimizer's update) as one graph: the counterpart of the JAX package's jitted
+train step and of its `lax.scan` chunks (`cli/distill.py --chunk`, the whole
+autoencoder run of `eval/embedding.py::train_autoencoder`).
 """
 from __future__ import annotations
 
 import time
-from typing import Callable, Iterable, Optional, Tuple
+from typing import Callable, Dict, Iterable, Optional, Tuple
 
 import torch
 
@@ -104,3 +110,88 @@ class GraphSet:
         torch.cuda.synchronize(self.device)
         self.capture_seconds += time.perf_counter() - t0
         return StepGraph(graph, launches), out
+
+
+class CapturedStep:
+    """A step that updates state in place, captured once as one CUDA graph and
+    replayed: `step(n)` runs n steps and returns the last one's metrics.
+
+    `fn()` takes no arguments. It reads its inputs from tensors that outlive
+    the graph (parameters, optimizer buffers, the windows on the card), writes
+    every state update into them (`copy_`), draws only from `generators` and
+    returns its metrics as a dict of device tensors. The first step runs `fn`
+    eagerly on a side stream: it is a real step, and the warm-up that loads the
+    kernels' libraries, sets their shared-memory opt-ins and creates the cuBLAS
+    workspace outside the capture. Then `fn` is captured, which runs nothing,
+    and every later step is a replay. A replay advances each registered
+    generator as the eager step does, so the captured steps are bitwise equal
+    to eager ones from the same state and generator state.
+
+    Hazards, each of which breaks that equality or the capture:
+    * autocast's cast cache must be off inside `fn` (`cache_enabled=False`):
+      a cast cached at capture would be a tensor of the pool that no replay
+      refreshes;
+    * `loss.backward()` is captured together with the optimizer's update that
+      reads the gradients it accumulates, in one graph: a backward replayed
+      without its update, or the reverse, leaves the gradients stale;
+    * the metrics are the graph's output buffers, overwritten by every replay:
+      a caller that keeps one step's metrics clones them, and the host reads
+      them only at its log boundaries (a read waits for the card);
+    * nothing in `fn` may read a value on the host or copy one to the card (a
+      Python number becomes a kernel argument, fixed at capture);
+    * a capture that fails raises, and leaves PyTorch's default CUDA generator
+      in capture mode for the rest of the process: test such failures in a
+      subprocess.
+
+    On the CPU, where the caller asks for it, every step runs `fn` eagerly.
+    """
+
+    def __init__(self, fn: Callable[[], Dict[str, torch.Tensor]], device: torch.device,
+                 generators: Iterable[torch.Generator] = ()):
+        self.fn = fn
+        self.graph_set = GraphSet(device, generators) if device.type != "cpu" else None
+        self.graph: Optional[StepGraph] = None
+        self.outputs: Dict[str, torch.Tensor] = {}
+
+    @property
+    def capture_seconds(self) -> float:
+        return self.graph_set.capture_seconds if self.graph_set is not None else 0.0
+
+    def __call__(self, n: int = 1) -> Dict[str, torch.Tensor]:
+        if n < 1:
+            raise ValueError(f"CapturedStep: n must be at least 1, not {n}")
+        if self.graph_set is None:
+            for _ in range(n):
+                out = self.fn()
+            return out
+        if self.graph is None:
+            first = self._warm_up_and_capture()
+            if n == 1:
+                return first
+            n -= 1
+        self.graph.replay(n)
+        return self.outputs
+
+    def _warm_up_and_capture(self) -> Dict[str, torch.Tensor]:
+        gs = self.graph_set
+        t0 = time.perf_counter()
+        current = torch.cuda.current_stream(gs.device)
+        gs.stream.wait_stream(current)
+        with torch.cuda.stream(gs.stream):
+            first = self.fn()  # step 1, eagerly; its launches count
+        states = [gen.get_state() for gen in gs.generators]
+        graph = torch.cuda.CUDAGraph()
+        for gen in gs.generators:
+            graph.register_generator_state(gen)
+        start = launch_counts()
+        with torch.cuda.graph(graph, pool=gs.pool, stream=gs.stream):
+            self.outputs = self.fn()
+        launches = tuple(b - a for a, b in zip(start, launch_counts()))
+        _set_launch_counts(start)
+        for gen, state in zip(gs.generators, states):
+            gen.set_state(state)  # the capture draws nothing: replays advance the generators
+        current.wait_stream(gs.stream)
+        torch.cuda.synchronize(gs.device)
+        gs.capture_seconds += time.perf_counter() - t0
+        self.graph = StepGraph(graph, launches)
+        return first

@@ -11,6 +11,10 @@ for every sampler, with and without classifier-free guidance, and for
 `generate_multi_clip`; the generator ends in the same state; the launch
 counters read the same after replays as after eager calls; a capture that
 fails raises; `--serve_fast` stays within the bench gate's 2e-2 of float32.
+The training-style steps captured by `graphs.CapturedStep` (the device-cache
+train step in float32 and bf16, the distillation step with its teacher
+through kernels A and B, the autoencoder step) equal their eager steps
+bitwise over three steps; a step capture that fails raises.
 Elsewhere every test skips.
 """
 import os
@@ -184,6 +188,152 @@ def test_cuda_failed_capture_raises(card):
             "x = torch.ones(4, device='cuda')\n"
             "try:\n"
             "    GraphSet(x.device).capture(lambda: x.sum().item())  # a host read\n"
+            "except RuntimeError:\n"
+            "    raise SystemExit(0)\n"
+            "raise SystemExit('the capture did not raise')\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+# ---- captured training-style steps ----------------------------------------------------
+
+
+def _train_setup(dev, bf16=False, seed=0, **cfg_kw):
+    """A fresh train state, the device-cache step and its generator, windows on the card."""
+    from diffusestylegesture_torch.data.device_cache import make_device_data_train_step
+    from diffusestylegesture_torch.train import TrainConfig, TrainState, make_zeggs_cond_builder
+
+    torch.manual_seed(seed)
+    model = MDM(MDMConfig(njoints=NJ, latent_dim=128, ff_size=256, num_layers=2,
+                          audio_in_dim=32, impl="plain")).to(dev)
+    cfg = TrainConfig(lr=1e-3, ema_rate=0.99, compute_dtype="bfloat16" if bf16 else "float32",
+                      **cfg_kw)
+    rng = np.random.default_rng(seed)
+    arrays = {"motion": torch.as_tensor(rng.standard_normal((16, 88, NJ)), dtype=torch.float32,
+                                        device=dev),
+              "style": torch.eye(6, device=dev)[torch.as_tensor(rng.integers(0, 6, 16))],
+              "wavlm": torch.as_tensor(rng.standard_normal((16, 88, 32)), dtype=torch.float32,
+                                       device=dev)}
+    sched = D.Schedule.create(D.named_beta_schedule("cosine", 20), device=dev)
+    step = make_device_data_train_step(sched, cfg, make_zeggs_cond_builder(8), batch_size=4)
+    return (TrainState(model, cfg, 20), step, torch.Generator(device=dev).manual_seed(1), arrays)
+
+
+def _assert_states_equal(a, b):
+    for name in ("data", "grad"):
+        assert torch.equal(getattr(a.params, name), getattr(b.params, name)), name
+    for name in ("mu", "nu", "count"):
+        assert torch.equal(getattr(a.optimizer, name), getattr(b.optimizer, name)), name
+    assert a.ema is None or torch.equal(a.ema, b.ema)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16,cfg_kw", [
+    (False, {}), (True, {}),
+    (False, dict(schedule_sampler="loss-second-moment", skip_nonfinite_updates=2))],
+    ids=["f32", "bf16", "f32-loss-aware-skip-nonfinite"])
+def test_cuda_captured_train_step_equals_eager(card, bf16, cfg_kw):
+    """Three device-cache train steps (batch gather, forward with dropout and
+    condition drop, backward, AdamW, EMA; the loss-aware history and the
+    non-finite skip in one case): captured (one eager first step, two replays)
+    and eager, bitwise equal, and the generators end equal."""
+    dev = card["dev"]
+    eager, step, gen_e, arrays = _train_setup(dev, bf16, **cfg_kw)
+    captured, _, gen_c, _ = _train_setup(dev, bf16, **cfg_kw)
+    run = graphs.CapturedStep(lambda: step.device_step(captured, gen_c, arrays), dev, [gen_c])
+    for _ in range(3):
+        m_e = step(eager, gen_e, arrays)
+        m_c = run()
+    torch.cuda.synchronize()
+    _assert_states_equal(eager, captured)
+    assert all(torch.equal(m_e[k], m_c[k]) for k in m_e)
+    assert torch.equal(gen_e.get_state(), gen_c.get_state())
+    assert int(captured.optimizer.count) == 3 and run.graph is not None
+    if eager.loss_aware is not None:
+        assert torch.equal(eager.loss_aware.history, captured.loss_aware.history)
+        assert torch.equal(eager.loss_aware.counts, captured.loss_aware.counts)
+
+
+@pytest.mark.cuda
+def test_cuda_captured_distillation_step_equals_eager(card):
+    """Three distillation steps, the teacher through kernels A and B: captured
+    and eager bitwise equal; each replay counts the teacher's launches."""
+    from diffusestylegesture_torch.cli.distill import make_stage_step
+    from diffusestylegesture_torch.data.device_cache import DeviceWindowCache
+    from diffusestylegesture_torch.train import make_zeggs_cond_builder
+
+    dev = card["dev"]
+    sched = D.Schedule.create(D.named_beta_schedule("cosine", 20), device=dev)
+    _, _, _, arrays = _train_setup(dev)
+    cache = DeviceWindowCache({k: v.cpu().numpy() for k, v in arrays.items()}, dev)
+
+    def stage():
+        torch.manual_seed(0)
+        kw = dict(njoints=NJ, latent_dim=128, ff_size=256, num_layers=2, audio_in_dim=32)
+        teacher = MDM(MDMConfig(**kw)).to(dev).eval()
+        student = MDM(MDMConfig(**kw, impl="plain")).to(dev)
+        student.load_state_dict(teacher.state_dict())
+        gen = torch.Generator(device=dev).manual_seed(3)
+        state, step = make_stage_step(student, teacher, sched, cache, make_zeggs_cond_builder(8),
+                                      4, 1e-4, gen)
+        return state, step, gen
+
+    eager, step_e, gen_e = stage()
+    captured, step_c, gen_c = stage()
+    run = graphs.CapturedStep(step_c, dev, [gen_c])
+    for i in range(3):
+        before = graphs.launch_counts()
+        loss_e = step_e()["loss"]
+        mid = graphs.launch_counts()
+        loss_c = run()["loss"]
+        after = graphs.launch_counts()
+        assert tuple(b - a for a, b in zip(before, mid)) == (2, 4, 0)  # 2 teacher calls
+        assert tuple(b - a for a, b in zip(mid, after)) == (2, 4, 0), i
+        assert torch.equal(loss_e, loss_c)
+    torch.cuda.synchronize()
+    _assert_states_equal(eager, captured)
+    assert torch.equal(gen_e.get_state(), gen_c.get_state())
+
+
+@pytest.mark.cuda
+def test_cuda_captured_autoencoder_step_equals_eager(card):
+    from diffusestylegesture_torch.eval.embedding import (AEConfig, GestureAutoencoder,
+                                                          make_autoencoder_step)
+    from diffusestylegesture_torch.train import TrainConfig, TrainState
+
+    dev = card["dev"]
+    data = torch.randn(64, 40, NJ, generator=torch.Generator().manual_seed(0)).to(dev)
+
+    def setup():
+        torch.manual_seed(0)
+        state = TrainState(GestureAutoencoder(AEConfig(feat_dim=NJ, hidden=32, latent=16)).to(dev),
+                           TrainConfig(lr=1e-3))
+        return state, make_autoencoder_step(state, data, 8), torch.Generator(dev).manual_seed(2)
+
+    eager, step_e, gen_e = setup()
+    captured, step_c, gen_c = setup()
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                    allow_tf32=False):
+        run = graphs.CapturedStep(lambda: step_c(gen_c), dev, [gen_c])
+        for _ in range(3):
+            loss_e = step_e(gen_e)["loss"]
+            loss_c = run()["loss"]
+            assert torch.equal(loss_e, loss_c)
+    torch.cuda.synchronize()
+    _assert_states_equal(eager, captured)
+
+
+@pytest.mark.cuda
+def test_cuda_failed_step_capture_raises(card):
+    """In a process of its own, as `test_cuda_failed_capture_raises`: a step that
+    reads a value on the host cannot be captured."""
+    code = ("import torch\n"
+            "from diffusestylegesture_torch.utils.graphs import CapturedStep\n"
+            "x = torch.ones(4, device='cuda')\n"
+            "step = CapturedStep(lambda: {'loss': x * x.sum().item()}, x.device)\n"
+            "try:\n"
+            "    step()  # the eager first step runs, then its capture raises\n"
             "except RuntimeError:\n"
             "    raise SystemExit(0)\n"
             "raise SystemExit('the capture did not raise')\n")

@@ -10,7 +10,10 @@ version (local attention atol 1e-5, at the ZEGGS, BEAT and TWH shapes and odd
 ones, aliased and distinct q/k/v, packed and strided-in / merged-out; encoder layer atol 1e-4 in float32,
 where the kernel's 3xTF32 products sum in another order, and 1e-2 in the
 `mxu_bf16` mode, where a sum in another order can round an operand to the
-other bf16 neighbour) and check the launch counters; elsewhere they skip.
+other bf16 neighbour) and check the launch counters, also at the
+distillation teacher's batch of 300 and, given two cards, on the second card
+after the first (each kernel's shared-memory opt-in is per device); elsewhere
+they skip.
 """
 import importlib
 import os
@@ -61,9 +64,10 @@ def test_package_imports_no_jax_in_a_fresh_interpreter():
         "new = {'diffusestylegesture_torch.' + m for m in ('audio.loudness', 'utils.graphs', "
         "'audio.sphinx_mfcc', 'cli.prepare_data', 'cli.train', 'data.device_cache', "
         "'diffusion.resample', 'train.checkpoint', 'train.logger', 'train.loop', "
-        "'train.state')}\n"
+        "'train.state', 'audio.features', 'cli.distill', 'cli.eval', 'eval', "
+        "'eval.embedding', 'eval.metrics', 'eval.unconstrained', 'train.distill')}\n"
         "print(len(mods), bad, sorted(new - set(mods)))\n"
-        "sys.exit(1 if bad or len(mods) < 47 or not new <= set(mods) else 0)\n")
+        "sys.exit(1 if bad or len(mods) < 55 or not new <= set(mods) else 0)\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
                          timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
@@ -362,3 +366,55 @@ def test_cuda_mdm_kernel_path_matches_plain_path(cuda_device):
         ref = plain(x, t, cond)
     assert (ops_local_attention.launches - la0, ops_encoder_layer.launches - el0) == (1, 2)
     assert (out - ref).abs().max().item() <= 1e-4
+
+
+# ---- the distillation teacher's batch, and a second card ----------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", ["all", "partial"])
+def test_cuda_local_attention_at_the_distillation_batch(cuda_device, masked):
+    """The teacher's call in a distillation step: q = k = v, B = 300."""
+    qkv, mask, out, packed = local_attention_case(cuda_device, (88, 11, 32), 300, masked, True,
+                                                  "merged")
+    with torch.no_grad():
+        res = ops_local_attention.local_attention(*qkv, 11, mask, heads=8, out=out)
+        ref = local_attention_plain(*packed, 11, mask, heads=8)
+    assert (res.reshape(ref.shape) - ref).abs().max().item() <= 1e-5
+
+
+@pytest.mark.cuda
+def test_cuda_encoder_layer_at_the_distillation_batch(cuda_device):
+    torch.manual_seed(0)
+    layer = TorchEncoderLayer(256, 4, 1024).to(cuda_device).eval()
+    x = torch.randn(300, 89, 256, device=cuda_device)
+    with torch.no_grad():
+        out = ops_encoder_layer.encoder_layer(x, layer)
+        ref = layer(x)
+    assert (out - ref).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_opt_in_on_a_second_card(cuda_device):
+    """The dynamic shared-memory opt-in belongs to a device: launches on cuda:1
+    after cuda:0 need it there too. Kernel A with distinct q, k, v at w 32, D 128
+    takes ~84 KB, and each of kernel B's grids at the ZEGGS shapes over 48 KB."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two GPUs")
+    torch.manual_seed(0)
+    cpu_layer = TorchEncoderLayer(256, 4, 1024).eval()
+    x = torch.randn(2, 89, 256)
+    for index in (0, 1):
+        dev = resolve_device(f"cuda:{index}")
+        qkv, mask, out, packed = local_attention_case(dev, (64, 32, 128), 2, "partial", False,
+                                                      "packed")
+        layer = TorchEncoderLayer(256, 4, 1024).to(dev).eval()
+        layer.load_state_dict(cpu_layer.state_dict())
+        with torch.no_grad():
+            res = ops_local_attention.local_attention(*qkv, 32, mask, heads=8)
+            ref = local_attention_plain(*packed, 32, mask, heads=8)
+            y = ops_encoder_layer.encoder_layer(x.to(dev), layer)
+            y_ref = layer(x.to(dev))
+        torch.cuda.synchronize(dev)
+        assert res.device == dev and (res - ref).abs().max().item() <= 1e-5
+        assert y.device == dev and (y - y_ref).abs().max().item() <= 1e-4
