@@ -16,8 +16,9 @@ Phases (any failure exits non-zero before the result line):
      strided-in / merged-out, atol 1e-5; two calls bitwise equal; times of the
      kernel with the boolean mask and with no mask, of an empty kernel launched
      the same way, of the plain version and of SDPA (block-causal boolean mask);
-  4. encoder-layer kernel vs the plain layer at (1, 89, 256) and (2, 89, 256)
-     with 8 layers of seeded weights, in both operand modes: float32 (3xTF32,
+  4. encoder-layer kernel vs the plain layer at the ZEGGS (B, 89, 256), BEAT
+     (B, 151, 384) and TWH (B, 151, 512) trunk shapes, B = 1 and 2, with 8
+     layers of seeded weights each, in both operand modes: float32 (3xTF32,
      the main path) at atol 1e-4 per layer, `mxu_bf16` against the plain bf16
      layer at atol 1e-2 per layer; two calls on the same input bitwise equal;
      kernel, plain and nn.TransformerEncoderLayer times (under bf16 autocast
@@ -64,8 +65,24 @@ Phases (any failure exits non-zero before the result line):
      autoencoder --kid --wav` on the student's poses against the teacher's
      dpmpp5 poses (one stem), every key of the JAX CLI's line; the
      autoencoder's step captured and eager, bitwise equal and timed;
-  8. print the card line, a `kernels` JSON line, an `e2e` JSON line, a `train`
-     JSON line, a `distill` JSON line and, last, {"ok": true, "device": {...}}.
+  8. BEAT/TWH serving at the published widths through `cli.sample_beat.main`:
+     seeded random MDMPlus weights in reference layout (TWH 2232 / 512, BEAT v0
+     2052 / 384, 8 layers, 4 heads, ff 1024, window 15), phase 5's WavLM-Large,
+     a seeded 16 s wav (479 frames, 4 windows) with word timings, a 300-d
+     `.vec` file, a seed clip and stats; TWH DiffuseStyleGesture+ on the live
+     `--wav --tsv --word_vectors --wavlm_path` path in DDPM-1000, dpmpp5 and
+     dpmpp5 --serve_fast, TWH DiffuseStyleGesture++ and BEAT DiffuseStyleGesture
+     in dpmpp5 from the features' npy; launch counters from 0 around each run,
+     held to A = calls and B = 8 x calls (bf16 mode only under --serve_fast);
+     motion (real_n, motion_dim), finite; in this process graph and eager
+     bitwise equal (and the npy runs equal to the CLI's motion), the TWH kernel
+     path within 2e-3 rel of the plain path and --serve_fast within RMS/std
+     2e-2 of float32 on the same injected noise; WavLM-Large over the clip's
+     5 s chunks and one TWH denoiser call eager, replayed and plain (device and
+     wall ms), host feature seconds;
+  9. print the card line, a `kernels` JSON line, an `e2e` JSON line, a `train`
+     JSON line, a `distill` JSON line, a `beat_twh` JSON line and, last,
+     {"ok": true, "device": {...}}.
 
 Device times of the kernels come from CUDA events around back-to-back calls
 queued behind a sleep kernel, so host launch overhead is not in them.
@@ -243,6 +260,10 @@ ENCODER_MODES = {"f32": (False, ATOL_ENCODER_LAYER, 3, TF32_FLOPS_PER_S),
                  "bf16": (True, ATOL_ENCODER_LAYER_BF16, 1, BF16_FLOPS_PER_S)}
 
 
+# (T, D) of the trunk in the ZEGGS, BEAT and TWH denoisers (frames + the token), H 4, F 1024
+ENCODER_SHAPES = {"zeggs": (89, 256), "beat": (151, 384), "twh": (151, 512)}
+
+
 def phase_encoder_layer(dev):
     import torch
     from torch import nn
@@ -250,58 +271,62 @@ def phase_encoder_layer(dev):
     from diffusestylegesture_torch.models.transformer import TorchTransformerEncoder
     from diffusestylegesture_torch.ops import encoder_layer as el
 
-    T, D, H, F, L = 89, 256, 4, 1024, 8
-    torch.manual_seed(SEED)
-    trunk = TorchTransformerEncoder(L, D, H, F, "gelu").to(dev).eval()
+    H, F, L = 4, 1024, 8
     max_err = {mode: 0.0 for mode in ENCODER_MODES}
-    timings = {mode: {} for mode in ENCODER_MODES}
-    with torch.no_grad():
-        for B in (1, 2):
-            x = torch.randn(B, T, D, device=dev)
-            layer = trunk.layers[0]
-            ref = nn.TransformerEncoderLayer(D, H, F, dropout=0.0, activation="gelu",
-                                             batch_first=True, norm_first=False).to(dev).eval()
-            ref.load_state_dict(layer.state_dict())
-            lib_err = (ref(x) - el.encoder_layer(x, layer)).abs().max().item()
-            check(lib_err <= 1e-3, f"nn.TransformerEncoderLayer disagrees: {lib_err}")
-            nbytes, flops = encoder_layer_cost(B, T, D, H, F)
-            for mode, (bf16, atol, products, rate) in ENCODER_MODES.items():
-                h = x
-                for i, lyr in enumerate(trunk.layers):
-                    out = el.encoder_layer(h, lyr, mxu_bf16=bf16)
-                    torch.cuda.synchronize()
-                    err = (out - lyr(h, mxu_bf16=bf16)).abs().max().item()
-                    check(err <= atol, f"encoder_layer {mode} B={B} layer {i} err {err}")
-                    max_err[mode] = max(max_err[mode], err)
-                    h = out
-                stack_err = (h - trunk(x, impl="plain", mxu_bf16=bf16)).abs().max().item()
-                again = el.encoder_layer(x, layer, mxu_bf16=bf16)
-                check(torch.equal(again, el.encoder_layer(x, layer, mxu_bf16=bf16)),
-                      f"encoder_layer {mode} B={B}: two calls on one input differ")
-                print(f"encoder_layer {mode} B={B}: max per-layer err {max_err[mode]:.3e} "
-                      f"(atol {atol:g}), 8-layer stack err {stack_err:.3e}, repeat calls "
-                      f"bitwise equal")
+    timings = {mode: {shape: {} for shape in ENCODER_SHAPES} for mode in ENCODER_MODES}
+    for shape, (T, D) in ENCODER_SHAPES.items():
+        torch.manual_seed(SEED)
+        trunk = TorchTransformerEncoder(L, D, H, F, "gelu").to(dev).eval()
+        with torch.no_grad():
+            for B in (1, 2):
+                x = torch.randn(B, T, D, device=dev)
+                layer = trunk.layers[0]
+                ref = nn.TransformerEncoderLayer(D, H, F, dropout=0.0, activation="gelu",
+                                                 batch_first=True, norm_first=False).to(dev).eval()
+                ref.load_state_dict(layer.state_dict())
+                lib_err = (ref(x) - el.encoder_layer(x, layer)).abs().max().item()
+                check(lib_err <= 1e-3, f"nn.TransformerEncoderLayer disagrees: {lib_err}")
+                nbytes, flops = encoder_layer_cost(B, T, D, H, F)
+                for mode, (bf16, atol, products, rate) in ENCODER_MODES.items():
+                    h, worst = x, 0.0
+                    for i, lyr in enumerate(trunk.layers):
+                        out = el.encoder_layer(h, lyr, mxu_bf16=bf16)
+                        torch.cuda.synchronize()
+                        err = (out - lyr(h, mxu_bf16=bf16)).abs().max().item()
+                        check(err <= atol, f"encoder_layer {mode} {shape} B={B} layer {i} "
+                                           f"err {err}")
+                        worst = max(worst, err)
+                        h = out
+                    max_err[mode] = max(max_err[mode], worst)
+                    stack_err = (h - trunk(x, impl="plain", mxu_bf16=bf16)).abs().max().item()
+                    again = el.encoder_layer(x, layer, mxu_bf16=bf16)
+                    check(torch.equal(again, el.encoder_layer(x, layer, mxu_bf16=bf16)),
+                          f"encoder_layer {mode} {shape} B={B}: two calls on one input differ")
+                    print(f"encoder_layer {mode} {shape} ({B}, {T}, {D}): max per-layer err "
+                          f"{worst:.3e} (atol {atol:g}), 8-layer stack err {stack_err:.3e}, "
+                          f"repeat calls bitwise equal")
 
-                def library():
-                    if not bf16:
-                        return ref(x)
-                    with torch.autocast("cuda", dtype=torch.bfloat16):
-                        return ref(x)
+                    def library():
+                        if not bf16:
+                            return ref(x)
+                        with torch.autocast("cuda", dtype=torch.bfloat16):
+                            return ref(x)
 
-                if bf16:
-                    auto_err = (library().float() - layer(x, mxu_bf16=True)).abs().max().item()
-                    print(f"nn.TransformerEncoderLayer under bf16 autocast vs the plain bf16 "
-                          f"layer: max abs err {auto_err:.3e}")
-                    check(auto_err <= 0.1, f"bf16 autocast layer disagrees: {auto_err}")
-                # the plain bf16 layer and the autocast layer launch ~3x the
-                # kernels of the f32 ones: 10 calls stay within the launch queue
-                iters = 10 if bf16 else 30
-                timings[mode][B] = dict(
-                    ms=device_ms(lambda: el.encoder_layer(x, layer, mxu_bf16=bf16)),
-                    plain_ms=device_ms(lambda: layer(x, mxu_bf16=bf16), iters=iters),
-                    library_ms=device_ms(library, iters=iters),
-                    bound=bound(nbytes, products * flops, rate))
-                print(f"encoder_layer {mode} B={B} timings: {json.dumps(timings[mode][B])}")
+                    if bf16:
+                        auto_err = (library().float() - layer(x, mxu_bf16=True)).abs().max().item()
+                        print(f"nn.TransformerEncoderLayer under bf16 autocast vs the plain "
+                              f"bf16 layer: max abs err {auto_err:.3e}")
+                        check(auto_err <= 0.1, f"bf16 autocast layer disagrees: {auto_err}")
+                    # the plain bf16 layer and the autocast layer launch ~3x the
+                    # kernels of the f32 ones: 10 calls stay within the launch queue
+                    iters = 10 if bf16 else 30
+                    timings[mode][shape][B] = dict(
+                        ms=device_ms(lambda: el.encoder_layer(x, layer, mxu_bf16=bf16)),
+                        plain_ms=device_ms(lambda: layer(x, mxu_bf16=bf16), iters=iters),
+                        library_ms=device_ms(library, iters=iters),
+                        bound=bound(nbytes, products * flops, rate), max_abs_err=worst)
+                    print(f"encoder_layer {mode} {shape} B={B} timings: "
+                          f"{json.dumps(timings[mode][shape][B])}")
     return max_err, timings
 
 
@@ -1079,6 +1104,335 @@ def phase_distill_eval(dev, card, ctx, wav_path):
     return res
 
 
+# ---- phase 8 --------------------------------------------------------------------
+
+
+BEAT_TWH_SECONDS = 16.0  # 479 frames at 30 fps: 4 windows of 120
+BEAT_TWH_WORDS = ("hello", "world", "gesture", "big motion", "speech", "#laugh#", "hands",
+                  "unknown")
+MOTION_DIMS = {"BEAT": 684, "TWH": 744}  # the v0 position blocks
+# (run, dataset, model, live wav + tsv or the npy, sampler, steps, --serve_fast)
+BEAT_TWH_RUNS = (
+    ("twh_dsg+_ddpm1000", "TWH", "DiffuseStyleGesture+", True, "ddpm", 1000, False),
+    ("twh_dsg+_dpmpp5", "TWH", "DiffuseStyleGesture+", True, "dpmpp", 5, False),
+    ("twh_dsg+_dpmpp5_serve_fast", "TWH", "DiffuseStyleGesture+", True, "dpmpp", 5, True),
+    ("twh_dsg++_dpmpp5", "TWH", "DiffuseStyleGesture++", False, "dpmpp", 5, False),
+    ("beat_dsg_dpmpp5", "BEAT", "DiffuseStyleGesture", False, "dpmpp", 5, False),
+)
+
+
+def mode_flags(sampler, steps, bf16=False):
+    """The CLI flags of a mode: the yaml's 1000-step schedule or a respaced one."""
+    flags = [] if steps == 1000 else ["--respace", str(steps)]
+    return ["--sampler", sampler] + flags + (["--serve_fast"] if bf16 else [])
+
+
+def write_beat_twh_run(tmp):
+    """Seeded inputs of phase 8 under `tmp`/beat_twh: a wav of BEAT_TWH_SECONDS
+    (a gliding voiced tone, amplitude-modulated, with noise), its word timings
+    (a word every 0.45 s), a `.vec` file of 300-d vectors for them, and per
+    dataset a yaml, stats and a raw seed clip; and the three models' random
+    weights in reference layout at the published widths (TWH + and ++, BEAT
+    DiffuseStyleGesture). Returns the paths."""
+    import numpy as np
+    import torch
+    import yaml
+    from scipy.io import wavfile
+
+    from diffusestylegesture_torch.cli.sample_beat import mdm_plus_config
+    from diffusestylegesture_torch.config import apply_beat_twh_derivations, load_yaml_config
+    from diffusestylegesture_torch.models.mdm_plus import MDMPlus
+
+    d = os.path.join(tmp, "beat_twh")
+    os.makedirs(d)
+    rng = np.random.default_rng(SEED + 8)
+    sr = 16000
+    t = np.arange(int(sr * BEAT_TWH_SECONDS)) / sr
+    phase = 2 * np.pi * np.cumsum(140 + 30 * np.sin(2 * np.pi * 0.3 * t)) / sr
+    wav = (0.5 * (1 + np.sin(2 * np.pi * 1.7 * t)) * (0.3 * np.sin(phase) + 0.1 * np.sin(2 * phase))
+           + 0.02 * rng.standard_normal(t.shape))
+    files = {"wav": os.path.join(d, "clip.wav"), "tsv": os.path.join(d, "clip.tsv"),
+             "vec": os.path.join(d, "words.vec")}
+    wavfile.write(files["wav"], sr, (wav * 12000).astype(np.int16))
+    with open(files["tsv"], "w") as f:
+        for i, start in enumerate(np.arange(0.2, BEAT_TWH_SECONDS - 0.5, 0.45)):
+            f.write(f"{start:.2f}\t{start + 0.35:.2f}\t"
+                    f"{BEAT_TWH_WORDS[i % len(BEAT_TWH_WORDS)]}\n")
+    vocab = sorted({w for words in BEAT_TWH_WORDS[:-1] for w in words.strip("#").split()})
+    with open(files["vec"], "w") as f:
+        f.write(f"{len(vocab)} 300\n")
+        for w in vocab:
+            f.write(w + " " + " ".join(f"{v:.5f}" for v in rng.standard_normal(300)) + "\n")
+    for dataset, name, extra in (("TWH", "DiffuseStyleGesture+", {}),
+                                 ("BEAT", "DiffuseStyleGesture",
+                                  dict(latent_dim=384, audio_feat_dim_latent=96))):
+        cfg = dict(dataset=dataset, name=name, version="v0", n_poses=150, n_seed=30,
+                   cond_mask_prob=0.1, diffusion_steps=1000, noise_schedule="cosine", **extra)
+        dim = MOTION_DIMS[dataset]
+        paths = {k: os.path.join(d, f"{dataset}_{k}") for k in ("yml", "mean.npy", "std.npy",
+                                                                 "seed.npy")}
+        with open(paths["yml"], "w") as f:
+            yaml.safe_dump(cfg, f)
+        np.save(paths["mean.npy"], rng.standard_normal(dim).astype(np.float32))
+        np.save(paths["std.npy"], (0.5 + rng.random(dim)).astype(np.float32))
+        np.save(paths["seed.npy"], rng.standard_normal((40, dim)).astype(np.float32))
+        files[dataset] = paths
+    for dataset, name in (("TWH", "DiffuseStyleGesture+"), ("TWH", "DiffuseStyleGesture++"),
+                          ("BEAT", "DiffuseStyleGesture")):
+        cfg = apply_beat_twh_derivations(load_yaml_config(files[dataset]["yml"], {"name": name}))
+        torch.manual_seed(SEED)
+        files[name, dataset] = os.path.join(d, f"{dataset}_{name}.pt")
+        torch.save(MDMPlus(mdm_plus_config(cfg)).state_dict(), files[name, dataset])
+    return files
+
+
+def beat_twh_sampler(dev, cfg, variant, sampler, steps, graphs=None):
+    """The CLI's engine for a derived yaml `cfg`, on the yaml's 1000-step
+    schedule or a respaced one."""
+    from diffusestylegesture_torch import diffusion as D
+    from diffusestylegesture_torch.sample import BeatEngineConfig, BeatTwhSampler
+
+    betas = D.named_beta_schedule("cosine", 1000)
+    sched = (D.Schedule.create(betas, device=dev) if steps == 1000 else
+             D.spaced_schedule(betas, D.space_timesteps(1000, f"ddim{steps}"), device=dev))
+    return BeatTwhSampler(
+        lambda m, x, t, c, uncond=None: m(x, t, c, uncond=uncond), sched,
+        BeatEngineConfig(njoints=cfg.njoints, audio_dim=cfg.audio_feature_dim, variant=variant,
+                         sampler=sampler),
+        device=dev, graphs=graphs)
+
+
+def phase_beat_twh(dev, tmp, card, wavlm_pt):
+    import numpy as np
+    import torch
+
+    from diffusestylegesture_torch.cli import sample_beat as beat_cli
+    from diffusestylegesture_torch.config import apply_beat_twh_derivations, load_yaml_config
+    from diffusestylegesture_torch.data import load_wav_16k
+    from diffusestylegesture_torch.models.convert import (load_reference_mdm_plus,
+                                                          load_wavlm_checkpoint)
+    from diffusestylegesture_torch.models.wavlm import make_twh_wavlm_fn
+    from diffusestylegesture_torch.ops import encoder_layer as el
+    from diffusestylegesture_torch.ops import local_attention as la
+    from diffusestylegesture_torch.sample import prepare_seed_gesture
+    from diffusestylegesture_torch.utils.graphs import GraphSet
+
+    t0 = time.perf_counter()
+    files = write_beat_twh_run(tmp)
+    print(f"BEAT/TWH inputs and full-width checkpoints written in "
+          f"{time.perf_counter() - t0:.1f} s")
+    cfgs = {(ds, name): apply_beat_twh_derivations(load_yaml_config(files[ds]["yml"],
+                                                                    {"name": name}))
+            for ds, name in (("TWH", "DiffuseStyleGesture+"), ("TWH", "DiffuseStyleGesture++"),
+                             ("BEAT", "DiffuseStyleGesture"))}
+    twh = cfgs["TWH", "DiffuseStyleGesture+"]
+
+    # the live features once in this process (host numpy + WavLM-Large on the
+    # card): the npy of the runs that take one, and the in-process runs' input
+    textaudio, features_s, wavlm_s = beat_cli.live_features(
+        twh, files["wav"], files["tsv"], files["vec"], wavlm_pt, dev)
+    real_n = textaudio.shape[0]
+    windows = -(-real_n // 120)
+    check(windows >= 3, f"BEAT/TWH clip gives {windows} windows")
+    npys = {"TWH": os.path.join(tmp, "beat_twh", "TWH_textaudio.npy"),
+            "BEAT": os.path.join(tmp, "beat_twh", "BEAT_textaudio.npy")}
+    np.save(npys["TWH"], textaudio)
+    # BEAT's 301-d text block: the 300 word-vector dims and the silence flag (no laughter)
+    np.save(npys["BEAT"], np.concatenate([textaudio[:, :1133 + 300], textaudio[:, -1:]], 1))
+    results = dict(real_n=real_n, windows=windows, features_s=features_s, wavlm_s=wavlm_s)
+
+    # each path through the CLI, on the graph engine: counters from 0 around the run
+    motions = {}
+    for run, ds, name, live, sampler, steps, bf16 in BEAT_TWH_RUNS:
+        paths = files[ds]
+        inputs = (["--wav", files["wav"], "--tsv", files["tsv"], "--word_vectors", files["vec"],
+                   "--wavlm_path", wavlm_pt] if live else ["--textaudio_npy", npys[ds]])
+        la.launches = el.launches = el.launches_bf16 = 0
+        res, wall = timed(lambda: beat_cli.main(
+            ["--config", paths["yml"], "--name", name, "--model_path", files[name, ds],
+             "--seed_gesture_npy", paths["seed.npy"], "--mean_npy", paths["mean.npy"],
+             "--std_npy", paths["std.npy"], "--speaker", "1", "--seed", "123456",
+             "--save_dir", os.path.join(tmp, "beat_twh", "out_" + run)] + inputs
+            + mode_flags(sampler, steps, bf16)))
+        counts = (la.launches, el.launches, el.launches_bf16)
+        calls = windows * steps
+        motion = motions[run] = res["motion"]
+        check(motion.shape == (1, real_n, MOTION_DIMS[ds]), f"{run}: motion {motion.shape}")
+        check(bool(np.isfinite(motion).all()), f"{run}: non-finite motion")
+        check(np.array_equal(np.load(res["path"]), motion[0]), f"{run}: the npy differs")
+        expected = (calls, 0, 8 * calls) if bf16 else (calls, 8 * calls, 0)
+        check(counts == expected, f"{run}: launches {counts}, expected {expected}")
+        gen_s = res["generate_seconds"]
+        results[run] = dict(denoiser_calls=calls, local_attention_launches=counts[0],
+                            encoder_layer_launches=counts[1],
+                            encoder_layer_bf16_launches=counts[2], generate_s=gen_s,
+                            capture_s=res["capture_seconds"], cli_wall_s=wall,
+                            features_s=res["features_seconds"],
+                            wavlm_s=res["wavlm_seconds"], frames=real_n,
+                            frames_per_s=real_n / gen_s)
+        print(f"beat_twh {run} (CLI, graphs, capture included) [{card}]: "
+              f"{json.dumps(results[run])}")
+
+    # in this process: graph against eager (bitwise, and timed), the npy runs
+    # against the CLI's motion
+    models = {(ds, name, bf16): load_reference_mdm_plus(
+        files[name, ds], beat_cli.mdm_plus_config(cfgs[ds, name], bf16), device=dev)
+        for _, ds, name, _, _, _, bf16 in BEAT_TWH_RUNS}
+    beat_ta = np.load(npys["BEAT"])
+
+    def inputs(ds, name):
+        cfg = cfgs[ds, name]
+        mean, std = (np.load(files[ds][k]) for k in ("mean.npy", "std.npy"))
+        seed = prepare_seed_gesture(np.load(files[ds]["seed.npy"])[:32], mean, std)
+        return cfg, (textaudio if ds == "TWH" else beat_ta, seed,
+                     np.eye(cfg.style_dim, dtype=np.float32)[[1]]), mean, std, seed
+
+    for run, ds, name, live, sampler, steps, bf16 in BEAT_TWH_RUNS:
+        model = models[ds, name, bf16]
+        cfg, (ta, seed, sty), mean, std, _ = inputs(ds, name)
+        variant = beat_cli.VARIANTS[name]
+        sl = seed if variant == "attention5" else None
+        out = {}
+        for path, flag in (("graph", None), ("eager", False)):
+            s = beat_twh_sampler(dev, cfg, variant, sampler, steps, flag)
+            if flag is None:  # capture first, then time a call that replays
+                s.generate(model, ta, seed, sty, torch.Generator(device=dev).manual_seed(123456),
+                           mean, std, seed_last=sl)
+            out[path] = timed(lambda: s.generate(
+                model, ta, seed, sty, torch.Generator(device=dev).manual_seed(123456),
+                mean, std, seed_last=sl))
+        same = bool(np.array_equal(out["graph"][0], out["eager"][0]))
+        check(same, f"{run}: graph and eager motion differ "
+                    f"(max {np.abs(out['graph'][0] - out['eager'][0]).max()})")
+        # the live runs' CLI computed its own features (its WavLM call may round
+        # otherwise): held within the end-to-end bar; the npy runs bitwise
+        cli_err = float(np.abs(out["graph"][0] - motions[run]).max())
+        if live:
+            check(cli_err <= E2E_REL * max(float(np.abs(motions[run]).mean()), 1.0),
+                  f"{run}: the CLI's motion is {cli_err} from the same run in this process")
+        else:
+            check(cli_err == 0.0, f"{run}: the CLI's motion differs from this process's")
+        results[run].update(graph_generate_s=out["graph"][1],
+                            graph_frames_per_s=real_n / out["graph"][1],
+                            eager_generate_s=out["eager"][1],
+                            eager_frames_per_s=real_n / out["eager"][1], graph_equals_eager=same,
+                            cli_vs_in_process_max_abs=cli_err)
+        print(f"beat_twh {run} in one process [{card}]: graph {out['graph'][1]:.4f} s "
+              f"({real_n / out['graph'][1]:.1f} frames/s), eager {out['eager'][1]:.4f} s "
+              f"({real_n / out['eager'][1]:.1f} frames/s), equal {same}, CLI diff {cli_err:.3e}")
+
+    # TWH +: serve_fast against float32 and the kernel path against the plain
+    # path, dpmpp5 on the same injected noise
+    cfg, (ta, seed, sty), mean, std, _ = inputs("TWH", "DiffuseStyleGesture+")
+    noise = np.random.default_rng(SEED + 9).standard_normal(
+        (windows, 1, cfg.njoints, 1, 150)).astype(np.float32)
+    kernel = models["TWH", "DiffuseStyleGesture+", False]
+    variants = {"f32": kernel, "bf16": models["TWH", "DiffuseStyleGesture+", True],
+                "plain": load_reference_mdm_plus(
+                    files["DiffuseStyleGesture+", "TWH"],
+                    dataclasses.replace(kernel.cfg, impl="plain"), device=dev)}
+    poses = {name: beat_twh_sampler(dev, cfg, "attention4", "dpmpp", 5).generate(
+        model, ta, seed, sty, torch.Generator(device=dev).manual_seed(7), mean, std,
+        noise_windows=noise) for name, model in variants.items()}
+    bf16_err = float(np.sqrt(np.mean((poses["bf16"] - poses["f32"]) ** 2)) / poses["f32"].std())
+    scale = float(np.abs(poses["plain"]).mean())
+    err = float(np.abs(poses["f32"] - poses["plain"]).max())
+    print(f"TWH serve_fast vs float32 (dpmpp5, same noise): RMS/std {bf16_err:.3e} (bar "
+          f"{BF16_TOL}); kernel path vs plain path: max abs err {err:.3e}, scale {scale:.3f}")
+    check(bf16_err < BF16_TOL, f"TWH serve_fast: RMS/std {bf16_err} >= {BF16_TOL}")
+    check(err <= E2E_REL * max(scale, 1.0), f"TWH kernel vs plain path: {err} > {E2E_REL} rel")
+
+    # WavLM-Large over the clip's 5 s chunks, replayed from a graph; one TWH
+    # denoiser call eager, replayed from a graph and through the plain path
+    _, wavlm = load_wavlm_checkpoint(wavlm_pt, device=dev)
+    wav = torch.as_tensor(load_wav_16k(files["wav"]), device=dev)
+    step = {}
+    with torch.inference_mode():
+        encoder, _ = GraphSet(dev).capture(lambda: make_twh_wavlm_fn()(wavlm, wav))
+        wavlm_ms = device_ms(encoder.replay, iters=5, warmup=1)
+        x = torch.randn(1, cfg.njoints, 1, 150, device=dev)
+        cond = {"style": torch.as_tensor(sty, device=dev),
+                "seed": torch.as_tensor(seed.T[None, :, None, :], device=dev),
+                "audio": torch.as_tensor(ta[None, :120], device=dev),
+                "mask_local": torch.ones(1, 150, dtype=torch.bool, device=dev)}
+        tt = torch.tensor([500], device=dev)
+        out = torch.empty_like(x)
+        replay, _ = GraphSet(dev).capture(lambda: out.copy_(kernel(x, tt, cond)))
+        replay.launches = (0, 0, 0)  # timing calls are not main-path launches
+        for name, fn, iters in (("kernel", lambda: kernel(x, tt, cond), 4),
+                                ("graph_replay", replay.replay, 40),
+                                ("plain", lambda: variants["plain"](x, tt, cond), 4)):
+            step[name + "_device_ms"] = device_ms(fn, iters=iters, warmup=2)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(50):
+                fn()
+            torch.cuda.synchronize()
+            step[name + "_wall_ms"] = (time.perf_counter() - t0) / 50 * 1e3
+        check(torch.equal(out.clone(), kernel(x, tt, cond)),
+              "a replayed TWH denoiser call differs from the eager call")
+    results.update(kernel_vs_plain_max_abs_err=err, kernel_vs_plain_scale=scale,
+                   serve_fast_rms_over_std=bf16_err, wavlm_large_chunks=len(wav) // 80000 + 1,
+                   wavlm_large_clip_ms=wavlm_ms, twh_denoiser_call_b1=step)
+    print(f"TWH denoiser call B=1 [{card}]: {json.dumps(step)}; WavLM-Large over the clip's "
+          f"{results['wavlm_large_chunks']} chunks {wavlm_ms:.3f} ms f32; host features "
+          f"{features_s:.2f} s")
+    return results
+
+
+def kernel_entries(la_err, la_t, el_err, el_t, e2e, distill, beat_twh):
+    """The `kernels` line's entries: each kernel with its launches on every
+    path, its errors and its times at each shape it was timed at."""
+    kernels = []
+    el_src = ("diffusestylegesture_torch/csrc/encoder_layer.cu",
+              "diffusestylegesture_tpu/ops/encoder_layer_pallas.py:120")
+    la_keys = ("ms", "no_mask_ms", "distinct_ms", "distinct_bound_ms", "empty_launch_ms",
+               "plain_ms", "library_ms")
+
+    def at_shapes(t, keys, shapes):
+        return {shape: {f"b{B}": dict({key: tb[key] for key in keys if key in tb},
+                                      bound_ms=tb["bound"][0], bound_by=tb["bound"][1])
+                        for B, tb in t[shape].items()}
+                for shape in shapes}
+
+    la_extra = dict({key: la_t["zeggs"][1][key] for key in la_keys[1:5]},
+                    shapes=at_shapes(la_t, la_keys, ("beat", "twh")))
+    el_keys = ("ms", "plain_ms", "library_ms", "max_abs_err")
+    beat_twh_runs = [r[0] for r in BEAT_TWH_RUNS]
+    # each kernel's launches on its path: DDPM-1000 (f32), and the dpmpp5
+    # --serve_fast run for kernel B's bf16 mode
+    for name, (src, replaces), err, t, shape, path, extra in (
+            ("local_attention", ("diffusestylegesture_torch/csrc/local_attention.cu",
+                                 "diffusestylegesture_tpu/ops/local_attention_pallas.py:80"),
+             la_err, la_t["zeggs"], "q=k=v (1, 8, 88, 32) strided in, merged out, w=11",
+             "ddpm1000", la_extra),
+            ("encoder_layer", el_src, el_err["f32"], el_t["f32"]["zeggs"],
+             "x (1, 89, 256), H=4, F=1024, float32 (3xTF32)", "ddpm1000",
+             dict(shapes=at_shapes(el_t["f32"], el_keys, ("beat", "twh")))),
+            ("encoder_layer_bf16", el_src, el_err["bf16"], el_t["bf16"]["zeggs"],
+             "x (1, 89, 256), H=4, F=1024, mxu_bf16", "dpmpp5_serve_fast",
+             dict(shapes=at_shapes(el_t["bf16"], el_keys, ("beat", "twh"))))):
+        b2 = dict(ms=t[2]["ms"], plain_ms=t[2]["plain_ms"], library_ms=t[2]["library_ms"],
+                  bound_ms=t[2]["bound"][0], bound_by=t[2]["bound"][1])
+        b2.update({key: t[2][key] for key in la_keys[1:5] if key in t[2]})
+        # the distillation path (phase 7): the teacher's two calls a step at B = 300
+        b300 = distill["b300"].get(name)
+        if b300 is not None:
+            b300 = dict({k: v for k, v in b300.items() if k != "bound"},
+                        bound_ms=b300["bound"][0], bound_by=b300["bound"][1])
+        kernels.append(dict(
+            name=name, route="cuda", source=src, replaces=replaces,
+            launches=e2e[path][f"{name}_launches"], launches_path=path,
+            max_abs_err=err, ms=t[1]["ms"], plain_ms=t[1]["plain_ms"],
+            bound_ms=t[1]["bound"][0], bound_by=t[1]["bound"][1],
+            library_ms=t[1]["library_ms"], shape=shape,
+            launches_dpmpp5=e2e["dpmpp5"][f"{name}_launches"],
+            launches_distill=distill["cli"].get(f"{name}_launches", 0),
+            launches_beat_twh={run: beat_twh[run][f"{name}_launches"] for run in beat_twh_runs},
+            b2=b2, b300=b300, **extra))
+    return kernels
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "diffusestylegesture_torch")):
         print("chip_smoke: the diffusestylegesture_torch package is not beside this script",
@@ -1130,55 +1484,23 @@ def main() -> int:
                                     wav_path)
         # 7
         distill = phase_distill_eval(dev, card, ctx, wav_path)
+        # 8
+        beat_twh = phase_beat_twh(dev, tmp, card, os.path.join(tmp, "WavLM-Large.pt"))
 
-    # 8. lines
-    kernels = []
-    el_src = ("diffusestylegesture_torch/csrc/encoder_layer.cu",
-              "diffusestylegesture_tpu/ops/encoder_layer_pallas.py:120")
-    la_keys = ("ms", "no_mask_ms", "distinct_ms", "distinct_bound_ms", "empty_launch_ms",
-               "plain_ms", "library_ms")
-    la_extra = dict(
-        {key: la_t["zeggs"][1][key] for key in la_keys[1:5]},
-        shapes={shape: {f"b{B}": dict({key: t[key] for key in la_keys},
-                                      bound_ms=t["bound"][0], bound_by=t["bound"][1])
-                        for B, t in la_t[shape].items()}
-                for shape in ("beat", "twh")})
-    # each kernel's launches on its path: DDPM-1000 (f32), and the dpmpp5
-    # --serve_fast run for kernel B's bf16 mode
-    for name, (src, replaces), err, t, shape, path, extra in (
-            ("local_attention", ("diffusestylegesture_torch/csrc/local_attention.cu",
-                                 "diffusestylegesture_tpu/ops/local_attention_pallas.py:80"),
-             la_err, la_t["zeggs"], "q=k=v (1, 8, 88, 32) strided in, merged out, w=11",
-             "ddpm1000", la_extra),
-            ("encoder_layer", el_src, el_err["f32"], el_t["f32"],
-             "x (1, 89, 256), H=4, F=1024, float32 (3xTF32)", "ddpm1000", {}),
-            ("encoder_layer_bf16", el_src, el_err["bf16"], el_t["bf16"],
-             "x (1, 89, 256), H=4, F=1024, mxu_bf16", "dpmpp5_serve_fast", {})):
-        b2 = dict(ms=t[2]["ms"], plain_ms=t[2]["plain_ms"], library_ms=t[2]["library_ms"],
-                  bound_ms=t[2]["bound"][0], bound_by=t[2]["bound"][1])
-        b2.update({key: t[2][key] for key in la_keys[1:5] if key in t[2]})
-        # the distillation path (phase 7): the teacher's two calls a step at B = 300
-        b300 = distill["b300"].get(name)
-        if b300 is not None:
-            b300 = dict({k: v for k, v in b300.items() if k != "bound"},
-                        bound_ms=b300["bound"][0], bound_by=b300["bound"][1])
-        kernels.append(dict(
-            name=name, route="cuda", source=src, replaces=replaces,
-            launches=e2e[path][f"{name}_launches"], launches_path=path,
-            max_abs_err=err, ms=t[1]["ms"], plain_ms=t[1]["plain_ms"],
-            bound_ms=t[1]["bound"][0], bound_by=t[1]["bound"][1],
-            library_ms=t[1]["library_ms"], shape=shape,
-            launches_dpmpp5=e2e["dpmpp5"][f"{name}_launches"],
-            launches_distill=distill["cli"].get(f"{name}_launches", 0), b2=b2, b300=b300,
-            **extra))
+    # 9. lines
+    kernels = kernel_entries(la_err, la_t, el_err, el_t, e2e, distill, beat_twh)
     check(all(k["launches"] > 0 for k in kernels), "a kernel was not launched on its path")
     check(all(k["launches_distill"] > 0 for k in kernels[:2]),
           "a kernel was not launched on the distillation path")
+    check(all(k["launches_beat_twh"]["twh_dsg+_dpmpp5" if k["name"] != "encoder_layer_bf16"
+                                     else "twh_dsg+_dpmpp5_serve_fast"] > 0 for k in kernels),
+          "a kernel was not launched on the BEAT/TWH serving path")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"e2e": e2e, "build_s": build_s}))
     print(json.dumps({"train": train, "card": card}))
     print(json.dumps({"distill": distill, "card": card}))
+    print(json.dumps({"beat_twh": beat_twh, "card": card}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

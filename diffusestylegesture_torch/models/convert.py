@@ -1,14 +1,15 @@
 """Weights into the port: reference checkpoints and the JAX package's params.
 
-* `load_reference_mdm` / `load_wavlm_checkpoint`: the reference's released
-  `.pt` files (ZEGGS `model000450000.pt`, `WavLM-Large.pt`). The port's
+* `load_reference_mdm` / `load_reference_mdm_plus` / `load_wavlm_checkpoint`:
+  the reference's released `.pt` files (ZEGGS `model000450000.pt`, the BEAT/TWH
+  `model001200000.pt`, `WavLM-Large.pt`). The port's
   modules carry the reference's names, so only `clip_model.*` and unused
   buffers are dropped, and the WavLM pos-conv weight norm is folded
   (`g·v/‖v‖` over every dim but 2, as the JAX package's
   `models/wavlm/convert.py:29-59` does).
-* `mdm_state_dict_from_flax` / `wavlm_state_dict_from_flax`: the JAX
-  package's parameter trees (nested dicts of numpy arrays) → the port's
-  state_dict. Dense kernels (in, out) transpose to (out, in); LayerNorm
+* `mdm_state_dict_from_flax` / `mdm_plus_state_dict_from_flax` /
+  `wavlm_state_dict_from_flax`: the JAX package's parameter trees (nested
+  dicts of numpy arrays) → the port's state_dict. Dense kernels (in, out) transpose to (out, in); LayerNorm
   `scale` → `weight`; `layers_i` → `layers.i`; Conv (k, in, out) → (out, in, k).
 * `autoencoder_state_dict_from_flax`: the JAX evaluation autoencoder
   (`eval/embedding.py`) → the port's `GestureAutoencoder`; a ConvTranspose
@@ -28,6 +29,7 @@ import torch
 
 from ..device import resolve_device
 from .mdm import MDM, MDMConfig
+from .mdm_plus import MDMPlus, MDMPlusConfig
 from .wavlm.model import WavLM, WavLMConfig
 
 StateDict = Dict[str, torch.Tensor]
@@ -84,6 +86,17 @@ def mdm_state_dict_from_flax(params: Mapping[str, Any]) -> StateDict:
     for i in range(len([k for k in enc if k.startswith("layers_")])):
         sd.update(encoder_layer_state_dict_from_flax(enc[f"layers_{i}"],
                                                      f"seqTransEncoder.layers.{i}."))
+    return sd
+
+
+def mdm_plus_state_dict_from_flax(params: Mapping[str, Any]) -> StateDict:
+    """JAX `models.mdm_plus.MDMPlus` params → the port's `MDMPlus` state_dict:
+    the MDM's names, and `embed_text_last` where the params have it
+    (cross_local_attention5). Also right for the ZEGGS MDM's params."""
+    sd = mdm_state_dict_from_flax(params)
+    p = _unwrap(params)
+    if "embed_text_last" in p:
+        _dense(sd, "embed_text_last", p["embed_text_last"])
     return sd
 
 
@@ -206,19 +219,33 @@ def fold_weight_norm(g: torch.Tensor, v: torch.Tensor, dim: int = 2) -> torch.Te
     return g * v / v.pow(2).sum(dim=dims, keepdim=True).sqrt()
 
 
-def load_reference_mdm(path: str, cfg: MDMConfig = MDMConfig(),
-                       device: Union[str, torch.device] = "cuda") -> MDM:
-    """A reference-layout MDM `.pt` (bare state_dict or {'model_state_dict': …})
-    → an eval-mode `MDM` on `device`. `weights_only=True`: a malicious
-    checkpoint cannot run code."""
+def _load_reference(path: str, model: torch.nn.Module,
+                    device: Union[str, torch.device]) -> torch.nn.Module:
+    """A reference-layout `.pt` (bare state_dict or {'model_state_dict': …})
+    into `model`, which moves to `device` in eval mode. `clip_model.*` and
+    the buffers the port recomputes are not read. `weights_only=True`: a
+    malicious checkpoint cannot run code."""
     dev = resolve_device(device)
     sd = torch.load(path, map_location="cpu", weights_only=True)
     if isinstance(sd, dict) and "model_state_dict" in sd:
         sd = sd["model_state_dict"]
     sd = {k: v for k, v in sd.items() if not k.startswith("clip_model.")}
-    model = MDM(cfg)
     _load_into(model, sd, path)
     return model.to(dev).eval()
+
+
+def load_reference_mdm(path: str, cfg: MDMConfig = MDMConfig(),
+                       device: Union[str, torch.device] = "cuda") -> MDM:
+    """A reference-layout ZEGGS MDM `.pt` → an eval-mode `MDM` on `device`."""
+    return _load_reference(path, MDM(cfg), device)
+
+
+def load_reference_mdm_plus(path: str, cfg: MDMPlusConfig = MDMPlusConfig(),
+                            device: Union[str, torch.device] = "cuda") -> MDMPlus:
+    """A reference-layout BEAT/TWH MDM `.pt` (the counterpart of the JAX
+    `convert_mdm_beat_twh`), or the port's own `model.pt` of one → an
+    eval-mode `MDMPlus` on `device`."""
+    return _load_reference(path, MDMPlus(cfg), device)
 
 
 def load_wavlm_checkpoint(path: str, device: Union[str, torch.device] = "cuda",

@@ -171,22 +171,38 @@ class MDM(nn.Module):
 
         # local block: cat(token, pose, audio) → Linear → RoPE → windowed attention
         cat = torch.cat([token[:, None, :].expand(B, T, D), x_, enc_audio], dim=-1)
-        if cfg.impl == "kernel":
-            # RoPE in the (B, T, H, hd) layout the Linear wrote; the kernel reads
-            # the heads through strides and writes the merged (B, T, D) layout
-            hh = rotary.rope_heads(self.input_process2(cat), H).transpose(1, 2)
-            h = torch.empty(B, T, D, dtype=hh.dtype, device=hh.device)
-            local_attention(hh, hh, hh, cfg.window_size, cond.get("mask_local"), heads=H,
-                            out=h.view(B, T, H, D // H).transpose(1, 2))
-        else:
-            hh = rotary.rope(rotary.heads_split(self.input_process2(cat), H)).contiguous()
-            hh = local_attention(hh, hh, hh, cfg.window_size, cond.get("mask_local"), heads=H,
-                                 impl="plain")
-            h = rotary.heads_merge(hh, B, H)
-
-        # trunk: prepend token → RoPE over heads → encoder layers → drop token
-        seq = torch.cat([token[:, None, :], h], dim=1)
-        seq = rotary.heads_merge(rotary.rope(rotary.heads_split(seq, H)), B, H).contiguous()
-        out = self.seqTransEncoder(seq, impl=cfg.impl, mxu_bf16=cfg.dtype == torch.bfloat16,
-                                   train=train, generator=generator)[:, 1:]
+        h = local_block(self.input_process2(cat), H, cfg.window_size, cond.get("mask_local"),
+                        cfg.impl)
+        out = trunk(self.seqTransEncoder, token, h, H, cfg.impl, cfg.dtype == torch.bfloat16,
+                    train, generator)
         return self.output_process(out)
+
+
+def local_block(proj: torch.Tensor, heads: int, window: int, mask: Optional[torch.Tensor],
+                impl: str) -> torch.Tensor:
+    """(B, T, D) projected tokens → RoPE over `heads` heads → windowed causal
+    local attention → (B, T, D). On the kernel route RoPE runs in the
+    (B, T, H, hd) layout the Linear wrote, and kernel A reads the heads through
+    strides and writes the merged (B, T, D) layout."""
+    B, T, D = proj.shape
+    if impl == "kernel":
+        hh = rotary.rope_heads(proj, heads).transpose(1, 2)
+        h = torch.empty(B, T, D, dtype=hh.dtype, device=hh.device)
+        local_attention(hh, hh, hh, window, mask, heads=heads,
+                        out=h.view(B, T, heads, D // heads).transpose(1, 2))
+        return h
+    hh = rotary.rope(rotary.heads_split(proj, heads)).contiguous()
+    hh = local_attention(hh, hh, hh, window, mask, heads=heads, impl="plain")
+    return rotary.heads_merge(hh, B, heads)
+
+
+def trunk(encoder: TorchTransformerEncoder, token: torch.Tensor, h: torch.Tensor, heads: int,
+          impl: str, mxu_bf16: bool, train: bool = False,
+          generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Prepend the (B, D) token to the (B, T, D) frames, RoPE over `heads`
+    heads, run the encoder layers (kernel B on the kernel route), drop the
+    token: (B, T, D)."""
+    B = h.shape[0]
+    seq = torch.cat([token[:, None, :], h], dim=1)
+    seq = rotary.heads_merge(rotary.rope(rotary.heads_split(seq, heads)), B, heads).contiguous()
+    return encoder(seq, impl=impl, mxu_bf16=mxu_bf16, train=train, generator=generator)[:, 1:]

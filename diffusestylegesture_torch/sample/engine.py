@@ -21,7 +21,8 @@ buffers of the graph set that each window refills. Between windows only the
 seed carry, the root-delta correction and the crossfade run as eager ops.
 `graphs=False` runs the same step functions eagerly on the card: the
 comparison path, which gives the same numbers; on the CPU that is the only
-path.
+path. The window runner and the graph bookkeeping (`_WindowRun`,
+`_WindowSampler`) serve the BEAT/TWH engine (`engine_beat.py`) too.
 """
 from __future__ import annotations
 
@@ -105,19 +106,17 @@ def slice_audio_windows(audio: np.ndarray, cfg: ZeggsEngineConfig) -> np.ndarray
 
 class _WindowRun:
     """What one (batch, model) needs to sample windows: the conditioning
-    buffers, the loop's program over them, its generator and, on the graph
-    path, one graph per phase of the program."""
+    buffers `cond` (a tensor, or None for one sized at the first fill), the
+    loop's program over them, its generator and, on the graph path, one graph
+    per phase of the program."""
 
-    def __init__(self, sampler: "ZeggsSampler", params, batch: int):
+    def __init__(self, sampler: "_WindowSampler", params, cond: Dict[str, Optional[torch.Tensor]],
+                 shape: tuple, skip_timesteps: int = 0):
         cfg, dev = sampler.cfg, sampler.device
+        batch = shape[0]
         self.params = params  # the graphs read these weights where they lie
         self.generator = torch.Generator(device=dev)
-        self.cond = {
-            "style": torch.zeros((batch, 6), device=dev),
-            "seed": torch.zeros((batch, cfg.njoints, 1, cfg.n_seed), device=dev),
-            "audio": None,  # sized at the first window, from the features' width
-            "mask_local": torch.ones((batch, cfg.n_poses), dtype=torch.bool, device=dev),
-        }
+        self.cond = cond
         if cfg.guidance_scale and cfg.guidance_scale != 1.0:
             model_fn = make_cfg_model_fn(sampler.model_apply, cfg.guidance_scale, batch,
                                          params=params, cond=self.cond)
@@ -125,8 +124,8 @@ class _WindowRun:
             def model_fn(x, t):
                 return sampler.model_apply(params, x, t, self.cond)
         self.program: SampleProgram = PROGRAMS[cfg.sampler](
-            sampler.schedule, model_fn, (batch, cfg.njoints, 1, cfg.n_poses), self.generator,
-            cfg=sampler.sampler_cfg, skip_timesteps=cfg.skip_timesteps)
+            sampler.schedule, model_fn, shape, self.generator,
+            cfg=sampler.sampler_cfg, skip_timesteps=skip_timesteps)
         self.graph_set = GraphSet(dev, [self.generator]) if sampler.graphs else None
         self.graphs: Optional[list] = None
 
@@ -142,13 +141,17 @@ class _WindowRun:
             step -= phase.count
         self.generator.set_state(state)
 
-    def sample(self, feats: torch.Tensor, seed: torch.Tensor,
-               noise: Optional[torch.Tensor]) -> torch.Tensor:
+    def fill(self, **tensors: torch.Tensor) -> None:
+        """Copy each tensor into its conditioning buffer (a float32 one is
+        allocated at the first fill where the buffer is None)."""
+        for name, value in tensors.items():
+            if self.cond[name] is None:
+                self.cond[name] = torch.zeros(value.shape, device=value.device)
+            self.cond[name].copy_(value)
+
+    def sample(self, noise: Optional[torch.Tensor], **tensors: torch.Tensor) -> torch.Tensor:
         """One window: refill the buffers, run the loop, return a copy of x_0."""
-        if self.cond["audio"] is None:
-            self.cond["audio"] = torch.zeros(feats.shape, device=feats.device)
-        self.cond["audio"].copy_(feats)
-        self.cond["seed"].copy_(seed)
+        self.fill(**tensors)
         if self.graph_set is not None and self.graphs is None:
             self.capture()
         self.program.init(noise)
@@ -160,7 +163,51 @@ class _WindowRun:
         return self.program.img.clone()
 
 
-class ZeggsSampler:
+class _WindowSampler:
+    """What the ZEGGS and the BEAT/TWH samplers share: the device, the graph
+    switch, the schedule and one `_WindowRun` per (batch, model)."""
+
+    def __init__(self, model_apply: Callable, schedule: Schedule, cfg, sampler_cfg: SamplerConfig,
+                 device: Union[str, torch.device], graphs: Optional[bool]):
+        self.device = resolve_device(device)
+        if schedule.device != self.device:
+            raise ValueError(f"schedule lives on {schedule.device}, engine on {self.device}")
+        if cfg.sampler not in PROGRAMS:
+            raise ValueError(f"unknown sampler {cfg.sampler!r} ({sorted(PROGRAMS)})")
+        self.graphs = self.device.type == "cuda" if graphs is None else bool(graphs)
+        if self.graphs and self.device.type != "cuda":
+            raise ValueError(f"CUDA graphs need a CUDA device, not {self.device}")
+        self.model_apply = model_apply
+        self.schedule = schedule
+        self.cfg = cfg
+        self.sampler_cfg = sampler_cfg
+        self._runs: Dict[tuple, _WindowRun] = {}
+
+    @property
+    def capture_seconds(self) -> float:
+        """Seconds spent warming up and capturing graphs so far."""
+        return sum(r.graph_set.capture_seconds for r in self._runs.values()
+                   if r.graph_set is not None)
+
+    def _new_run(self, params, batch: int) -> _WindowRun:
+        raise NotImplementedError
+
+    def _run(self, params, batch: int) -> _WindowRun:
+        key = (batch, id(params))
+        run = self._runs.get(key)
+        if run is None or run.params is not params:
+            run = self._runs[key] = self._new_run(params, batch)
+        return run
+
+    def _generator(self, generator: Optional[torch.Generator]) -> torch.Generator:
+        dev = self.device
+        if generator is not None:
+            return generator
+        return torch.cuda.default_generators[dev.index] if dev.type == "cuda" else \
+            torch.default_generator
+
+
+class ZeggsSampler(_WindowSampler):
     """Long-form ZEGGS sampler.
 
     model_apply: (params, x, t, cond, uncond=None) → x0 prediction, where
@@ -177,28 +224,15 @@ class ZeggsSampler:
                  cfg: ZeggsEngineConfig = ZeggsEngineConfig(),
                  sampler_cfg: SamplerConfig = SamplerConfig(),
                  device: Union[str, torch.device] = "cuda", graphs: Optional[bool] = None):
-        self.device = resolve_device(device)
-        if schedule.device != self.device:
-            raise ValueError(f"schedule lives on {schedule.device}, engine on {self.device}")
-        if cfg.sampler not in PROGRAMS:
-            raise ValueError(f"unknown sampler {cfg.sampler!r} ({sorted(PROGRAMS)})")
-        self.graphs = self.device.type == "cuda" if graphs is None else bool(graphs)
-        if self.graphs and self.device.type != "cuda":
-            raise ValueError(f"CUDA graphs need a CUDA device, not {self.device}")
-        self.model_apply = model_apply
+        super().__init__(model_apply, schedule, cfg, sampler_cfg, device, graphs)
         self.wavlm_apply = wavlm_apply
-        self.schedule = schedule
-        self.cfg = cfg
-        self.sampler_cfg = sampler_cfg
-        self._runs: Dict[tuple, _WindowRun] = {}
         self._encoders: Dict[tuple, tuple] = {}
 
     @property
     def capture_seconds(self) -> float:
         """Seconds spent warming up and capturing graphs so far."""
-        sets = [r.graph_set for r in self._runs.values() if r.graph_set is not None]
-        sets += [rec[1] for rec in self._encoders.values()]
-        return sum(s.capture_seconds for s in sets)
+        return super().capture_seconds + sum(rec[1].capture_seconds
+                                             for rec in self._encoders.values())
 
     def encode(self, wavlm_params, windows: torch.Tensor) -> torch.Tensor:
         """WavLM over (W, S) windows → (W, n_poses, D) features; on the graph
@@ -218,12 +252,14 @@ class ZeggsSampler:
         graph.replay()
         return out
 
-    def _run(self, params, batch: int) -> _WindowRun:
-        key = (batch, id(params))
-        run = self._runs.get(key)
-        if run is None or run.params is not params:
-            run = self._runs[key] = _WindowRun(self, params, batch)
-        return run
+    def _new_run(self, params, batch: int) -> _WindowRun:
+        cfg, dev = self.cfg, self.device
+        cond = {"style": torch.zeros((batch, 6), device=dev),
+                "seed": torch.zeros((batch, cfg.njoints, 1, cfg.n_seed), device=dev),
+                "audio": None,  # sized at the first window, from the features' width
+                "mask_local": torch.ones((batch, cfg.n_poses), dtype=torch.bool, device=dev)}
+        return _WindowRun(self, params, cond, (batch, cfg.njoints, 1, cfg.n_poses),
+                          cfg.skip_timesteps)
 
     def sample_windows(self, params, window_feats: Callable[[int], torch.Tensor],
                        num_windows: int, style: torch.Tensor,
@@ -236,9 +272,7 @@ class ZeggsSampler:
         cfg, dev = self.cfg, self.device
         B = style.shape[0]
         run = self._run(params, B)
-        if generator is None:
-            generator = (torch.cuda.default_generators[dev.index] if dev.type == "cuda"
-                         else torch.default_generator)
+        generator = self._generator(generator)
         run.generator.set_state(generator.get_state())
         run.cond["style"].copy_(style)
         wa, wb = (torch.as_tensor(w, device=dev)
@@ -249,7 +283,7 @@ class ZeggsSampler:
             noise = None
             if noise_windows is not None:
                 noise = torch.as_tensor(np.asarray(noise_windows[i], np.float32), device=dev)
-            sample = run.sample(window_feats(i), seed, noise)
+            sample = run.sample(noise, audio=window_feats(i), seed=seed)
             if i > 0:
                 if cfg.root_delta_correction:
                     # root-translation delta removal (ref `:269-282`)

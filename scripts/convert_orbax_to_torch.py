@@ -9,12 +9,15 @@ A one-off tool that runs beside the JAX package (it imports jax, orbax and
 `--model_path` is any layout the JAX `cli/sample.py` loads: a bare orbax
 params dir (`cli/convert_ckpt.py`), a TrainLoop checkpoint dir (numbered
 steps of the full TrainState, the latest is taken) or a distilled-student
-stage dir (`cli/distill.py`: `params/` beside `schedule.json`). The params go
-through `cli/sample.py::load_orbax_params` and the port's
-`models/convert.py::mdm_state_dict_from_flax`. `--out` receives
-`model.pt` (the MDM in reference checkpoint layout), `model_ema.pt` when the
-TrainState holds EMA params, and the stage dir's `schedule.json`. Pass the
-directory to `python -m diffusestylegesture_torch.cli.sample --model_path`.
+stage dir (`cli/distill.py`: `params/` beside `schedule.json`), of the ZEGGS
+`MDM` or of the BEAT/TWH `MDMPlus`. The params go through
+`cli/sample.py::load_orbax_params` and the port's
+`models/convert.py::mdm_plus_state_dict_from_flax` (the MDM's names, and
+`embed_text_last` where a cross_local_attention5 model has it). `--out`
+receives `model.pt` (the model in reference checkpoint layout), `model_ema.pt`
+when the TrainState holds EMA params, and the stage dir's `schedule.json`.
+Pass the directory to `python -m diffusestylegesture_torch.cli.sample
+--model_path` (ZEGGS) or `cli.sample_beat --model_path` (BEAT/TWH).
 """
 from __future__ import annotations
 
@@ -49,12 +52,12 @@ def convert(model_path: str, out_dir: str) -> list:
     import torch
 
     from diffusestylegesture_tpu.cli.sample import load_orbax_params
-    from diffusestylegesture_torch.models.convert import mdm_state_dict_from_flax
+    from diffusestylegesture_torch.models.convert import mdm_plus_state_dict_from_flax
 
     def save(tree, name):
         tree = jax.tree_util.tree_map(np.asarray, tree)
         path = os.path.join(out_dir, name)
-        torch.save(mdm_state_dict_from_flax(tree), path)
+        torch.save(mdm_plus_state_dict_from_flax(tree), path)
         return path
 
     os.makedirs(out_dir, exist_ok=True)

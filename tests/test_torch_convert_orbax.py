@@ -7,7 +7,10 @@ is converted by the script; the port's CLI helpers load the result, and its
 forward agrees with `MDM.apply` at 5e-4 (the converted-weight bar).
 `--use_ema` picks the EMA weights where the TrainState has them and the
 params otherwise. On the stage dir both CLIs pick the same DDIM grid, the
-same sampler (ddpm → ddim, `--respace` ignored) and the same gate key.
+same sampler (ddpm → ddim, `--respace` ignored) and the same gate key. A
+tiny BEAT/TWH `MDMPlus` (cross_local_attention5, which adds `embed_text_last`)
+saved as a bare params dir converts the same way: `load_reference_mdm_plus`
+of its `model.pt` agrees with `MDMPlus.apply` at 5e-4.
 """
 import importlib.util
 import json
@@ -22,13 +25,15 @@ import jax.numpy as jnp
 import orbax.checkpoint as ocp
 
 from diffusestylegesture_tpu.cli import sample as jax_cli
+from diffusestylegesture_tpu.models import mdm_plus as jax_mdm_plus
 from diffusestylegesture_tpu.models.mdm import MDM as FlaxMDM, MDMConfig as FlaxMDMConfig
 from diffusestylegesture_tpu.sample import quality_gate as jax_gate
 from diffusestylegesture_tpu.train.checkpoint import CheckpointManager
 from diffusestylegesture_tpu.train.state import TrainConfig, create_train_state
 from diffusestylegesture_torch.cli import sample as torch_cli
-from diffusestylegesture_torch.models.convert import load_reference_mdm
+from diffusestylegesture_torch.models.convert import load_reference_mdm, load_reference_mdm_plus
 from diffusestylegesture_torch.models.mdm import MDMConfig
+from diffusestylegesture_torch.models.mdm_plus import MDMPlusConfig
 from diffusestylegesture_torch.sample import quality_gate as torch_gate
 
 from test_torch_isolation import write_tiny_run
@@ -164,3 +169,32 @@ def test_stage_dir_serving_matches_jax_cli(checkpoints, monkeypatch, extra):
             cli.main(argv + (["--device", "cpu"] if name == "torch" else []))
     assert seen["torch"] == seen["jax"]
     assert seen["torch"] == {"gate": ("distill7", 1000), "sampler": "ddim", "grid": GRID}
+
+
+def test_mdm_plus_params_convert(tmp_path):
+    kw = dict(njoints=36, latent_dim=64, ff_size=48, num_layers=1, source_audio_dim=40,
+              audio_feat_dim=16, style_dim_in=4, n_seed=5,
+              cond_mode="cross_local_attention5_style1")
+    fm = jax_mdm_plus.MDMPlus(jax_mdm_plus.MDMPlusConfig(**kw))
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((2, 36, 1, 30)).astype(np.float32)
+    t = np.array([999, 17], np.int64)
+    cond = {"style": np.eye(4, dtype=np.float32)[[0, 3]],
+            "seed": rng.standard_normal((2, 36, 1, 5)).astype(np.float32),
+            "seed_last": rng.standard_normal((2, 36, 1, 5)).astype(np.float32),
+            "audio": rng.standard_normal((2, 20, 40)).astype(np.float32),
+            "mask_local": np.ones((2, 30), bool)}
+    jcond = {k: jnp.asarray(v) for k, v in cond.items()}
+    init = jax.jit(fm.init)(jax.random.PRNGKey(0), jnp.asarray(x), jnp.asarray(t), jcond)
+    params = {"params": randomize_flax_params(init["params"], 3)}
+    ckptr = ocp.StandardCheckpointer()
+    ckptr.save(str(tmp_path / "bare"), params)
+    ckptr.wait_until_finished()
+    written = _converter().convert(str(tmp_path / "bare"), str(tmp_path / "out"))
+    assert [os.path.basename(p) for p in written] == ["model.pt"]
+    model = load_reference_mdm_plus(written[0], MDMPlusConfig(**kw), device="cpu")
+    with torch.no_grad():
+        out = model(torch.from_numpy(x), torch.from_numpy(t),
+                    {k: torch.from_numpy(v) for k, v in cond.items()})
+    ref = fm.apply(params, jnp.asarray(x), jnp.asarray(t), jcond)
+    assert float(np.abs(np32(out) - np.asarray(ref)).max()) <= 5e-4

@@ -14,7 +14,10 @@ fails raises; `--serve_fast` stays within the bench gate's 2e-2 of float32.
 The training-style steps captured by `graphs.CapturedStep` (the device-cache
 train step in float32 and bf16, the distillation step with its teacher
 through kernels A and B, the autoencoder step) equal their eager steps
-bitwise over three steps; a step capture that fails raises.
+bitwise over three steps; a step capture that fails raises. The BEAT/TWH
+engine (`BeatTwhSampler`) gives bitwise-equal poses on graphs and eagerly for
+each variant, with CFG, and attention5 reads a new `seed_last` at the next
+call on the same captured graphs.
 Elsewhere every test skips.
 """
 import os
@@ -29,7 +32,9 @@ from diffusestylegesture_torch import diffusion as D
 from diffusestylegesture_torch import resolve_device
 from diffusestylegesture_torch.models.mdm import MDM, MDMConfig
 from diffusestylegesture_torch.models.wavlm import WavLM, WavLMConfig, make_zeggs_wavlm_fn
-from diffusestylegesture_torch.sample import ZeggsEngineConfig, ZeggsSampler, generate_multi_clip
+from diffusestylegesture_torch.models.mdm_plus import MDMPlus, MDMPlusConfig
+from diffusestylegesture_torch.sample import (BeatEngineConfig, BeatTwhSampler, ZeggsEngineConfig,
+                                              ZeggsSampler, generate_multi_clip)
 from diffusestylegesture_torch.utils import graphs
 
 from test_torch_isolation import TINY_WAVLM
@@ -340,3 +345,62 @@ def test_cuda_failed_step_capture_raises(card):
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
                          timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+# ---- the BEAT/TWH engine ------------------------------------------------------------
+
+
+def _beat_both(card, variant, guidance=0.0, seed_lasts=(None,)):
+    """Graph and eager poses of a small MDMPlus (njoints 72, latent 128, 2 layers)
+    over 3 windows, dpmpp5, one call a seed_last; with the launch counts."""
+    dev = card["dev"]
+    torch.manual_seed(0)
+    mcfg = MDMPlusConfig(njoints=72, latent_dim=128, ff_size=256, num_layers=2,
+                         source_audio_dim=40, audio_feat_dim=32, style_dim_in=4,
+                         cond_mode=f"cross_local_attention{variant[-1]}_style1")
+    model = MDMPlus(mcfg).to(dev).eval()
+    rng = np.random.default_rng(3)
+    textaudio = rng.standard_normal((300, 40)).astype(np.float32)
+    seed = rng.standard_normal((30, 72)).astype(np.float32)
+    stats = (np.zeros(24, np.float32), np.ones(24, np.float32))
+    betas = D.named_beta_schedule("cosine", 1000)
+    sched = D.spaced_schedule(betas, D.space_timesteps(1000, "ddim5"), device=dev)
+    out = {}
+    for path, flag in (("graph", None), ("eager", False)):
+        s = BeatTwhSampler(lambda m, x, t, c, uncond=None: m(x, t, c, uncond=uncond), sched,
+                           BeatEngineConfig(njoints=72, audio_dim=40, variant=variant,
+                                            sampler="dpmpp",
+                                            guidance_scale=guidance),
+                           device=dev, graphs=flag)
+        poses = []
+        before = graphs.launch_counts()
+        for seed_last in seed_lasts:
+            gen = torch.Generator(device=dev).manual_seed(5)
+            poses.append(s.generate(model, textaudio, seed, np.eye(4, dtype=np.float32)[[2]],
+                                    gen, *stats, seed_last=seed_last))
+        counts = tuple(b - a for a, b in zip(before, graphs.launch_counts()))
+        out[path] = (poses, counts, s)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("guidance", [0.0, 1.5], ids=["plain", "cfg"])
+@pytest.mark.parametrize("variant", ["attention3", "attention4"])
+def test_cuda_beat_graph_equals_eager(card, variant, guidance):
+    out = _beat_both(card, variant, guidance)
+    (g, gc, gs), (e, ec, es) = out["graph"], out["eager"]
+    assert gs.graphs and not es.graphs and gs.capture_seconds > 0
+    assert g[0].shape == (1, 300, 24) and np.isfinite(g[0]).all()
+    assert np.array_equal(g[0], e[0])
+    assert gc == ec == (3 * 5, 2 * 3 * 5, 0)
+
+
+@pytest.mark.cuda
+def test_cuda_beat_graph_reads_each_seed_last(card):
+    rng = np.random.default_rng(4)
+    lasts = tuple(rng.standard_normal((30, 72)).astype(np.float32) for _ in range(2))
+    out = _beat_both(card, "attention5", seed_lasts=lasts)
+    g, e = out["graph"][0], out["eager"][0]
+    assert all(np.array_equal(a, b) for a, b in zip(g, e))
+    assert np.abs(g[0] - g[1]).max() > 1e-3  # the second call's seed_last reached the graph
+    assert out["graph"][2].capture_seconds > 0 and len(out["graph"][2]._runs) == 1

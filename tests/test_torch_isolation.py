@@ -7,14 +7,16 @@ machine with a card and no JAX:
 
 There the `cuda` tests hold each CUDA kernel against its plain PyTorch
 version (local attention atol 1e-5, at the ZEGGS, BEAT and TWH shapes and odd
-ones, aliased and distinct q/k/v, packed and strided-in / merged-out; encoder layer atol 1e-4 in float32,
-where the kernel's 3xTF32 products sum in another order, and 1e-2 in the
-`mxu_bf16` mode, where a sum in another order can round an operand to the
-other bf16 neighbour) and check the launch counters, also at the
-distillation teacher's batch of 300 and, given two cards, on the second card
-after the first (each kernel's shared-memory opt-in is per device); elsewhere
-they skip.
+ones, aliased and distinct q/k/v, packed and strided-in / merged-out; encoder
+layer atol 1e-4 in float32, where the kernel's 3xTF32 products sum in another
+order, and 1e-2 in the `mxu_bf16` mode, where a sum in another order can round
+an operand to the other bf16 neighbour), the BEAT/TWH denoiser's kernel path
+against its plain path at the published widths for each variant (1e-4), and
+check the launch counters, also at the distillation teacher's batch of 300
+and, given two cards, on the second card after the first (each kernel's
+shared-memory opt-in is per device); elsewhere they skip.
 """
+import ast
 import importlib
 import os
 import pkgutil
@@ -31,6 +33,7 @@ import diffusestylegesture_torch
 from diffusestylegesture_torch import resolve_device
 from diffusestylegesture_torch.models.local_attention import local_attention_plain
 from diffusestylegesture_torch.models.mdm import MDM, MDMConfig
+from diffusestylegesture_torch.models.mdm_plus import beat_mdm, twh_mdm
 from diffusestylegesture_torch.models.transformer import TorchEncoderLayer
 from diffusestylegesture_torch.models.wavlm import WavLM, WavLMConfig
 from diffusestylegesture_torch.ops import encoder_layer as ops_encoder_layer
@@ -58,19 +61,30 @@ def test_package_imports_no_jax_in_a_fresh_interpreter():
         "import importlib, pkgutil, sys\n"
         "import diffusestylegesture_torch as p\n"
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
-        "for m in mods: importlib.import_module(m)\n"
+        "for m in mods + ['chip_smoke']: importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'orbax', 'diffusestylegesture_tpu'))\n"
         "new = {'diffusestylegesture_torch.' + m for m in ('audio.loudness', 'utils.graphs', "
         "'audio.sphinx_mfcc', 'cli.prepare_data', 'cli.train', 'data.device_cache', "
         "'diffusion.resample', 'train.checkpoint', 'train.logger', 'train.loop', "
         "'train.state', 'audio.features', 'cli.distill', 'cli.eval', 'eval', "
-        "'eval.embedding', 'eval.metrics', 'eval.unconstrained', 'train.distill')}\n"
+        "'eval.embedding', 'eval.metrics', 'eval.unconstrained', 'train.distill', "
+        "'audio.praat_pitch', 'data.text', 'data.beat_twh', 'models.mdm_plus', "
+        "'sample.engine_beat', 'cli.sample_beat')}\n"
         "print(len(mods), bad, sorted(new - set(mods)))\n"
-        "sys.exit(1 if bad or len(mods) < 55 or not new <= set(mods) else 0)\n")
+        "sys.exit(1 if bad or len(mods) < 61 or not new <= set(mods) else 0)\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
                          timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
+    # chip_smoke.py imports inside its phases too: none of them names JAX
+    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    imported = {alias.name for node in ast.walk(tree) if isinstance(node, ast.Import)
+                for alias in node.names}
+    imported |= {node.module for node in ast.walk(tree)
+                 if isinstance(node, ast.ImportFrom) and node.module}
+    assert not {m for m in imported if m.split(".")[0] in
+                ("jax", "jaxlib", "flax", "orbax", "diffusestylegesture_tpu")}
 
 
 def test_resolve_device_raises_without_cuda(monkeypatch):
@@ -300,7 +314,8 @@ def test_cuda_local_attention_rejects_shapes_beyond_its_limits(cuda_device):
 
 # the denoiser's shapes (B = 2 under CFG), BEAT's / TWH's trunk widths and the
 # widest layer the wrapper takes (head dim 256)
-ENCODER_SHAPES = [(1, 89, 256), (2, 89, 256), (1, 151, 384), (1, 151, 512), (1, 89, 1024)]
+ENCODER_SHAPES = [(1, 89, 256), (2, 89, 256), (1, 151, 384), (1, 151, 512), (2, 151, 384),
+                  (2, 151, 512), (1, 89, 1024)]
 
 
 @pytest.mark.cuda
@@ -365,6 +380,38 @@ def test_cuda_mdm_kernel_path_matches_plain_path(cuda_device):
         out = model(x, t, cond)
         ref = plain(x, t, cond)
     assert (ops_local_attention.launches - la0, ops_encoder_layer.launches - el0) == (1, 2)
+    assert (out - ref).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["3", "4", "5"])
+@pytest.mark.parametrize("dataset", ["beat", "twh"])
+def test_cuda_mdm_plus_kernel_path_matches_plain_path(cuda_device, dataset, variant):
+    """The BEAT/TWH denoiser at its published widths (8 layers), each variant:
+    kernel A once and kernel B eight times a call, within 1e-4 of the plain
+    path, at B = 2 (the CFG batch)."""
+    torch.manual_seed(0)
+    make = beat_mdm if dataset == "beat" else twh_mdm
+    model = make(cond_mode=f"cross_local_attention{variant}_style1").to(cuda_device).eval()
+    plain = make(cond_mode=model.cfg.cond_mode, impl="plain").to(cuda_device).eval()
+    plain.load_state_dict(model.state_dict())
+    cfg = model.cfg
+    g = torch.Generator().manual_seed(1)
+    seed_shape = (2, cfg.njoints, 1, cfg.n_seed)
+    a_len = 150 - cfg.n_seed * (int(variant) - 3)
+    cond = {"style": torch.eye(cfg.style_dim_in)[[0, 1]],
+            "seed": torch.randn(seed_shape, generator=g),
+            "seed_last": torch.randn(seed_shape, generator=g),
+            "audio": torch.randn(2, a_len, cfg.source_audio_dim, generator=g),
+            "mask_local": torch.ones(2, 150, dtype=torch.bool)}
+    cond = {k: v.to(cuda_device) for k, v in cond.items()}
+    x = torch.randn(2, cfg.njoints, 1, 150, generator=g).to(cuda_device)
+    t = torch.tensor([999, 3], device=cuda_device)
+    la0, el0 = ops_local_attention.launches, ops_encoder_layer.launches
+    with torch.no_grad():
+        out = model(x, t, cond, uncond=torch.tensor([False, True], device=cuda_device))
+        ref = plain(x, t, cond, uncond=torch.tensor([False, True], device=cuda_device))
+    assert (ops_local_attention.launches - la0, ops_encoder_layer.launches - el0) == (1, 8)
     assert (out - ref).abs().max().item() <= 1e-4
 
 
