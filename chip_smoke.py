@@ -80,9 +80,29 @@ Phases (any failure exits non-zero before the result line):
      2e-2 of float32 on the same injected noise; WavLM-Large over the clip's
      5 s chunks and one TWH denoiser call eager, replayed and plain (device and
      wall ms), host feature seconds;
-  9. print the card line, a `kernels` JSON line, an `e2e` JSON line, a `train`
-     JSON line, a `distill` JSON line, a `beat_twh` JSON line and, last,
-     {"ok": true, "device": {...}}.
+  9. BEAT/TWH data preparation and training at the published widths: seeded
+     60 s clips (TWH: four, a 30 fps BVH of the 62 TWH bones, 6 channels each,
+     speakers from a metadata csv; BEAT: two, a 120 fps BVH of Hips + 74 target
+     joints + one more; 16 kHz wavs, a word every 0.45 s) → `cli.prepare_data`
+     (4 spawned workers, WavLM-Large from phase 5 on the card, phase 8's
+     `.vec`): audio 1133, text 302 / 301, gesture 744 / 684 wide, stats, the
+     seconds split → `cli.train` on configs/beat_twh.yml (batch 350 × 150
+     frames, `h5file` the prepared store): TWH DiffuseStyleGesture+ in float32
+     (stopped at 20 steps, resumed to 40), `--bf16 --device_cache` (30 steps),
+     DiffuseStyleGesture++ and BEAT DiffuseStyleGesture (10 steps each);
+     every logged loss finite, no kernel launched while training, every
+     MDMPlus parameter with a finite non-zero gradient after one step, float32
+     master weights / moments / EMA under bf16, the loss falling over 20 steps
+     on one batch at lr 1e-3, the device-cache step captured bitwise equal to
+     eager over 3 steps (float32 and bf16, timed both ways); the checkpoint
+     `<save_dir>/40` served by `cli.sample_beat` in dpmpp5 from a training
+     clip's features through kernels A (20 launches) and B (160), finite
+     (479, 744) motion, written as BVH by `twh_features_to_bvh` with the
+     pipeline fitted on a training BVH and parsed back with 479 frames;
+     features → BVH → features within 1e-4 for a TWH and a BEAT training clip;
+  10. print the card line, a `kernels` JSON line, an `e2e` JSON line, a `train`
+     JSON line, a `distill` JSON line, a `beat_twh` JSON line, a
+     `beat_twh_train` JSON line and, last, {"ok": true, "device": {...}}.
 
 Device times of the kernels come from CUDA events around back-to-back calls
 queued behind a sleep kernel, so host launch overhead is not in them.
@@ -1380,7 +1400,391 @@ def phase_beat_twh(dev, tmp, card, wavlm_pt):
     return results
 
 
-def kernel_entries(la_err, la_t, el_err, el_t, e2e, distill, beat_twh):
+# ---- phase 9 --------------------------------------------------------------------
+
+
+TWH_TRAIN_CLIPS = tuple(f"trn_2023_v0_{i:03d}_main-agent" for i in range(4))
+BEAT_TRAIN_CLIPS = ("1_wayne_0_1_1", "2_scott_0_1_1")
+TRAIN_CLIP_SECONDS = 60
+BEAT_TWH_BATCH = 350  # configs/beat_twh.yml's
+BEAT_TWH_STEPS = 30
+BEAT_TWH_RESUME_AT = 20
+BEAT_TWH_SHORT_STEPS = 10  # the ++ and BEAT runs: every cond builder on the card
+SERVE_FRAMES = 479  # 4 windows of 120: kernel A 20 and kernel B 160 launches in dpmpp5
+WIDTHS = {"TWH": (744, 302), "BEAT": (684, 301)}
+
+
+def twh_skeleton():
+    """{bone: parent} over the 62 TWH bones: legs and spine from b_root, arms
+    from b_spine3, each finger chain from its wrist, the rest from the bone
+    listed before."""
+    from diffusestylegesture_torch.motion.pipeline import TWH_BONE_NAMES
+
+    parents = {"body_world": None}
+    for prev, name in zip(TWH_BONE_NAMES, TWH_BONE_NAMES[1:]):
+        if name.endswith(("upleg", "spine0")):
+            parents[name] = "b_root"
+        elif name.endswith("shoulder"):
+            parents[name] = "b_spine3"
+        elif name.endswith(("thumb0", "index1", "middle1", "ring1", "pinky1")):
+            parents[name] = f"b_{name[2]}_wrist"
+        else:
+            parents[name] = prev
+    return parents
+
+
+def smooth_channels(rng, T, fps, n, amplitude):
+    """(T, n) sinusoids of random frequency (0.1-1.5 Hz) and phase."""
+    import numpy as np
+
+    t = np.arange(T)[:, None] / fps
+    return rng.uniform(0.2, 1.0, (1, n)) * amplitude * np.sin(
+        2 * np.pi * rng.uniform(0.1, 1.5, (1, n)) * t + rng.uniform(0, 2 * np.pi, (1, n)))
+
+
+def write_beat_twh_train_clips(work):
+    """Seeded BEAT and TWH training sources under `work`/{twh,beat}_raw: per
+    clip a 16 kHz wav of TRAIN_CLIP_SECONDS (a gliding voiced tone, amplitude
+    modulated, with noise), its word timings (a word every 0.45 s) and a BVH
+    written by the port's `write_bvh_channels`: TWH at 30 fps with the 62
+    bones of `TWH_BONE_NAMES`, 6 channels each (744 features); BEAT at 120
+    fps, Hips (6 channels) + the 74 `BEAT_TARGET_JOINTS` + one more joint
+    (684 features). A GENEA metadata csv gives the TWH clips speakers 3 and 9.
+    Returns {dataset: source dir} and the seconds of BVH writing."""
+    import numpy as np
+    from scipy.io import wavfile
+
+    from diffusestylegesture_torch.motion import pipeline as P
+
+    rng = np.random.default_rng(SEED + 90)
+    sr = 16000
+    srcs = {}
+    bvh_write_s = 0.0
+    for dataset, names, fps in (("TWH", TWH_TRAIN_CLIPS, 30), ("BEAT", BEAT_TRAIN_CLIPS, 120)):
+        src = srcs[dataset] = os.path.join(work, dataset.lower() + "_raw")
+        os.makedirs(src)
+        T = TRAIN_CLIP_SECONDS * fps
+        if dataset == "TWH":
+            parents = twh_skeleton()
+            chans = ["Xposition", "Yposition", "Zposition", "Zrotation", "Xrotation", "Yrotation"]
+            channels = {j: list(chans) for j in parents}
+            root = "body_world"
+        else:
+            joints = ["Hips"] + list(P.BEAT_TARGET_JOINTS) + ["Extra1"]
+            parents = {"Hips": None, **dict(zip(joints[1:], joints))}
+            channels = {j: ["Xrotation", "Yrotation", "Zrotation"] for j in joints}
+            channels["Hips"] = ["Xposition", "Yposition", "Zposition"] + channels["Hips"]
+            root = "Hips"
+        joints = list(parents)
+        for leaf in [j for j in joints if j not in set(parents.values())]:
+            parents[leaf + "_Nub"], channels[leaf + "_Nub"] = leaf, []
+        columns = [f"{j}_{c}" for j in joints for c in channels[j]]
+        for i, name in enumerate(names):
+            t = np.arange(TRAIN_CLIP_SECONDS * sr) / sr
+            f0 = 120 + 40 * i + 30 * np.sin(2 * np.pi * 0.3 * t)
+            phase = 2 * np.pi * np.cumsum(f0) / sr
+            wav = (0.5 * (1 + np.sin(2 * np.pi * 1.7 * t)) * (0.3 * np.sin(phase)
+                                                             + 0.1 * np.sin(2 * phase))
+                   + 0.02 * rng.standard_normal(t.shape))
+            wavfile.write(os.path.join(src, name + ".wav"), sr, (wav * 12000).astype(np.int16))
+            with open(os.path.join(src, name + ".tsv"), "w") as f:
+                for k, start in enumerate(np.arange(0.2, TRAIN_CLIP_SECONDS - 0.5, 0.45)):
+                    f.write(f"{start:.2f}\t{start + 0.35:.2f}\t"
+                            f"{BEAT_TWH_WORDS[(k + i) % len(BEAT_TWH_WORDS)]}\n")
+            offsets = {n: rng.uniform(-10, 10, 3).astype(np.float32) for n in parents}
+            values = smooth_channels(rng, T, fps, len(columns), 40.0)
+            for c, col in enumerate(columns):
+                joint, chan = col.rsplit("_", 1)
+                if chan.endswith("position"):  # bone offsets, the root wandering
+                    axis = "XYZ".index(chan[0])
+                    values[:, c] = offsets[joint][axis] + (
+                        values[:, c] if joint == root else 0.0)
+            t0 = time.perf_counter()
+            P.write_bvh_channels(P.ChannelData(list(parents), dict(parents), offsets, channels,
+                                               columns, values, 1.0 / fps, root),
+                                 os.path.join(src, name + ".bvh"))
+            bvh_write_s += time.perf_counter() - t0
+    with open(os.path.join(work, "metadata.csv"), "w") as f:
+        f.write("prefix,main-agent_id,main-agent_has_finger,interloctr_id,interloctr_has_finger\n")
+        for i, name in enumerate(TWH_TRAIN_CLIPS):
+            f.write(f"{name[:-len('_main-agent')]},{3 if i % 2 else 9},finger_incl,1,"
+                    "finger_incl\n")
+    return srcs, bvh_write_s
+
+
+def mdm_plus_flops_per_window(T=150, njoints=2232, D=512, F=1024, layers=8, n_seed=30,
+                              audio=1435, audio_d=128, window=15, variant=4):
+    """Forward FLOPs of the MDMPlus for one window, from its shapes (TWH +
+    by default)."""
+    t_audio = T - n_seed * (variant - 3)
+    trunk = layers * (2 * (T + 1) * (4 * D * D + 2 * D * F) + 2 * 2 * (T + 1) ** 2 * D)
+    pose = 2 * 2 * T * njoints * D                             # input_process, output_process
+    cond = (2 * t_audio * audio * audio_d + 2 * T * (2 * D + audio_d) * D  # audio, input_process2
+            + 2 * 2 * D * D)                                   # timestep MLP
+    seed = (2 * njoints * n_seed * (D - 64) if variant == 3
+            else 2 * n_seed * njoints * audio_d * (variant - 3))   # seed (and seed_last)
+    local = 2 * 2 * T * 2 * window * D
+    return trunk + pose + cond + seed + local
+
+
+def beat_twh_yaml(work, dataset):
+    """configs/beat_twh.yml as published, `h5file` pointing at the store that
+    `cli.prepare_data` wrote (the port's .npz) under `work`."""
+    import yaml
+
+    with open(os.path.join(HERE, "configs", "beat_twh.yml")) as f:
+        cfg = yaml.safe_load(f)
+    cfg.update(dataset=dataset, h5file=f"./data/{dataset}_v0.npz")
+    path = os.path.join(work, f"beat_twh_{dataset}.yml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return path
+
+
+def phase_beat_twh_training(dev, tmp, card, wavlm_pt, vec_path):
+    import numpy as np
+    import torch
+
+    from diffusestylegesture_torch import diffusion as D
+    from diffusestylegesture_torch.cli import prepare_data, sample_beat as beat_cli
+    from diffusestylegesture_torch.cli import train as train_cli
+    from diffusestylegesture_torch.config import apply_beat_twh_derivations, load_yaml_config
+    from diffusestylegesture_torch.data import SpeechGestureDataset, gesture_statistics
+    from diffusestylegesture_torch.data.device_cache import (DeviceWindowCache,
+                                                             make_device_data_train_step)
+    from diffusestylegesture_torch.data.h5_loader import read_store
+    from diffusestylegesture_torch.models.mdm_plus import MDMPlus
+    from diffusestylegesture_torch.motion import pipeline as P
+    from diffusestylegesture_torch.ops import encoder_layer as el
+    from diffusestylegesture_torch.ops import local_attention as la
+    from diffusestylegesture_torch.train import (TrainConfig, TrainState, make_beat_cond_builder,
+                                                 make_train_step)
+
+    t_phase = time.perf_counter()
+    work = os.path.join(tmp, "beat_twh_train")
+    os.makedirs(os.path.join(work, "data"))
+    res = {}
+    cwd = os.getcwd()
+    os.chdir(work)  # the yaml's relative paths resolve under `work`
+    try:
+        t0 = time.perf_counter()
+        srcs, bvh_write_s = write_beat_twh_train_clips(work)
+        res["write_clips_s"], res["bvh_write_s"] = time.perf_counter() - t0, bvh_write_s
+
+        # 1. data preparation: host features in 4 spawned workers, WavLM-Large here
+        prep = {}
+        for dataset, extra in (("TWH", ["--metadata", os.path.join(work, "metadata.csv"),
+                                        "--num_speakers", "17"]),
+                               ("BEAT", ["--num_speakers", "2"])):
+            target = os.path.join("data", f"{dataset}_v0.npz")
+            t0 = time.perf_counter()
+            out = prepare_data.main(["--dataset", dataset, "--source", srcs[dataset], "--target",
+                                     target, "--wavlm_path", wavlm_pt, "--word_vectors",
+                                     vec_path, "--workers", "4"] + extra)
+            wall = time.perf_counter() - t0
+            motion_dim, text_dim = WIDTHS[dataset]
+            for clip in out["clips"]:
+                n = len(clip["gesture"])
+                check(clip["gesture"].shape == (n, motion_dim) and clip["audio"].shape ==
+                      (n, 1133) and clip["text"].shape == (n, text_dim),
+                      f"prepare {dataset}: widths {[v.shape for v in clip.values()]}")
+                check(n >= TRAIN_CLIP_SECONDS * 30 - 3, f"prepare {dataset}: {n} frames")
+            stats = [np.load(os.path.join("data", f"{dataset}_v0_{s}.npy")).shape
+                     for s in ("mean", "std")]
+            check(stats == [(motion_dim,)] * 2, f"prepare {dataset}: stats {stats}")
+            prep[dataset] = dict(clips=len(out["clips"]), frames=sum(len(c["gesture"])
+                                                                     for c in out["clips"]),
+                                 widths=dict(gesture=motion_dim, audio=1133, text=text_dim),
+                                 stats_shape=list(stats[0]), wall_s=wall,
+                                 wavlm_large_ms=out["seconds"]["wavlm"] * 1e3,
+                                 **{k + "_s": v for k, v in out["seconds"].items()
+                                    if k != "wavlm"})
+            print(f"prepare {dataset} [{card}]: {json.dumps(prep[dataset])}")
+        res["prepare"] = prep
+
+        # 2. training through the CLI, the published batch and window
+        twh_yml, beat_yml = beat_twh_yaml(work, "TWH"), beat_twh_yaml(work, "BEAT")
+        runs = {}
+        for mode, dataset, name, flags, steps, log in (
+                ("twh+_f32", "TWH", "DiffuseStyleGesture+", [], BEAT_TWH_RESUME_AT, 10),
+                ("twh+_f32", "TWH", "DiffuseStyleGesture+", [], 2 * BEAT_TWH_RESUME_AT, 10),
+                ("twh+_bf16_device_cache", "TWH", "DiffuseStyleGesture+",
+                 ["--bf16", "--device_cache"], BEAT_TWH_STEPS, 10),
+                ("twh++_f32", "TWH", "DiffuseStyleGesture++", [], BEAT_TWH_SHORT_STEPS, 5),
+                ("beat_dsg_f32", "BEAT", "DiffuseStyleGesture", [], BEAT_TWH_SHORT_STEPS, 5)):
+            config = twh_yml if dataset == "TWH" else beat_yml
+            la.launches = el.launches = el.launches_bf16 = 0
+            torch.cuda.reset_peak_memory_stats(dev)
+            out = train_cli.main(["--config", config, "--name", name, "--num_steps", str(steps),
+                                  "--save_dir", os.path.join(work, "out_" + mode),
+                                  "--log_interval", str(log), "--seed", "0"] + flags)
+            counts = (la.launches, el.launches, el.launches_bf16)
+            loop, state = out["loop"], out["state"]
+            check(counts == (0, 0, 0), f"train {mode}: kernels launched while training {counts}")
+            check(state.step == steps, f"train {mode}: ended at step {state.step}, not {steps}")
+            losses = [d["loss"] for d in loop.logged]
+            check(len(losses) >= 2 and all(np.isfinite(losses)), f"train {mode}: losses {losses}")
+            check(bool(torch.isfinite(state.params.data).all()),
+                  f"train {mode}: non-finite weights")
+            check(state.params.data.dtype == state.optimizer.mu.dtype == state.optimizer.nu.dtype
+                  == torch.float32, f"train {mode}: master weights or moments not float32")
+            first = mode not in runs
+            r = runs.setdefault(mode, dict(loops=[], losses=[], peak_bytes=0,
+                                           cfg=apply_beat_twh_derivations(load_yaml_config(
+                                               config, {"name": name}))))
+            r["loops"].append(loop)
+            r["losses"] += losses
+            r["peak_bytes"] = max(r["peak_bytes"], torch.cuda.max_memory_allocated(dev))
+            if mode == "twh+_f32" and not first:
+                check(loop.resume_step == BEAT_TWH_RESUME_AT, f"resumed at {loop.resume_step}")
+            print(f"train {mode} [{card}]: step {state.step}, losses {losses}, "
+                  f"ms/step by window {[d['ms_per_step'] for d in loop.logged]}")
+        modes = {}
+        for mode, r in runs.items():
+            cfg = r["cfg"]
+            flops = 3 * BEAT_TWH_BATCH * mdm_plus_flops_per_window(
+                njoints=cfg.njoints, D=cfg.latent_dim, F=cfg.get("ff_size", 1024),
+                layers=cfg.get("num_layers", 8), audio=cfg.audio_feature_dim,
+                audio_d=cfg.audio_feat_dim_latent,
+                variant=int(cfg.cond_mode[len("cross_local_attention")]))
+            ms = steady_ms(r["loops"])
+            modes[mode] = dict(ms_per_step=ms, windows_per_s=BEAT_TWH_BATCH / ms * 1e3,
+                               peak_memory_bytes=r["peak_bytes"], model_flops_per_step=flops,
+                               f32_peak_share=flops / (ms / 1e3) / F32_FLOPS_PER_S,
+                               bf16_peak_share=flops / (ms / 1e3) / BF16_FLOPS_PER_S,
+                               first_loss=r["losses"][0], last_loss=r["losses"][-1],
+                               steps=r["loops"][-1].state.step, cond_mode=cfg.cond_mode)
+        res.update(modes=modes, batch=BEAT_TWH_BATCH, n_poses=150,
+                   resumed=dict(stopped_at=BEAT_TWH_RESUME_AT,
+                                ended_at=runs["twh+_f32"]["loops"][-1].state.step))
+
+        # 3. the device-cache step captured against eager; gradients, dtypes, a
+        # falling loss on one batch, on fresh full-width TWH + models
+        twh = runs["twh+_f32"]["cfg"]
+        mean, std = gesture_statistics(twh.h5file)
+        cache = DeviceWindowCache.from_beat_twh(
+            SpeechGestureDataset(twh.h5file, mean, std, n_poses=twh.n_poses), dev)
+        builder = make_beat_cond_builder(twh.cond_mode, twh.n_seed)
+        sched = D.Schedule.create(D.named_beta_schedule("cosine", 1000), device=dev)
+        mcfg = dataclasses.replace(beat_cli.mdm_plus_config(twh), impl="plain")
+
+        def fresh_model():
+            with torch.random.fork_rng(devices=[]):
+                torch.manual_seed(SEED)
+                return MDMPlus(mcfg).to(dev)
+
+        captured = {}
+        for mode, dtype in (("f32", "float32"), ("bf16", "bfloat16")):
+            cfg = TrainConfig(lr=3e-5, compute_dtype=dtype)  # configs/beat_twh.yml's optimizer
+            step = make_device_data_train_step(sched, cfg, builder, BEAT_TWH_BATCH,
+                                               cache.sample_fn)
+
+            def make():
+                state = TrainState(fresh_model(), cfg, 1000)
+                gen = torch.Generator(device=dev).manual_seed(0)
+                return (state, lambda: step(state, gen, cache.arrays),
+                        lambda: step.device_step(state, gen, cache.arrays), gen)
+
+            la.launches = el.launches = el.launches_bf16 = 0
+            equal, eager_ms, captured_ms, run = captured_vs_eager(make)
+            check((la.launches, el.launches, el.launches_bf16) == (0, 0, 0),
+                  f"captured train {mode}: kernels launched")
+            check(equal, f"BEAT/TWH train {mode}: the captured step differs from the eager step")
+            captured[mode] = dict(captured_equals_eager_3_steps=equal,
+                                  eager_ms_per_step=eager_ms, captured_ms_per_step=captured_ms,
+                                  captured_windows_per_s=[BEAT_TWH_BATCH / ms * 1e3
+                                                          for ms in captured_ms],
+                                  capture_s=run.capture_seconds)
+            print(f"BEAT/TWH train {mode} device cache, captured vs eager [{card}]: "
+                  f"{json.dumps(captured[mode])}")
+            del run
+        res["captured_vs_eager"] = captured
+
+        fixed = cache.sample_fn(cache.arrays, torch.Generator(device=dev).manual_seed(1),
+                                BEAT_TWH_BATCH)
+        cfg = TrainConfig(compute_dtype="bfloat16", ema_rate=0.9999)
+        state = TrainState(fresh_model(), cfg, 1000)
+        make_train_step(sched, cfg, builder)(state, fixed,
+                                             torch.Generator(device=dev).manual_seed(0))
+        bad = [n for n, p in state.model.named_parameters()
+               if not (bool(torch.isfinite(p.grad).all()) and float(p.grad.abs().sum()) > 0)]
+        check(not bad, f"MDMPlus parameters without a finite non-zero gradient: {bad}")
+        check(all(t.dtype == torch.float32 for t in (state.params.data, state.optimizer.mu,
+                                                     state.optimizer.nu, state.ema)),
+              "bf16: master weights, moments or EMA not float32")
+        res["all_params_have_gradients"] = len(list(state.model.parameters()))
+        cfg = TrainConfig(lr=1e-3)
+        state = TrainState(fresh_model(), cfg, 1000)
+        step = make_train_step(sched, cfg, builder)
+        fixed_losses = [float(step(state, fixed, torch.Generator(device=dev).manual_seed(0))[
+            "loss"]) for _ in range(20)]
+        check(fixed_losses[-1] < fixed_losses[0], f"fixed batch: loss did not fall {fixed_losses}")
+        res["fixed_batch_lr1e-3_losses"] = [fixed_losses[0], fixed_losses[-1]]
+        del state, step, cache, fixed
+
+        # 4. serve the trained checkpoint from a training clip's features
+        store = read_store(twh.h5file)
+        clip = store["0"]
+        served_dir = os.path.join(work, "served")
+        os.makedirs(served_dir)
+        npy = {k: os.path.join(served_dir, k + ".npy") for k in ("textaudio", "seed")}
+        np.save(npy["textaudio"],
+                np.concatenate([clip["audio"], clip["text"]], 1)[:SERVE_FRAMES])
+        np.save(npy["seed"], clip["gesture"][:twh.n_seed + 2])
+        ckpt = os.path.join(work, "out_twh+_f32", str(2 * BEAT_TWH_RESUME_AT))
+        la.launches = el.launches = el.launches_bf16 = 0
+        served, wall = timed(lambda: beat_cli.main(
+            ["--config", twh_yml, "--model_path", ckpt, "--textaudio_npy", npy["textaudio"],
+             "--seed_gesture_npy", npy["seed"], "--mean_npy", "data/TWH_v0_mean.npy",
+             "--std_npy", "data/TWH_v0_std.npy", "--speaker", "8", "--seed", "123456",
+             "--save_dir", served_dir] + mode_flags("dpmpp", 5)))
+        counts = (la.launches, el.launches, el.launches_bf16)
+        motion = served["motion"][0]
+        expected = (20, 20 * twh.get("num_layers", 8), 0)  # 4 windows × 5 steps; 8 layers
+        check(counts == expected, f"served checkpoint: launches {counts}, expected {expected}")
+        check(motion.shape == (SERVE_FRAMES, 744) and bool(np.isfinite(motion).all()),
+              f"served checkpoint: motion {motion.shape}, finite {np.isfinite(motion).all()}")
+        res["served"] = dict(checkpoint=os.path.relpath(ckpt, work),
+                             local_attention_launches=counts[0],
+                             encoder_layer_launches=counts[1], frames=SERVE_FRAMES,
+                             generate_s=served["generate_seconds"],
+                             capture_s=served["capture_seconds"], cli_wall_s=wall)
+
+        # 5. export: the served motion as BVH, and features → BVH → features
+        t0 = time.perf_counter()
+        bvh = os.path.join(srcs["TWH"], TWH_TRAIN_CLIPS[0] + ".bvh")
+        _, pipe = P.twh_features(bvh)
+        out_bvh = os.path.join(served_dir, "served.bvh")
+        P.twh_features_to_bvh(motion, pipe, out_bvh)
+        back = P.parse_bvh(out_bvh)
+        check(back.values.shape == (SERVE_FRAMES, 372) and bool(np.isfinite(back.values).all()),
+              f"exported BVH: {back.values.shape}, finite {np.isfinite(back.values).all()}")
+        export = dict(frames=len(back.values), channels=back.values.shape[1],
+                      export_s=time.perf_counter() - t0)
+        for dataset, name in (("TWH", TWH_TRAIN_CLIPS[0]), ("BEAT", BEAT_TRAIN_CLIPS[0])):
+            featurize, to_bvh = ((P.twh_features, P.twh_features_to_bvh) if dataset == "TWH"
+                                 else (P.beat_features, P.beat_features_to_bvh))
+            t0 = time.perf_counter()
+            parsed = P.parse_bvh(os.path.join(srcs[dataset], name + ".bvh"))
+            parse_s = time.perf_counter() - t0
+            feats, pipe = featurize(parsed)
+            path = os.path.join(served_dir, f"{dataset}_roundtrip.bvh")
+            to_bvh(feats, pipe, path, smoothing=False)
+            again, _ = featurize(path)
+            err = float(np.abs(again - feats[:len(again)]).max())
+            check(err <= 1e-4, f"{dataset} features → BVH → features: {err}")
+            export[f"{dataset.lower()}_roundtrip_max_abs_err"] = err
+            export[f"{dataset.lower()}_bvh_parse_s"] = parse_s
+            export[f"{dataset.lower()}_bvh_frames"] = len(parsed.values)
+        res["export"] = export
+    finally:
+        os.chdir(cwd)
+    res["phase_wall_s"] = time.perf_counter() - t_phase
+    print(f"beat_twh_train [{card}]: {json.dumps(res)}")
+    return res
+
+
+def kernel_entries(la_err, la_t, el_err, el_t, e2e, distill, beat_twh, beat_twh_train):
     """The `kernels` line's entries: each kernel with its launches on every
     path, its errors and its times at each shape it was timed at."""
     kernels = []
@@ -1429,6 +1833,9 @@ def kernel_entries(la_err, la_t, el_err, el_t, e2e, distill, beat_twh):
             launches_dpmpp5=e2e["dpmpp5"][f"{name}_launches"],
             launches_distill=distill["cli"].get(f"{name}_launches", 0),
             launches_beat_twh={run: beat_twh[run][f"{name}_launches"] for run in beat_twh_runs},
+            # phase 9: none while training; the trained checkpoint served in dpmpp5
+            launches_beat_twh_train=dict(
+                train=0, served_checkpoint=beat_twh_train["served"].get(f"{name}_launches", 0)),
             b2=b2, b300=b300, **extra))
     return kernels
 
@@ -1486,21 +1893,28 @@ def main() -> int:
         distill = phase_distill_eval(dev, card, ctx, wav_path)
         # 8
         beat_twh = phase_beat_twh(dev, tmp, card, os.path.join(tmp, "WavLM-Large.pt"))
+        # 9
+        beat_twh_train = phase_beat_twh_training(dev, tmp, card,
+                                                 os.path.join(tmp, "WavLM-Large.pt"),
+                                                 os.path.join(tmp, "beat_twh", "words.vec"))
 
-    # 9. lines
-    kernels = kernel_entries(la_err, la_t, el_err, el_t, e2e, distill, beat_twh)
+    # 10. lines
+    kernels = kernel_entries(la_err, la_t, el_err, el_t, e2e, distill, beat_twh, beat_twh_train)
     check(all(k["launches"] > 0 for k in kernels), "a kernel was not launched on its path")
     check(all(k["launches_distill"] > 0 for k in kernels[:2]),
           "a kernel was not launched on the distillation path")
     check(all(k["launches_beat_twh"]["twh_dsg+_dpmpp5" if k["name"] != "encoder_layer_bf16"
                                      else "twh_dsg+_dpmpp5_serve_fast"] > 0 for k in kernels),
           "a kernel was not launched on the BEAT/TWH serving path")
+    check(all(k["launches_beat_twh_train"]["served_checkpoint"] > 0 for k in kernels[:2]),
+          "a kernel was not launched serving the BEAT/TWH checkpoint trained in phase 9")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"e2e": e2e, "build_s": build_s}))
     print(json.dumps({"train": train, "card": card}))
     print(json.dumps({"distill": distill, "card": card}))
     print(json.dumps({"beat_twh": beat_twh, "card": card}))
+    print(json.dumps({"beat_twh_train": beat_twh_train, "card": card}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -20,8 +20,10 @@ in kernel B's bf16-operand mode with tanh-approximated GELU; WavLM stays
 float32, as in the JAX CLI. The quality gate of the dataset's family is
 checked before any model is loaded. On the card the engine runs as CUDA
 graphs captured at first use (`sample/engine_beat.py`). The output is the
-position block of the motion, `<stamp>_spk<N>_motion.npy`; its BVH export
-(`motion/pipeline.py`) is not ported yet.
+position block of the motion, `<stamp>_spk<N>_motion.npy`; a BVH is written
+from it by `motion/pipeline.py::twh_features_to_bvh` / `beat_features_to_bvh`
+with the pipeline `twh_features` / `beat_features` fitted on a training BVH.
+`--model_path <save_dir>/<step>` serves a checkpoint of `cli/train.py`.
 """
 from __future__ import annotations
 

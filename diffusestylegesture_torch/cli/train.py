@@ -1,25 +1,40 @@
-"""Training CLI (ZEGGS), on the card by default.
+"""Training CLI, on the card by default.
 
   python -m diffusestylegesture_torch.cli.train --config configs/zeggs.yml \\
       [--bf16] [--device_cache] [--num_steps N] [--batch_size B]
+  python -m diffusestylegesture_torch.cli.train --config configs/beat_twh.yml \\
+      --dataset TWH --name DiffuseStyleGesture+ [--bf16] [--device_cache]
 
 Port of `diffusestylegesture_tpu/cli/train.py` (reference
-`main/mydiffusion_zeggs/end2end.py:19-71`). The yaml's `data_dir` holds the
-output of `cli/prepare_data.py`; the windows come from `<data_dir>/train`
-with WavLM-Large features computed from the yaml's `wavlm_path` (or, when
-that file is missing, from the dataset's feature cache; with neither the
-run stops). Checkpoints go to `<save_dir>/<step>/`, a directory that
-`cli/sample.py --model_path` serves. `--save_dir` and `--log_interval`
-override the yaml's values.
+`main/mydiffusion_zeggs/end2end.py:19-71`,
+`BEAT-TWH-main/mydiffusion_beat_twh/end2end.py:19-101`):
+
+* ZEGGS: the yaml's `data_dir` holds the output of `cli/prepare_data.py`; the
+  windows come from `<data_dir>/train` with WavLM-Large features computed from
+  the yaml's `wavlm_path` (or, when that file is missing, from the dataset's
+  feature cache; with neither the run stops).
+* BEAT / TWH: the yaml's `h5file` is the dataset store `cli/prepare_data.py`
+  wrote (the port's `.npz`; a JAX-written `.h5` needs h5py); the fields that
+  depend on the dataset and the model name (DiffuseStyleGesture / + / ++) are
+  derived as in the reference, the gesture statistics come from the store,
+  and batches are random `n_poses`-frame crops of its clips.
+
+Checkpoints go to `<save_dir>/<step>/`, a directory that `cli/sample.py`
+(ZEGGS) or `cli/sample_beat.py` (BEAT/TWH) `--model_path` serves; a run whose
+`save_dir` holds one resumes from the latest. `--save_dir` and
+`--log_interval` override the yaml's values. The model trains through its
+plain PyTorch ops (the CUDA kernels have no backward).
 
 `--bf16` runs the forward under bf16 autocast with float32 master weights,
-moments and EMA; `--device_cache` keeps the whole window set on the card and
-gathers each batch there. The mesh and model-parallel flags of the JAX CLI
-raise: they come with later slices of the port.
+moments and EMA; `--device_cache` keeps the whole dataset on the card and
+gathers each batch there, one captured CUDA graph a step. The mesh and
+model-parallel flags of the JAX CLI raise: they come with later slices of the
+port.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import time
 
@@ -27,10 +42,12 @@ import numpy as np
 import torch
 
 from .. import diffusion as D
-from ..config import load_yaml_config
+from ..config import apply_beat_twh_derivations, load_yaml_config
 from ..device import resolve_device
 from ..models.mdm import MDM, MDMConfig
-from ..train import LoopConfig, TrainConfig, TrainLoop, make_zeggs_cond_builder
+from ..models.mdm_plus import MDMPlus
+from ..train import (LoopConfig, TrainConfig, TrainLoop, make_beat_cond_builder,
+                     make_zeggs_cond_builder)
 
 LATER = {"use_mesh": 9, "tp": 9, "fsdp": 9, "pp": 9, "sp": 9, "split_qkv": 9, "moe_experts": 8}
 
@@ -95,6 +112,22 @@ def build_zeggs(cfg, device: torch.device, seed: int):
     return model.to(device), data, wavlm_s[0]
 
 
+def build_beat_twh(cfg, device: torch.device, seed: int):
+    """(model, dataset, cond builder) for a derived BEAT/TWH yaml: the
+    `cli/sample_beat.py` denoiser config on the plain route (training needs
+    autograd, which the CUDA kernels lack), the store's gesture statistics
+    and its clips."""
+    from ..data import SpeechGestureDataset, gesture_statistics
+    from .sample_beat import mdm_plus_config
+
+    mean, std = gesture_statistics(cfg.h5file)
+    data = SpeechGestureDataset(cfg.h5file, mean, std, n_poses=cfg.n_poses)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        model = MDMPlus(dataclasses.replace(mdm_plus_config(cfg), impl="plain"))
+    return model.to(device), data, make_beat_cond_builder(cfg.cond_mode, cfg.n_seed)
+
+
 def main(argv=None):
     """Returns {'loop': the TrainLoop, 'state', 'dataset', 'prepare_s' (dataset
     and features), 'wavlm_s' (the WavLM part of it), 'save_dir'}."""
@@ -106,22 +139,28 @@ def main(argv=None):
     device = resolve_device(args.device)
     cfg = load_yaml_config(args.config, {k: getattr(args, k) for k in (
         "dataset", "name", "num_steps", "batch_size", "save_dir", "log_interval")})
-    if cfg.dataset != "ZEGGS":
-        raise NotImplementedError(f"{cfg.dataset} training comes with slice 4 of the port")
     if cfg.get("moe_experts", 0):
         raise NotImplementedError("MoE training comes with slice 8 of the port")
 
     t0 = time.perf_counter()
-    model, dataset, wavlm_s = build_zeggs(cfg, device, args.seed)
+    if cfg.dataset == "ZEGGS":
+        model, dataset, wavlm_s = build_zeggs(cfg, device, args.seed)
+        builder = make_zeggs_cond_builder(cfg.n_seed)
+        print(f"{len(dataset)} training windows ready in {time.perf_counter() - t0:.1f} s "
+              f"({wavlm_s:.1f} s of WavLM features)")
+    else:
+        cfg = apply_beat_twh_derivations(cfg)
+        model, dataset, builder = build_beat_twh(cfg, device, args.seed)
+        wavlm_s = 0.0
+        print(f"{len(dataset)} {cfg.dataset} clips ({sum(len(g) for g in dataset.gesture)} "
+              f"frames) ready in {time.perf_counter() - t0:.1f} s; {cfg.name}, {cfg.cond_mode}")
     prepare_s = time.perf_counter() - t0
-    print(f"{len(dataset)} training windows ready in {prepare_s:.1f} s "
-          f"({wavlm_s:.1f} s of WavLM features)")
-    builder = make_zeggs_cond_builder(cfg.n_seed)
     device_cache = None
     if args.device_cache:
         from ..data.device_cache import DeviceWindowCache
 
-        device_cache = DeviceWindowCache.from_zeggs(dataset, device)
+        device_cache = (DeviceWindowCache.from_zeggs(dataset, device) if cfg.dataset == "ZEGGS"
+                        else DeviceWindowCache.from_beat_twh(dataset, device))
     sched = D.Schedule.create(D.named_beta_schedule(cfg.get("noise_schedule", "cosine"),
                                                     cfg.diffusion_steps), device=device)
     loop = TrainLoop(

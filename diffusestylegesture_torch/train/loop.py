@@ -130,7 +130,7 @@ class TrainLoop:
             if batch_size <= 0:
                 raise ValueError("batch_size is required with a device_cache")
             self.cached_step = make_device_data_train_step(schedule, train_cfg, cond_builder,
-                                                           batch_size)
+                                                           batch_size, device_cache.sample_fn)
             self.train_step = None
         else:
             self.cached_step = None

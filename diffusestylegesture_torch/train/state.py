@@ -299,3 +299,33 @@ def make_zeggs_cond_builder(n_seed: int = 8) -> CondBuilder:
 
 
 zeggs_cond_builder = make_zeggs_cond_builder(8)
+
+
+def make_beat_cond_builder(variant: str, n_seed: int) -> CondBuilder:
+    """BEAT/TWH batch {'motion' (B, T, C), 'audio' (B, T, A), 'style' (B, S)} →
+    (x_start, cond, mask) (`BEAT-TWH-main/train/training_loop.py:100-130`):
+    attention4 feeds audio[:, n_seed:]; attention5 feeds audio[:, n_seed:-n_seed]
+    and passes seed_last, the final n_seed motion frames; attention3 the whole
+    audio."""
+    if "attention5" in variant and n_seed <= 0:
+        # [:-0] would be the empty slice and [-0:] the whole motion: the ground
+        # truth passed as conditioning
+        raise ValueError("attention5 requires n_seed > 0")
+
+    def builder(batch: Batch):
+        motion = batch["motion"].permute(0, 2, 1)[:, :, None, :]  # (B, C, 1, T)
+        B, _, _, T = motion.shape
+        dev = motion.device
+        audio = batch["audio"]
+        cond = {"seed": motion[..., :n_seed], "style": batch["style"],
+                "mask_local": torch.ones(B, T, dtype=torch.bool, device=dev)}
+        if "attention4" in variant:
+            cond["audio"] = audio[:, n_seed:]
+        elif "attention5" in variant:
+            cond["audio"] = audio[:, n_seed:-n_seed]
+            cond["seed_last"] = motion[..., -n_seed:]
+        else:
+            cond["audio"] = audio
+        return motion, cond, torch.ones(B, 1, 1, T, device=dev)
+
+    return builder

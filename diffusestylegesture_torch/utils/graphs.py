@@ -33,6 +33,8 @@ autoencoder run of `eval/embedding.py::train_autoencoder`).
 """
 from __future__ import annotations
 
+import contextlib
+import gc
 import time
 from typing import Callable, Dict, Iterable, Optional, Tuple
 
@@ -40,6 +42,21 @@ import torch
 
 from ..ops import encoder_layer as _el
 from ..ops import local_attention as _la
+
+
+@contextlib.contextmanager
+def _collector_paused():
+    """Python's cyclic garbage collector off for the duration. Unreachable
+    objects in reference cycles may hold CUDA graphs (a finished sampler's);
+    a collection that frees one inside a capture destroys a graph while a
+    stream captures, which invalidates that capture."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
 
 
 def launch_counts() -> Tuple[int, int, int]:
@@ -102,7 +119,7 @@ class GraphSet:
         for gen in self.generators:
             graph.register_generator_state(gen)
         start = launch_counts()
-        with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
+        with _collector_paused(), torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
             out = fn()
         launches = tuple(b - a for a, b in zip(start, launch_counts()))
         _set_launch_counts(before)
@@ -184,7 +201,7 @@ class CapturedStep:
         for gen in gs.generators:
             graph.register_generator_state(gen)
         start = launch_counts()
-        with torch.cuda.graph(graph, pool=gs.pool, stream=gs.stream):
+        with _collector_paused(), torch.cuda.graph(graph, pool=gs.pool, stream=gs.stream):
             self.outputs = self.fn()
         launches = tuple(b - a for a, b in zip(start, launch_counts()))
         _set_launch_counts(start)

@@ -10,7 +10,9 @@ CUDA) and the eager comparison path (`graphs=False`) give bitwise-equal poses
 for every sampler, with and without classifier-free guidance, and for
 `generate_multi_clip`; the generator ends in the same state; the launch
 counters read the same after replays as after eager calls; a capture that
-fails raises; `--serve_fast` stays within the bench gate's 2e-2 of float32.
+fails raises; a capture survives finished graphs turning into cyclic garbage
+while it runs (the collector is paused); `--serve_fast` stays within the bench
+gate's 2e-2 of float32.
 The training-style steps captured by `graphs.CapturedStep` (the device-cache
 train step in float32 and bf16, the distillation step with its teacher
 through kernels A and B, the autoencoder step) equal their eager steps
@@ -18,8 +20,9 @@ bitwise over three steps; a step capture that fails raises. The BEAT/TWH
 engine (`BeatTwhSampler`) gives bitwise-equal poses on graphs and eagerly for
 each variant, with CFG, and attention5 reads a new `seed_last` at the next
 call on the same captured graphs.
-Elsewhere every test skips.
+Elsewhere every test skips but the one of the collector's pause and restore.
 """
+import gc
 import os
 import subprocess
 import sys
@@ -196,6 +199,61 @@ def test_cuda_failed_capture_raises(card):
             "except RuntimeError:\n"
             "    raise SystemExit(0)\n"
             "raise SystemExit('the capture did not raise')\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+
+def test_collector_paused_restores_the_collector():
+    """Captures pause Python's cyclic collector and restore it as it was."""
+    assert gc.isenabled()
+    with graphs._collector_paused():
+        assert not gc.isenabled()
+    assert gc.isenabled()
+    gc.disable()
+    try:
+        with graphs._collector_paused():
+            assert not gc.isenabled()
+        assert not gc.isenabled()
+    finally:
+        gc.enable()
+    with pytest.raises(KeyError):
+        with graphs._collector_paused():
+            raise KeyError("x")
+    assert gc.isenabled()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["graph_set", "captured_step"])
+def test_cuda_capture_survives_cyclic_garbage_holding_graphs(card, kind):
+    """In a process of its own: inside a capture, finished graphs become
+    garbage held in a reference cycle (the captured function builds it and
+    drops it), with the collector set to run at every allocation. A
+    collection there would destroy those graphs while the stream captures and
+    invalidate the capture; captures pause the collector."""
+    code = ("import gc, torch\n"
+            "from diffusestylegesture_torch.utils.graphs import CapturedStep, GraphSet\n"
+            "x = torch.zeros(256, device='cuda')\n"
+            "old = [GraphSet(x.device).capture(lambda: x.add_(1))[0] for _ in range(4)]\n"
+            "calls = [0]\n"
+            "gc.set_threshold(1, 1, 1)\n"
+            "def step():\n"
+            "    calls[0] += 1\n"
+            "    if calls[0] == 2:  # the capture (the first call is the eager warm-up)\n"
+            "        cycle = [old.pop() for _ in range(4)]\n"
+            "        cycle.append(cycle)\n"
+            "        del cycle\n"
+            "    parts = [x * k for k in range(8)]  # Python objects allocated while capturing\n"
+            "    x.copy_(sum(parts) / 28)\n"
+            "    return {'x': x.sum()}\n"
+            f"if {kind!r} == 'graph_set':\n"
+            "    g, _ = GraphSet(x.device).capture(step)\n"
+            "    g.replay(3)\n"
+            "else:\n"
+            "    CapturedStep(step, x.device)(3)\n"
+            "torch.cuda.synchronize()\n"
+            "assert calls[0] == 2 and not old\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
                          timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr

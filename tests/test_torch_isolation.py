@@ -14,9 +14,12 @@ an operand to the other bf16 neighbour), the BEAT/TWH denoiser's kernel path
 against its plain path at the published widths for each variant (1e-4), and
 check the launch counters, also at the distillation teacher's batch of 300
 and, given two cards, on the second card after the first (each kernel's
-shared-memory opt-in is per device); elsewhere they skip.
+shared-memory opt-in is per device); the BEAT/TWH device-cache train step at
+the full TWH width, captured as a CUDA graph, equals its eager step bitwise
+and launches no kernel; elsewhere they skip.
 """
 import ast
+import functools
 import importlib
 import os
 import pkgutil
@@ -70,9 +73,11 @@ def test_package_imports_no_jax_in_a_fresh_interpreter():
         "'train.state', 'audio.features', 'cli.distill', 'cli.eval', 'eval', "
         "'eval.embedding', 'eval.metrics', 'eval.unconstrained', 'train.distill', "
         "'audio.praat_pitch', 'data.text', 'data.beat_twh', 'models.mdm_plus', "
-        "'sample.engine_beat', 'cli.sample_beat')}\n"
-        "print(len(mods), bad, sorted(new - set(mods)))\n"
-        "sys.exit(1 if bad or len(mods) < 61 or not new <= set(mods) else 0)\n")
+        "'sample.engine_beat', 'cli.sample_beat', 'motion.pipeline', 'motion.pipeline_extras', "
+        "'data.bvh_repair', 'data.beat_proc', 'data.h5_loader')}\n"
+        "print(len(mods), bad, sorted(new - set(mods)), 'h5py' in sys.modules)\n"
+        "sys.exit(1 if bad or len(mods) < 66 or not new <= set(mods) or 'h5py' in sys.modules "
+        "else 0)\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
                          timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
@@ -465,3 +470,56 @@ def test_cuda_kernels_opt_in_on_a_second_card(cuda_device):
         torch.cuda.synchronize(dev)
         assert res.device == dev and (res - ref).abs().max().item() <= 1e-5
         assert y.device == dev and (y - y_ref).abs().max().item() <= 1e-4
+
+
+# ---- BEAT/TWH training on the card ----------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_cuda_beat_twh_captured_train_step_equals_eager(cuda_device):
+    """The BEAT/TWH device-cache train step at the full TWH width (MDMPlus
+    2232 / 512, 8 layers, attention4; clip crops drawn on the card): three
+    steps captured as one CUDA graph (`cli/train.py --device_cache`) and
+    eagerly, bitwise equal, the generators equal, and no kernel launched."""
+    from diffusestylegesture_torch import diffusion as D
+    from diffusestylegesture_torch.data.device_cache import (DeviceWindowCache,
+                                                             make_device_data_train_step)
+    from diffusestylegesture_torch.train import TrainConfig, TrainState, make_beat_cond_builder
+    from diffusestylegesture_torch.utils.graphs import CapturedStep
+
+    rng = np.random.default_rng(0)
+    lens = (400, 333, 512)
+    cache = DeviceWindowCache(
+        {"motion_clips": rng.standard_normal((3, 512, 2232)).astype(np.float32),
+         "audio_clips": rng.standard_normal((3, 512, 1435)).astype(np.float32),
+         "style": np.eye(17, dtype=np.float32)[[1, 5, 9]], "clip_len": np.array(lens)},
+        cuda_device, functools.partial(DeviceWindowCache.sample_clip_batch, n_poses=150))
+    cfg = TrainConfig(lr=3e-5, ema_rate=0.999)
+    sched = D.Schedule.create(D.named_beta_schedule("cosine", 1000), device=cuda_device)
+    step = make_device_data_train_step(
+        sched, cfg, make_beat_cond_builder("cross_local_attention4_style1", 30), 16,
+        cache.sample_fn)
+
+    def fresh():
+        torch.manual_seed(0)
+        state = TrainState(twh_mdm(impl="plain").to(cuda_device), cfg, 1000)
+        return state, torch.Generator(device=cuda_device).manual_seed(1)
+
+    eager, gen_e = fresh()
+    captured, gen_c = fresh()
+    run = CapturedStep(lambda: step.device_step(captured, gen_c, cache.arrays), cuda_device,
+                       [gen_c])
+    la0, el0 = ops_local_attention.launches, ops_encoder_layer.launches
+    for _ in range(3):
+        m_e = step(eager, gen_e, cache.arrays)
+        m_c = run()
+    torch.cuda.synchronize()
+    assert (ops_local_attention.launches - la0, ops_encoder_layer.launches - el0) == (0, 0)
+    for name in ("data", "grad"):
+        assert torch.equal(getattr(eager.params, name), getattr(captured.params, name)), name
+    for name in ("mu", "nu", "count"):
+        assert torch.equal(getattr(eager.optimizer, name), getattr(captured.optimizer, name))
+    assert torch.equal(eager.ema, captured.ema)
+    assert all(torch.equal(m_e[k], m_c[k]) for k in m_e)
+    assert torch.equal(gen_e.get_state(), gen_c.get_state())
+    assert bool(torch.isfinite(m_c["loss"]).all())

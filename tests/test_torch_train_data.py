@@ -189,10 +189,10 @@ def test_prepare_data_cli(clips, tmp_path):
     assert stats["mean"].shape == (zf.ZEGGS_FEATURE_DIM,)
     assert sorted(os.listdir(tmp_path / "out" / "train")) == ["002_Sad_0_x_1_0.npz",
                                                               "003_Old_1_x_1_0.npz"]
-    for ds in ("BEAT", "TWH"):
-        with pytest.raises(NotImplementedError, match="slice 4"):
+    for ds in ("BEAT", "TWH"):  # ZEGGS clips have no word timings: no BEAT/TWH triple
+        with pytest.raises(SystemExit, match="no usable"):
             prepare_data.main(["--dataset", ds, "--source", str(clips), "--target",
-                               str(tmp_path / ds)])
+                               str(tmp_path / f"{ds}.npz"), "--device", "cpu"])
 
 
 def test_device_cache_gathers_rows(built, tmp_path):

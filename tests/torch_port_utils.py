@@ -32,3 +32,85 @@ def np32(x) -> np.ndarray:
     if torch.is_tensor(x):
         x = x.detach().cpu().numpy()
     return np.asarray(x, np.float32)
+
+
+def twh_parents():
+    """{bone: parent} of a plausible tree over the 62 TWH bones: legs and the
+    spine hang from b_root, the arms from b_spine3, each finger chain from
+    its wrist, every other bone from the bone listed before it."""
+    from diffusestylegesture_torch.motion.pipeline import TWH_BONE_NAMES
+
+    parents = {"body_world": None}
+    for prev, name in zip(TWH_BONE_NAMES, TWH_BONE_NAMES[1:]):
+        side = name[2:3]
+        if name.endswith(("upleg", "spine0")):
+            parents[name] = "b_root"
+        elif name.endswith("shoulder"):
+            parents[name] = "b_spine3"
+        elif name.endswith(("thumb0", "index1", "middle1", "ring1", "pinky1")):
+            parents[name] = f"b_{side}_wrist"
+        else:
+            parents[name] = prev
+    return parents
+
+
+def synth_twh62_bvh(path, T=48, fps=30, seed=0):
+    """A BVH of the full 62-bone TWH skeleton, 6 channels a bone
+    ([XYZ position | ZXY rotation], the GENEA layout, so `twh_features` is
+    744 wide), an End Site under each leaf, seeded smooth-ish random values."""
+    from diffusestylegesture_torch.motion import pipeline as P
+
+    rng = np.random.default_rng(seed)
+    parents = twh_parents()
+    joints = list(parents)
+    chans = ["Xposition", "Yposition", "Zposition", "Zrotation", "Xrotation", "Yrotation"]
+    channels = {j: list(chans) for j in joints}
+    leaves = [j for j in joints if j not in set(parents.values())]
+    for leaf in leaves:
+        parents[leaf + "_Nub"] = leaf
+        channels[leaf + "_Nub"] = []
+    names = list(parents)
+    offsets = {n: rng.uniform(-5, 5, 3).astype(np.float32) for n in names}
+    columns = [f"{j}_{c}" for j in joints for c in chans]
+    t = np.arange(T)[:, None] / fps
+    C = len(columns)
+    vals = rng.uniform(-60, 60, (1, C)) * np.sin(
+        2 * np.pi * rng.uniform(0.1, 1.0, (1, C)) * t + rng.uniform(0, 6, (1, C)))
+    data = P.ChannelData(names, parents, offsets, channels, columns, vals, 1.0 / fps, "body_world")
+    P.write_bvh_channels(data, path)
+    return data
+
+
+def synth_beat_full_bvh(path, T=121, fps=120, seed=0):
+    """A BEAT BVH of Hips (6 channels) + the 74 `BEAT_TARGET_JOINTS` + one
+    non-target joint (3 rotation channels each), chained, so `beat_features`
+    is 684 wide."""
+    from diffusestylegesture_torch.motion import pipeline as P
+
+    rng = np.random.default_rng(seed)
+    joints = ["Hips"] + list(P.BEAT_TARGET_JOINTS) + ["Extra1"]
+    parents = {"Hips": None}
+    for prev, name in zip(joints, joints[1:]):
+        parents[name] = prev
+    channels = {j: ["Xrotation", "Yrotation", "Zrotation"] for j in joints}
+    channels["Hips"] = ["Xposition", "Yposition", "Zposition"] + channels["Hips"]
+    parents[joints[-1] + "_Nub"] = joints[-1]
+    channels[joints[-1] + "_Nub"] = []
+    names = list(parents)
+    offsets = {n: rng.uniform(-3, 3, 3).astype(np.float32) for n in names}
+    columns = [f"{j}_{c}" for j in joints for c in channels[j]]
+    vals = rng.uniform(-40, 40, (T, len(columns)))
+    vals[:, 0:3] = rng.uniform(-10, 10, (T, 3)) + [0, 90, 0]
+    data = P.ChannelData(names, parents, offsets, channels, columns, vals, 1.0 / fps, "Hips")
+    P.write_bvh_channels(data, path)
+    return data
+
+
+def interpolation_rounding_bar(raw) -> float:
+    """How far two float32 linear interpolations of the (T', C) rows `raw` to
+    another length may drift apart when their source positions (up to T' − 1)
+    are rounded one ulp apart: that ulp times the largest frame-to-frame step.
+    XLA's compiled `jnp.linspace` and the port's `interpolate_linear` round
+    some positions so (ROADMAP §3)."""
+    raw = np.asarray(raw, np.float64)
+    return float(np.spacing(np.float32(len(raw) - 1)) * np.abs(np.diff(raw, axis=0)).max())
