@@ -11,13 +11,15 @@ Phases (any failure exits non-zero before the result line):
      per source, all at once) and time the build;
   3. local-attention kernel vs its plain PyTorch version at the ZEGGS, BEAT and
      TWH denoisers' shapes ((B·8, 88, 32) window 11, (B·8, 150, 48) and
-     (B·8, 150, 64) window 15), B = 1 and 2, all-true / partial / no mask,
+     (B·8, 150, 64) window 15), B = 1 and 2 (and 16, the server's batch, at
+     ZEGGS), all-true / partial / no mask,
      aliased (q = k = v) and distinct q, k, v, packed contiguous and
      strided-in / merged-out, atol 1e-5; two calls bitwise equal; times of the
      kernel with the boolean mask and with no mask, of an empty kernel launched
      the same way, of the plain version and of SDPA (block-causal boolean mask);
   4. encoder-layer kernel vs the plain layer at the ZEGGS (B, 89, 256), BEAT
-     (B, 151, 384) and TWH (B, 151, 512) trunk shapes, B = 1 and 2, with 8
+     (B, 151, 384) and TWH (B, 151, 512) trunk shapes, B = 1 and 2 (and 16 at
+     ZEGGS), with 8
      layers of seeded weights each, in both operand modes: float32 (3xTF32,
      the main path) at atol 1e-4 per layer, `mxu_bf16` against the plain bf16
      layer at atol 1e-2 per layer; two calls on the same input bitwise equal;
@@ -100,9 +102,31 @@ Phases (any failure exits non-zero before the result line):
      (479, 744) motion, written as BVH by `twh_features_to_bvh` with the
      pipeline fitted on a training BVH and parsed back with 479 frames;
      features → BVH → features within 1e-4 for a TWH and a BEAT training clip;
-  10. print the card line, a `kernels` JSON line, an `e2e` JSON line, a `train`
+  10. the serving surfaces on phase 5's checkpoint and WavLM-Large: `cli.serve`
+     on a JSONL of four seeded 1- and 2-window clips in DDPM-1000 at max_batch
+     16, float32 and --serve_fast (A a multiple of 1000 launches, B 8 × A in
+     the run's mode); a library `GestureServer` burst of 64 mixed-length
+     requests (1-5 windows, buckets 1 / 2 / 5) in dpmpp5 after one request per
+     bucket captured its graphs: requests/s, frames/s, p50 / p99 latency,
+     batches, capture seconds, peak memory and (a second burst under
+     torch.profiler) the card's busy share; the same clips one at a time
+     through `ZeggsSampler.generate`; a ZEGGS stream (the 12.5 s wav) and a
+     TWH DiffuseStyleGesture+ stream (phase 8's features) over 0.5 s pushes,
+     ms from a window's last input to its motion, each within 2e-3 rel of
+     its batch engine; `restyle_window` (strength 0.5) and an in-between
+     `edit_motion` on one window on the 1000-step schedule (kept frames
+     within 1e-4); kernels A and B launched on every one of these paths;
+  11. the ZeroEGGS RNN system at the published widths of `ZeroEGGSConfig`
+     (hidden 512, 2 GRU layers, speech 128, style 64, 75 joints, 60 fps)
+     through `cli.zeroeggs`: `prepare` on phase 6's clips, `train` 30 steps
+     at the CLI's defaults (ms/step; no diffusion kernel launched), `generate`
+     a 12.5 s clip with two style examples in `add` and `stitch` (750-frame
+     BVHs), and the rollout captured as a CUDA graph against its eager run,
+     bitwise equal, ms per rollout step both ways;
+  12. print the card line, a `kernels` JSON line, an `e2e` JSON line, a `train`
      JSON line, a `distill` JSON line, a `beat_twh` JSON line, a
-     `beat_twh_train` JSON line and, last, {"ok": true, "device": {...}}.
+     `beat_twh_train` JSON line, a `serving` JSON line, a `zeroeggs` JSON line
+     and, last, {"ok": true, "device": {...}}.
 
 Device times of the kernels come from CUDA events around back-to-back calls
 queued behind a sleep kernel, so host launch overhead is not in them.
@@ -178,6 +202,10 @@ def bound(bytes_moved: float, flops: float, flops_per_s: float = F32_FLOPS_PER_S
 
 # (N, w, D) of the local attention in the ZEGGS, BEAT and TWH denoisers, 8 heads each
 LOCAL_ATTENTION_SHAPES = {"zeggs": (88, 11, 32), "beat": (150, 15, 48), "twh": (150, 15, 64)}
+# batches each shape is checked and timed at: 1, 2 (CFG) and, for ZEGGS, the
+# serving surfaces' max_batch of 16 (phase 10)
+SERVER_BATCH = 16
+SHAPE_BATCHES = {"zeggs": (1, 2, SERVER_BATCH), "beat": (1, 2), "twh": (1, 2)}
 
 
 def phase_local_attention(dev):
@@ -193,7 +221,7 @@ def phase_local_attention(dev):
     timings = {}
     for shape, (n, w, d) in LOCAL_ATTENTION_SHAPES.items():
         timings[shape] = {}
-        for B in (1, 2):
+        for B in SHAPE_BATCHES[shape]:
             # (B, N, H·D) activations, their strided (B, H, N, D) views (what the
             # denoiser hands the kernel) and packed contiguous (B·H, N, D) copies
             base = [torch.randn(B, n, H * d, generator=g).to(dev) for _ in range(3)]
@@ -298,7 +326,7 @@ def phase_encoder_layer(dev):
         torch.manual_seed(SEED)
         trunk = TorchTransformerEncoder(L, D, H, F, "gelu").to(dev).eval()
         with torch.no_grad():
-            for B in (1, 2):
+            for B in SHAPE_BATCHES[shape]:
                 x = torch.randn(B, T, D, device=dev)
                 layer = trunk.layers[0]
                 ref = nn.TransformerEncoderLayer(D, H, F, dropout=0.0, activation="gelu",
@@ -1784,7 +1812,394 @@ def phase_beat_twh_training(dev, tmp, card, wavlm_pt, vec_path):
     return res
 
 
-def kernel_entries(la_err, la_t, el_err, el_t, e2e, distill, beat_twh, beat_twh_train):
+# ---- phase 10 -------------------------------------------------------------------
+
+SERVE_CLIPS = ((1, "Happy"), (2, "Sad"), (1, "Neutral"), (2, "Old"))  # (windows, style)
+BURST = 64
+BURST_BUCKETS = (1, 2, 5)
+STREAM_CHUNK_S = 0.5
+
+
+def busy_share(run):
+    """(device-busy share of the wall time, wall seconds) of run() under
+    torch.profiler: the union of the card's kernel and copy intervals over the
+    wall time. (None, wall) when the profiler recorded no device activity."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    if not spans:
+        return None, wall
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in spans:
+        if cur_e is None or s > cur_e:
+            busy += 0.0 if cur_e is None else cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy += cur_e - cur_s
+    return busy / 1e6 / wall, wall
+
+
+def counted(fn):
+    """(fn()'s result, wall seconds, the (A, B f32, B bf16) launches it counted)."""
+    from diffusestylegesture_torch.ops import encoder_layer as el
+    from diffusestylegesture_torch.ops import local_attention as la
+
+    la.launches = el.launches = el.launches_bf16 = 0
+    res, wall = timed(fn)
+    return res, wall, (la.launches, el.launches, el.launches_bf16)
+
+
+def phase_serving(dev, tmp, card):
+    """Phase 10: the serving surfaces on phase 5's full-width ZEGGS model and
+    WavLM-Large and phase 8's TWH model."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+    from scipy.io import wavfile
+
+    from diffusestylegesture_torch import diffusion as D
+    from diffusestylegesture_torch.cli import sample as sample_cli
+    from diffusestylegesture_torch.cli import sample_beat as beat_cli
+    from diffusestylegesture_torch.cli import serve as serve_cli
+    from diffusestylegesture_torch.config import apply_beat_twh_derivations, load_yaml_config
+    from diffusestylegesture_torch.data import load_wav_16k
+    from diffusestylegesture_torch.models.convert import (load_reference_mdm,
+                                                          load_reference_mdm_plus,
+                                                          load_wavlm_checkpoint)
+    from diffusestylegesture_torch.models.wavlm import make_zeggs_wavlm_fn
+    from diffusestylegesture_torch.motion import zeggs_features as zf
+    from diffusestylegesture_torch.sample import (BeatTwhStreamSampler, GestureServer,
+                                                  ServerConfig, ZeggsEngineConfig, ZeggsSampler,
+                                                  ZeggsStreamSampler, edit_motion,
+                                                  in_between_mask, prepare_seed_gesture,
+                                                  restyle_window, slice_audio_windows)
+
+    cfg_path, mdm_pt = os.path.join(tmp, "zeggs.yml"), os.path.join(tmp, "model000000000.pt")
+    cfg = load_yaml_config(cfg_path)
+    audio = load_wav_16k(os.path.join(tmp, "015_Happy_4_x_1_0.wav"))
+    mean = np.load(os.path.join(cfg.data_dir, "mean.npz"))["mean"]
+    std = np.load(os.path.join(cfg.data_dir, "std.npz"))["std"]
+    sps = ZeggsEngineConfig().samples_per_stride
+    long_audio = np.tile(audio, 3)  # 37.5 s to cut clips of up to 5 windows from
+    rng = np.random.default_rng(SEED + 10)
+    res, launches = {}, {}
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    # (a) cli/serve.py: seeded 1- and 2-window clips, DDPM-1000 as the JAX CLI, max_batch 16
+    serve_dir = os.path.join(tmp, "serve")
+    os.makedirs(serve_dir)
+    with open(os.path.join(serve_dir, "requests.jsonl"), "w") as f:
+        for i, (w, style) in enumerate(SERVE_CLIPS):
+            path = os.path.join(serve_dir, f"{i:03d}_{style}_0.wav")
+            start = int(rng.integers(0, len(long_audio) - 3 * sps))
+            clip = long_audio[start: start + w * sps + int(rng.integers(0, sps // 2))]
+            wavfile.write(path, 16000, (clip * 32767).astype(np.int16))
+            f.write(json.dumps({"wav": path}) + "\n")
+    for mode, extra in (("serve", []), ("serve_fast", ["--serve_fast"])):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            out, wall, counts = counted(lambda: serve_cli.main(
+                ["--config", cfg_path, "--model_path", mdm_pt, "--requests",
+                 os.path.join(serve_dir, "requests.jsonl"), "--max_delay_ms", "200",
+                 "--seed", str(SEED)] + extra))
+        lines = [json.loads(line) for line in buf.getvalue().splitlines()
+                 if line.startswith("{")]
+        ok = [line for line in lines if "out" in line]
+        check(len(ok) == len(SERVE_CLIPS) and not [line for line in lines if "error" in line],
+              f"{mode}: results {lines}")
+        check([line["frames"] for line in ok] == [w * 80 - 8 for w, _ in SERVE_CLIPS],
+              f"{mode}: frames {[line['frames'] for line in ok]}")
+        check(all(os.path.getsize(line["out"]) > 0 for line in ok), f"{mode}: empty BVH")
+        check(out["served"] == len(SERVE_CLIPS), f"{mode}: served {out['served']}")
+        calls, steps, layers = counts[0], cfg.diffusion_steps, cfg.num_layers
+        bf16 = mode == "serve_fast"
+        check(calls >= 3 * steps and calls % steps == 0 and
+              counts[1:] == ((0, layers * calls) if bf16 else (layers * calls, 0)),
+              f"{mode}: launches {counts} (DDPM-{steps}: A a multiple of {steps}, B "
+              f"{layers} x A)")
+        launches[mode] = counts
+        frames = sum(line["frames"] for line in ok)
+        res[mode] = dict(wall_s=wall, served=out["served"], batches=out["batches"],
+                         capture_s=out["capture_seconds"], denoiser_calls_b16=calls,
+                         frames=frames, frames_per_s=frames / wall, launches=counts)
+        print(f"serving {mode} (CLI, DDPM-{steps}, max_batch {SERVER_BATCH}) [{card}]: "
+              f"{json.dumps(res[mode])}")
+
+    # (b) a library GestureServer burst in dpmpp5, and the same clips one at a time
+    wcfg, wavlm = load_wavlm_checkpoint(cfg.wavlm_path, device=dev)
+    model = load_reference_mdm(mdm_pt, sample_cli.mdm_config(cfg, wcfg.encoder_embed_dim),
+                               device=dev)
+    dpmpp5 = D.spaced_schedule(D.named_beta_schedule("cosine", 1000),
+                               D.space_timesteps(1000, "ddim5"), device=dev)
+
+    def sampler():  # the serve CLI's engine (crossfade width 1) in dpmpp5
+        return ZeggsSampler(lambda m, x, t, c, uncond=None: m(x, t, c, uncond=uncond),
+                            make_zeggs_wavlm_fn(88), dpmpp5,
+                            ZeggsEngineConfig(sampler="dpmpp", crossfade_n=1), device=dev)
+
+    def clip(w):
+        start = int(rng.integers(0, len(long_audio) - 6 * sps))
+        return long_audio[start: start + w * sps + int(rng.integers(0, sps))]
+
+    windows = rng.integers(1, 6, BURST)
+    clips = [clip(int(w)) for w in windows]
+    styles = np.eye(6, dtype=np.float32)[rng.integers(0, 6, BURST)]
+    server = GestureServer(sampler(), model, wavlm, mean, std,
+                           ServerConfig(max_batch=SERVER_BATCH, max_delay_ms=20.0,
+                                        window_buckets=BURST_BUCKETS), seed=SEED).start()
+
+    def burst(items):
+        t0 = time.perf_counter()
+        done = {}
+        futs = []
+        for i, (a, s) in enumerate(items):
+            fut = server.submit(a, s)
+            fut.add_done_callback(lambda _, i=i: done.__setitem__(i, time.perf_counter()))
+            futs.append((time.perf_counter(), fut))
+        outs = [f.result(timeout=600) for _, f in futs]
+        wall = time.perf_counter() - t0
+        lat = [done[i] - t for i, (t, _) in enumerate(futs)]
+        return outs, wall, lat
+
+    try:
+        # first use: one request per bucket captures WavLM per bucket and the B = 16 graphs
+        _, warm_s, _ = burst([(clip(b), styles[0]) for b in BURST_BUCKETS])
+        capture_s = server.sampler.capture_seconds
+        batches0 = server.batches_served
+        (outs, wall, lat), _, counts = counted(lambda: burst(list(zip(clips, styles))))
+        batches = server.batches_served - batches0
+        check(all(o.shape == (int(w) * 80 - 8, 1141) and np.isfinite(o).all()
+                  for o, w in zip(outs, windows)), "server burst: bad output")
+        launches["server"] = counts
+        check(counts[0] > 0 and counts[1] == cfg.num_layers * counts[0] and counts[2] == 0,
+              f"server burst: launches {counts}")
+        share, prof_wall = busy_share(lambda: burst(list(zip(clips, styles))))
+    finally:
+        server.stop()
+    frames = int(sum(o.shape[0] for o in outs))
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    res["server"] = dict(
+        requests=BURST, windows_per_request=[int(w) for w in windows], buckets=BURST_BUCKETS,
+        max_batch=SERVER_BATCH, batches=batches, wall_s=wall, requests_per_s=BURST / wall,
+        frames=frames, frames_per_s=frames / wall, p50_latency_s=float(np.percentile(lat, 50)),
+        p99_latency_s=float(np.percentile(lat, 99)), first_use_s=warm_s, capture_s=capture_s,
+        peak_memory_gb=peak_gb, device_busy_share=share,
+        device_idle_share=None if share is None else 1.0 - share,
+        profiled_burst_wall_s=prof_wall, launches=counts)
+    print(f"serving server burst (dpmpp5) [{card}]: {json.dumps(res['server'])}")
+
+    solo = sampler()
+    gen = lambda k: torch.Generator(device=dev).manual_seed(k)  # noqa: E731
+    for w in sorted(set(int(x) for x in windows)):  # capture each window count first
+        solo.generate(model, wavlm, clip(w), styles[0], gen(0), mean=mean, std=std)
+    solo_out, solo_wall = timed(lambda: [solo.generate(model, wavlm, a, s, gen(i), mean=mean,
+                                                       std=std)
+                                         for i, (a, s) in enumerate(zip(clips, styles))])
+    check(all(o.shape[1] == w * 80 - 8 for o, w in zip(solo_out, windows)), "solo: bad output")
+    res["solo"] = dict(requests=BURST, wall_s=solo_wall, requests_per_s=BURST / solo_wall,
+                       frames_per_s=frames / solo_wall, capture_s=solo.capture_seconds)
+    print(f"serving one at a time (ZeggsSampler.generate, dpmpp5) [{card}]: "
+          f"{json.dumps(res['solo'])}")
+
+    # (c) streams over 0.5 s pushes: ZEGGS on the 12.5 s wav, TWH + on phase 8's features
+    def run_stream(stream, data, chunk, flush=False):
+        chunks, lat = [], []
+        for i in range(0, len(data), chunk):
+            got, wall = timed(lambda: stream.push(data[i: i + chunk]))
+            chunks += got
+            if got:  # this push completed a window: its last input to its motion
+                lat.append(wall * 1e3)
+        if flush:
+            got, wall = timed(stream.flush)
+            chunks += got
+            lat.append(wall * 1e3)
+        return np.concatenate(chunks, 1), lat
+
+    chunk = int(STREAM_CHUNK_S * 16000)
+    style = zf.style_onehot("Happy")[None]
+
+    def zeggs_stream():
+        stream = ZeggsStreamSampler(solo, model, wavlm, style, gen(7), mean=mean, std=std)
+        return run_stream(stream, audio, chunk)
+
+    zeggs_stream()  # first use captures WavLM for one window
+    (got, lat), _, counts = counted(zeggs_stream)
+    ref = solo.generate(model, wavlm, audio, style, gen(7), mean=mean, std=std)
+    check(got.shape == ref.shape, f"ZEGGS stream shape {got.shape} vs {ref.shape}")
+    dev_err = float(np.abs(got - ref).max())
+    scale = max(float(np.abs(ref).mean()), 1.0)
+    check(dev_err <= E2E_REL * scale, f"ZEGGS stream vs batch engine: {dev_err} > {E2E_REL} rel")
+    zeggs_counts = counts
+
+    files = {k: os.path.join(tmp, "beat_twh", f"TWH_{k}") for k in ("yml", "mean.npy", "std.npy",
+                                                                    "seed.npy")}
+    tcfg = apply_beat_twh_derivations(load_yaml_config(files["yml"],
+                                                       {"name": "DiffuseStyleGesture+"}))
+    twh = load_reference_mdm_plus(os.path.join(tmp, "beat_twh", "TWH_DiffuseStyleGesture+.pt"),
+                                  beat_cli.mdm_plus_config(tcfg), device=dev)
+    ta = np.load(os.path.join(tmp, "beat_twh", "TWH_textaudio.npy"))
+    tmean, tstd = np.load(files["mean.npy"]), np.load(files["std.npy"])
+    tseed = prepare_seed_gesture(np.load(files["seed.npy"])[:32], tmean, tstd)
+    tstyle = np.eye(tcfg.style_dim, dtype=np.float32)[[1]]
+    tsampler = beat_twh_sampler(dev, tcfg, "attention4", "dpmpp", 5)
+    rows = int(STREAM_CHUNK_S * 30)
+
+    def twh_stream():
+        stream = BeatTwhStreamSampler(tsampler, twh, tseed, tstyle, gen(8), tmean, tstd)
+        return run_stream(stream, ta, rows, flush=True)
+
+    twh_stream()
+    (tgot, tlat), _, counts = counted(twh_stream)
+    tref = tsampler.generate(twh, ta, tseed, tstyle, gen(8), tmean, tstd)
+    check(tgot.shape == tref.shape, f"TWH stream shape {tgot.shape} vs {tref.shape}")
+    tdev_err = float(np.abs(tgot - tref).max())
+    tscale = max(float(np.abs(tref).mean()), 1.0)
+    check(tdev_err <= E2E_REL * tscale, f"TWH stream vs batch engine: {tdev_err} > {E2E_REL} rel")
+    launches["stream"] = tuple(a + b for a, b in zip(zeggs_counts, counts))
+    res["stream"] = dict(
+        zeggs=dict(push_s=STREAM_CHUNK_S, windows=len(lat), window_to_motion_ms=lat,
+                   max_abs_dev_from_batch=dev_err, scale=scale, launches=zeggs_counts),
+        twh_dsg_plus=dict(push_s=STREAM_CHUNK_S, windows=len(tlat), window_to_motion_ms=tlat,
+                          max_abs_dev_from_batch=tdev_err, scale=tscale, launches=counts))
+    print(f"serving streams (dpmpp5, {STREAM_CHUNK_S} s pushes) [{card}]: "
+          f"{json.dumps(res['stream'])}")
+
+    # (d) restyle (strength 0.5) and an in-between edit on one full-width window,
+    # on the model's 1000-step schedule, eagerly
+    steps = cfg.diffusion_steps
+    sched = D.Schedule.create(D.named_beta_schedule("cosine", steps), device=dev)
+    with torch.inference_mode():
+        win = torch.as_tensor(slice_audio_windows(audio, ZeggsEngineConfig())[:1], device=dev)
+        cond = {"style": torch.as_tensor(style, device=dev),
+                "seed": torch.zeros(1, 1141, 1, 8, device=dev),
+                "audio": make_zeggs_wavlm_fn(88)(wavlm, win),
+                "mask_local": torch.ones(1, 88, dtype=torch.bool, device=dev)}
+        target = dict(cond, style=torch.as_tensor(zf.style_onehot("Sad")[None], device=dev))
+        norm = (ref[:, :88] - mean) / np.clip(std, 0.01, None)
+        motion = torch.as_tensor(norm.transpose(0, 2, 1)[:, :, None, :].copy(), device=dev)
+        restyled, restyle_s, counts = counted(lambda: restyle_window(
+            sched, lambda x, t, c: model(x, t, c), motion, cond, target, strength=0.5).cpu())
+        check(bool(torch.isfinite(restyled).all()) and restyled.shape == motion.shape,
+              "restyle: bad output")
+        launches["restyle"] = counts
+        mask = in_between_mask(tuple(motion.shape), 8, 8, device=dev)
+        edited, edit_s, counts = counted(lambda: edit_motion(
+            sched, lambda x, t: model(x, t, cond), motion, mask, gen(9)).cpu())
+        launches["edit"] = counts
+        kept = (edited - motion.cpu())[mask.cpu()].abs().max().item()
+        check(bool(torch.isfinite(edited).all()) and kept <= 1e-4,
+              f"edit: the kept frames moved by {kept}")
+    res["restyle"] = dict(strength=0.5, denoiser_calls=steps + 1, wall_s=restyle_s,
+                          mean_abs_change=float((restyled - motion.cpu()).abs().mean()),
+                          launches=launches["restyle"])
+    res["edit"] = dict(kept_frames="8 + 8 of 88", denoiser_calls=steps, wall_s=edit_s,
+                       kept_max_abs_dev=kept, launches=launches["edit"])
+    print(f"serving restyle and edit (one window, {steps}-step schedule, eager) [{card}]: "
+          f"{json.dumps({k: res[k] for k in ('restyle', 'edit')})}")
+    for key in ("serve", "server", "stream", "restyle", "edit"):
+        check(launches[key][0] > 0 and launches[key][1] > 0,
+              f"{key}: kernels A and B not both launched {launches[key]}")
+    check(launches["serve_fast"][2] > 0, "serve --serve_fast: kernel B's bf16 mode not launched")
+    res["launches"] = launches
+    return res
+
+
+# ---- phase 11 -------------------------------------------------------------------
+
+ZEROEGGS_STEPS = 30
+ZEROEGGS_STEADY_FROM = 5
+
+
+def phase_zeroeggs(dev, tmp, card):
+    """Phase 11: the ZeroEGGS RNN system at the published widths of
+    ZeroEGGSConfig through `cli/zeroeggs.py`, on phase 6's seeded clips."""
+    import numpy as np
+    import torch
+
+    from diffusestylegesture_torch.cli import zeroeggs as zcli
+    from diffusestylegesture_torch.motion import bvh
+    from diffusestylegesture_torch.ops import encoder_layer as el
+    from diffusestylegesture_torch.ops import local_attention as la
+    from diffusestylegesture_torch.sample.engine_zeroeggs import ZeroEggsGenerator
+
+    src = os.path.join(tmp, "zeggs_train", "raw")
+    work = os.path.join(tmp, "zeroeggs")
+    data, net = os.path.join(work, "data"), os.path.join(work, "net")
+    res = {}
+    prep = zcli.main(["prepare", "--source", src, "--target", data])
+    check(prep["clips"] == len(ZEGGS_CLIPS), f"ZeroEGGS prepare: {prep['clips']} clips")
+    res["prepare"] = prep
+    la.launches = el.launches = el.launches_bf16 = 0
+    train = zcli.main(["train", "--data", data, "--save_dir", net, "--num_steps",
+                       str(ZEROEGGS_STEPS)])
+    check(all(np.isfinite(train["losses"])), f"ZeroEGGS train: losses {train['losses']}")
+    check((la.launches, el.launches, el.launches_bf16) == (0, 0, 0),
+          "ZeroEGGS launched a kernel of the diffusion model")
+    steady = train["step_seconds"][ZEROEGGS_STEADY_FROM:]
+    res["train"] = dict(steps=ZEROEGGS_STEPS, batch=8, window=60, losses=train["losses"],
+                        first_step_s=train["step_seconds"][0],
+                        ms_per_step=float(np.median(steady)) * 1e3,
+                        ms_per_step_min=float(np.min(steady)) * 1e3)
+    print(f"zeroeggs train (hidden 512, 2 GRU layers, batch 8 x 60 frames) [{card}]: "
+          f"{json.dumps(res['train'])}")
+
+    wav = os.path.join(tmp, "015_Happy_4_x_1_0.wav")  # 12.5 s: 750 frames at 60 fps
+    styles = ["--style", os.path.join(src, ZEGGS_CLIPS[0] + ".bvh") + ":0:600",
+              "--style", os.path.join(src, ZEGGS_CLIPS[1] + ".bvh") + ":600:1200"]
+    for blend in ("add", "stitch"):
+        out = zcli.main(["generate", "--network", net, "--stats", os.path.join(data, "stats.npz"),
+                         "--audio", wav, "--blend", blend, "--blend_ratio", "0.5", "0.5",
+                         "--save_dir", os.path.join(work, "out_" + blend)] + styles)
+        anim = bvh.load(out["path"])
+        check(out["frames"] == 750 and anim["rotations"].shape == (750, 75, 3)
+              and np.isfinite(anim["rotations"]).all(), f"ZeroEGGS generate {blend}: bad BVH")
+        res["generate_" + blend] = dict(out, path=os.path.basename(out["path"]),
+                                        ms_per_rollout_step=out["generate_seconds"] * 1e3 / 749)
+        print(f"zeroeggs generate {blend} (CLI, capture included) [{card}]: "
+              f"{json.dumps(res['generate_' + blend])}")
+
+    # the rollout captured and eager in one process, same inputs
+    model = zcli.load_network(net, dev)
+    stats = dict(np.load(os.path.join(data, "stats.npz")))
+    feats = dict(np.load(os.path.join(data, "features.npz")))
+    name = ZEGGS_CLIPS[0]
+    af, f = feats[f"audio_{name}"][:750], feats[f"feats_{name}"]
+    ex = (zcli.anim_input_from_features(f[:600]) - stats["anim_input_mean"]) / \
+        stats["anim_input_std"]
+    outs, times = {}, {}
+    for path, flag in (("graph", None), ("eager", False)):
+        gen = ZeroEggsGenerator(model, stats, device=dev, graphs=flag)
+        z = gen.encode_style(ex)
+
+        def run():
+            return [t.cpu() for t in gen.generate(af, [z], zcli.first_pose_state(f[0]))]
+
+        run()  # capture on the graph path
+        outs[path], times[path] = timed(run)
+    same = all(torch.equal(a, b) for a, b in zip(outs["graph"], outs["eager"]))
+    check(same, "ZeroEGGS: the captured rollout differs from the eager one")
+    res["rollout"] = dict(frames=750, graph_s=times["graph"], eager_s=times["eager"],
+                          graph_ms_per_step=times["graph"] * 1e3 / 749,
+                          eager_ms_per_step=times["eager"] * 1e3 / 749, graph_equals_eager=same)
+    print(f"zeroeggs rollout of 750 frames in one process [{card}]: {json.dumps(res['rollout'])}")
+    return res
+
+
+SERVING_PATHS = ("serve", "serve_fast", "server", "stream", "restyle", "edit")
+
+
+def kernel_entries(la_err, la_t, el_err, el_t, e2e, distill, beat_twh, beat_twh_train, serving):
     """The `kernels` line's entries: each kernel with its launches on every
     path, its errors and its times at each shape it was timed at."""
     kernels = []
@@ -1816,9 +2231,14 @@ def kernel_entries(la_err, la_t, el_err, el_t, e2e, distill, beat_twh, beat_twh_
             ("encoder_layer_bf16", el_src, el_err["bf16"], el_t["bf16"]["zeggs"],
              "x (1, 89, 256), H=4, F=1024, mxu_bf16", "dpmpp5_serve_fast",
              dict(shapes=at_shapes(el_t["bf16"], el_keys, ("beat", "twh"))))):
-        b2 = dict(ms=t[2]["ms"], plain_ms=t[2]["plain_ms"], library_ms=t[2]["library_ms"],
-                  bound_ms=t[2]["bound"][0], bound_by=t[2]["bound"][1])
-        b2.update({key: t[2][key] for key in la_keys[1:5] if key in t[2]})
+        batches = {}
+        for B in (2, SERVER_BATCH):
+            tb = batches[B] = dict(ms=t[B]["ms"], plain_ms=t[B]["plain_ms"],
+                                   library_ms=t[B]["library_ms"], bound_ms=t[B]["bound"][0],
+                                   bound_by=t[B]["bound"][1])
+            tb.update({key: t[B][key] for key in la_keys[1:5] if key in t[B]})
+        # the serving surfaces (phase 10): (A, B f32, B bf16) launches per path
+        column = {"local_attention": 0, "encoder_layer": 1, "encoder_layer_bf16": 2}[name]
         # the distillation path (phase 7): the teacher's two calls a step at B = 300
         b300 = distill["b300"].get(name)
         if b300 is not None:
@@ -1836,7 +2256,8 @@ def kernel_entries(la_err, la_t, el_err, el_t, e2e, distill, beat_twh, beat_twh_
             # phase 9: none while training; the trained checkpoint served in dpmpp5
             launches_beat_twh_train=dict(
                 train=0, served_checkpoint=beat_twh_train["served"].get(f"{name}_launches", 0)),
-            b2=b2, b300=b300, **extra))
+            launches_serving={path: serving["launches"][path][column] for path in SERVING_PATHS},
+            b2=batches[2], b16=batches[SERVER_BATCH], b300=b300, **extra))
     return kernels
 
 
@@ -1897,9 +2318,15 @@ def main() -> int:
         beat_twh_train = phase_beat_twh_training(dev, tmp, card,
                                                  os.path.join(tmp, "WavLM-Large.pt"),
                                                  os.path.join(tmp, "beat_twh", "words.vec"))
+        # 10-11, each with its wall seconds
+        serving, serving_s = timed(lambda: phase_serving(dev, tmp, card))
+        zeroeggs, zeroeggs_s = timed(lambda: phase_zeroeggs(dev, tmp, card))
+        serving["phase_s"], zeroeggs["phase_s"] = serving_s, zeroeggs_s
+        print(f"phase 10 {serving_s:.1f} s, phase 11 {zeroeggs_s:.1f} s")
 
-    # 10. lines
-    kernels = kernel_entries(la_err, la_t, el_err, el_t, e2e, distill, beat_twh, beat_twh_train)
+    # 12. lines
+    kernels = kernel_entries(la_err, la_t, el_err, el_t, e2e, distill, beat_twh, beat_twh_train,
+                             serving)
     check(all(k["launches"] > 0 for k in kernels), "a kernel was not launched on its path")
     check(all(k["launches_distill"] > 0 for k in kernels[:2]),
           "a kernel was not launched on the distillation path")
@@ -1908,6 +2335,10 @@ def main() -> int:
           "a kernel was not launched on the BEAT/TWH serving path")
     check(all(k["launches_beat_twh_train"]["served_checkpoint"] > 0 for k in kernels[:2]),
           "a kernel was not launched serving the BEAT/TWH checkpoint trained in phase 9")
+    check(all(k["launches_serving"][path] > 0 for k in kernels[:2]
+              for path in ("serve", "server", "stream", "restyle", "edit"))
+          and kernels[2]["launches_serving"]["serve_fast"] > 0,
+          "a kernel was not launched on a serving surface")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"e2e": e2e, "build_s": build_s}))
@@ -1915,6 +2346,8 @@ def main() -> int:
     print(json.dumps({"distill": distill, "card": card}))
     print(json.dumps({"beat_twh": beat_twh, "card": card}))
     print(json.dumps({"beat_twh_train": beat_twh_train, "card": card}))
+    print(json.dumps({"serving": serving, "card": card}))
+    print(json.dumps({"zeroeggs": zeroeggs, "card": card}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -2,6 +2,8 @@ from .gaussian import LossKind, MeanType, VarType, p_mean_variance, q_sample, tr
 from .sampling import (
     SamplerConfig,
     cfg_combine,
+    ddim_reverse_sample,
+    ddim_reverse_sample_loop,
     ddim_sample_loop,
     dpmpp2m_sample_loop,
     make_cfg_model_fn,
@@ -13,7 +15,8 @@ from .schedule import Schedule, named_beta_schedule, space_timesteps, spaced_sch
 __all__ = [
     "LossKind", "MeanType", "VarType", "p_mean_variance", "q_sample", "training_losses",
     "SamplerConfig",
-    "cfg_combine", "ddim_sample_loop", "dpmpp2m_sample_loop", "make_cfg_model_fn",
+    "cfg_combine", "ddim_reverse_sample", "ddim_reverse_sample_loop", "ddim_sample_loop",
+    "dpmpp2m_sample_loop", "make_cfg_model_fn",
     "p_sample_loop", "plms_sample_loop", "Schedule", "named_beta_schedule",
     "space_timesteps", "spaced_schedule",
 ]

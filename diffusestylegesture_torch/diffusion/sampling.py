@@ -61,6 +61,20 @@ def _phases(kinds: List[Tuple], make: Callable[..., Callable[[], None]]) -> List
     return out
 
 
+def model_stats(sched: Schedule, model_fn: ModelFn, x: torch.Tensor, t: torch.Tensor,
+                cfg: SamplerConfig,
+                inpaint: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> G.PMeanVariance:
+    """The model's output at (x, t) and the posterior statistics it gives; the
+    network sees the original timesteps (`timestep_map[t]`). `inpaint=(mask,
+    motion)` puts `motion` in place of the x0 prediction where `mask` is set."""
+    model_output = model_fn(x, sched.timestep_map[t])
+    if inpaint is not None:
+        mask, motion = inpaint
+        model_output = torch.where(mask, motion, model_output)
+    return G.p_mean_variance(sched, model_output, x, t, mean_type=cfg.mean_type,
+                             var_type=cfg.var_type, clip_denoised=cfg.clip_denoised)
+
+
 class SampleProgram:
     """One reverse-diffusion loop over the schedule's grid t0 → 0.
 
@@ -104,13 +118,7 @@ class SampleProgram:
                            dtype=torch.float32)
 
     def _stats(self, x: torch.Tensor, t: torch.Tensor) -> G.PMeanVariance:
-        model_output = self.model_fn(x, self.sched.timestep_map[t])
-        if self.inpaint is not None:
-            mask, motion = self.inpaint
-            model_output = torch.where(mask, motion, model_output)
-        cfg = self.cfg
-        return G.p_mean_variance(self.sched, model_output, x, t, mean_type=cfg.mean_type,
-                                 var_type=cfg.var_type, clip_denoised=cfg.clip_denoised)
+        return model_stats(self.sched, self.model_fn, x, t, self.cfg, self.inpaint)
 
     def init(self, noise: Optional[torch.Tensor] = None,
              init_image: Optional[torch.Tensor] = None) -> None:
@@ -308,6 +316,27 @@ p_sample_loop = _loop(DDPMProgram, "p_sample_loop")
 ddim_sample_loop = _loop(DDIMProgram, "ddim_sample_loop")
 plms_sample_loop = _loop(PLMSProgram, "plms_sample_loop")
 dpmpp2m_sample_loop = _loop(DPMPPProgram, "dpmpp2m_sample_loop")
+
+
+def ddim_reverse_sample(sched: Schedule, model_fn: ModelFn, x: torch.Tensor, t: torch.Tensor, *,
+                        cfg: SamplerConfig = SamplerConfig()) -> torch.Tensor:
+    """One DDIM reverse-ODE step x_t → x_{t+1} (ref `gaussian_diffusion.py:851-888`;
+    the deterministic encoding direction)."""
+    out = model_stats(sched, model_fn, x, t, cfg)
+    eps = G.predict_eps_from_xstart(sched, x, t, out.pred_xstart)
+    alpha_bar_next = G._bcast(sched.alphas_cumprod_next, t, x.ndim)
+    return out.pred_xstart * torch.sqrt(alpha_bar_next) + torch.sqrt(1 - alpha_bar_next) * eps
+
+
+def ddim_reverse_sample_loop(sched: Schedule, model_fn: ModelFn, x0: torch.Tensor, *,
+                             cfg: SamplerConfig = SamplerConfig()) -> torch.Tensor:
+    """Encode x_0 → x_T along the deterministic DDIM ODE (the inversion used for
+    editing and latent round trips): one step for each t = 0 … T−1."""
+    img = x0
+    for i in range(sched.num_timesteps):
+        t = torch.full((x0.shape[0],), i, dtype=torch.long, device=x0.device)
+        img = ddim_reverse_sample(sched, model_fn, img, t, cfg=cfg)
+    return img
 
 
 def cfg_combine(out_cond: torch.Tensor, out_uncond: torch.Tensor, scale) -> torch.Tensor:

@@ -14,6 +14,10 @@
 * `autoencoder_state_dict_from_flax`: the JAX evaluation autoencoder
   (`eval/embedding.py`) → the port's `GestureAutoencoder`; a ConvTranspose
   kernel (k, in, out) becomes (in, out, k) flipped along its taps.
+* `zeroeggs_state_dict_from_flax`: the JAX ZeroEGGS networks' params
+  ({'speech', 'style', 'decoder'}) → the port's `models.zeroeggs.ZeroEGGS`;
+  a GRU's `ih` / `hh` Dense pair becomes torch's `weight_ih` / `weight_hh`
+  (+ biases), the backward direction `_reverse`.
 * `train_state_from_flax`: a JAX `TrainState`'s params, `optax.adamw` state
   and EMA → the port's model state_dict, `train.state.AdamW` state_dict and
   EMA, the moments through the same naming, so both trainers can start from
@@ -28,6 +32,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..utils.precision import bf16_cast
 from .mdm import MDM, MDMConfig
 from .mdm_plus import MDMPlus, MDMPlusConfig
 from .wavlm.model import WavLM, WavLMConfig
@@ -116,6 +121,44 @@ def autoencoder_state_dict_from_flax(params: Mapping[str, Any]) -> StateDict:
         sd[f"decoder.{name}.bias"] = _t(p["decoder"][name]["bias"])
     _dense(sd, "encoder.proj", p["encoder"]["proj"])
     _dense(sd, "decoder.proj", p["decoder"]["proj"])
+    return sd
+
+
+def zeroeggs_state_dict_from_flax(params: Mapping[str, Any]) -> StateDict:
+    """JAX ZeroEGGS params {'speech', 'style', 'decoder'} (each bare or under
+    'params', numpy leaves) → a state_dict of `models.zeroeggs.ZeroEGGS`."""
+    sd: StateDict = {}
+
+    def walk(prefix: str, tree: Mapping[str, Any]) -> None:
+        if "kernel" in tree:
+            k = np.asarray(tree["kernel"])
+            sd[f"{prefix}.weight"] = _conv(k) if k.ndim == 3 else _t(k.T)
+            sd[f"{prefix}.bias"] = _t(tree["bias"])
+        elif "scale" in tree:
+            _layernorm(sd, prefix, tree)
+        elif "in_proj" in tree:  # TorchMultiheadAttention: packed in-projection
+            sd[f"{prefix}.in_proj_weight"] = _t(np.asarray(tree["in_proj"]["kernel"]).T)
+            sd[f"{prefix}.in_proj_bias"] = _t(tree["in_proj"]["bias"])
+            _dense(sd, f"{prefix}.out_proj", tree["out_proj"])
+        else:
+            for name, sub in tree.items():
+                if name.startswith("gru_l"):  # decoder GRU cells
+                    cell = f"{prefix}.gru.{name[5:]}"
+                    for gate in ("ih", "hh"):
+                        sd[f"{cell}.weight_{gate}"] = _t(np.asarray(sub[gate]["kernel"]).T)
+                        sd[f"{cell}.bias_{gate}"] = _t(sub[gate]["bias"])
+                elif name.startswith("l") and name.endswith(("_fwd", "_bwd")):  # nn.GRU
+                    layer, direction = name[1:].split("_")
+                    suffix = f"l{layer}" + ("_reverse" if direction == "bwd" else "")
+                    for gate in ("ih", "hh"):
+                        sd[f"{prefix}.weight_{gate}_{suffix}"] = _t(
+                            np.asarray(sub[gate]["kernel"]).T)
+                        sd[f"{prefix}.bias_{gate}_{suffix}"] = _t(sub[gate]["bias"])
+                else:
+                    walk(f"{prefix}.{name}", sub)
+
+    for net in ("speech", "style", "decoder"):
+        walk(net, _unwrap(params[net]))
     return sd
 
 
@@ -261,6 +304,8 @@ def load_wavlm_checkpoint(path: str, device: Union[str, torch.device] = "cuda",
     v = sd.pop("encoder.pos_conv.0.weight_v", None)
     if g is not None and v is not None:
         sd["encoder.pos_conv.0.weight"] = fold_weight_norm(g.float(), v.float(), dim=2)
+    if dtype == torch.bfloat16:
+        sd = bf16_cast(sd)
     model = WavLM(cfg)
     _load_into(model, sd, path)
     return cfg, model.to(dev).eval()

@@ -1,35 +1,47 @@
-"""Quaternion algebra and forward kinematics, in numpy.
+"""Quaternion algebra and forward kinematics.
 
 Port of the subset of `diffusestylegesture_tpu/motion/quat.py` (reference
 `ubisoft-laforge-ZeroEGGS-main/ZEGGS/anim/quat.py`) that BVH import,
-featurization and export call: (w, x, y, z) order, Hamilton product, the
-same Euler orders, the same `from_xform` branch selection and the same
-frame-unrolling sign convention (`anim/quat.py:130-136`). Arrays keep their
-dtype (the featurizer passes float32, as the JAX path computes).
+featurization and export and the ZeroEGGS decoder call: (w, x, y, z) order,
+Hamilton product, the same Euler orders, the same `from_xform` branch
+selection and the same frame-unrolling sign convention
+(`anim/quat.py:130-136`). Arrays keep their dtype (the featurizer passes
+float32, as the JAX path computes). `mul`, `mul_vec`, `inv`, `exp` and
+`from_helical` also take torch tensors (the ZeroEGGS rollout runs them on
+the card, with autograd in training).
 """
 from __future__ import annotations
 
 from typing import Sequence, Tuple
 
 import numpy as np
+import torch
 
 
-def mul(x: np.ndarray, y: np.ndarray) -> np.ndarray:
+def _cat(parts, like):
+    return torch.cat(parts, dim=-1) if torch.is_tensor(like) else np.concatenate(parts, axis=-1)
+
+
+def _cross(a, b):
+    return torch.linalg.cross(a, b, dim=-1) if torch.is_tensor(a) else np.cross(a, b)
+
+
+def mul(x, y):
     """Hamilton product x ⊗ y (`anim/quat.py:17`)."""
     w0, x0, y0, z0 = (x[..., i:i + 1] for i in range(4))
     w1, x1, y1, z1 = (y[..., i:i + 1] for i in range(4))
-    return np.concatenate([
+    return _cat([
         w0 * w1 - x0 * x1 - y0 * y1 - z0 * z1,
         w0 * x1 + x0 * w1 + y0 * z1 - z0 * y1,
         w0 * y1 - x0 * z1 + y0 * w1 + z0 * x1,
         w0 * z1 + x0 * y1 - y0 * x1 + z0 * w1,
-    ], axis=-1)
+    ], x)
 
 
-def mul_vec(q: np.ndarray, v: np.ndarray) -> np.ndarray:
+def mul_vec(q, v):
     """Rotate vector(s) v by quaternion(s) q (`anim/quat.py:36`)."""
-    t = 2.0 * np.cross(q[..., 1:], v)
-    return v + q[..., :1] * t + np.cross(q[..., 1:], t)
+    t = 2.0 * _cross(q[..., 1:], v)
+    return v + q[..., :1] * t + _cross(q[..., 1:], t)
 
 
 def to_euler(q: np.ndarray, order: str = "zyx") -> np.ndarray:
@@ -85,8 +97,10 @@ def from_xform(ts: np.ndarray, eps: float = 1e-10) -> np.ndarray:
     return np.where((t > 0.0)[..., None], q_w, qs)
 
 
-def inv(q: np.ndarray) -> np.ndarray:
+def inv(q):
     """Conjugate (the inverse of a unit quaternion)."""
+    if torch.is_tensor(q):
+        return torch.cat([q[..., :1], -q[..., 1:]], dim=-1)
     return q * np.array([1.0, -1.0, -1.0, -1.0], dtype=q.dtype)
 
 
@@ -110,6 +124,25 @@ def log(q: np.ndarray, eps: float = 1e-5) -> np.ndarray:
 
 def to_helical(q: np.ndarray, eps: float = 1e-5) -> np.ndarray:
     return 2.0 * log(q, eps)
+
+
+def exp(v, eps: float = 1e-5):
+    """Quaternion exp map from R^3 (`anim/quat.py`); sinc is numpy's, sin(πx)/(πx)."""
+    if torch.is_tensor(v):
+        halfangle = torch.sqrt(torch.sum(v * v, dim=-1, keepdim=True))
+        small = halfangle < eps
+        c = torch.where(small, torch.ones_like(halfangle), torch.cos(halfangle))
+        s = torch.where(small, torch.ones_like(halfangle), torch.sinc(halfangle / np.pi))
+        return torch.cat([c, s * v], dim=-1)
+    halfangle = np.sqrt(np.sum(np.square(v), axis=-1, keepdims=True))
+    c = np.where(halfangle < eps, np.ones_like(halfangle), np.cos(halfangle))
+    s = np.where(halfangle < eps, np.ones_like(halfangle), np.sinc(halfangle / np.pi))
+    return np.concatenate([c, s * v], axis=-1)
+
+
+def from_helical(v, eps: float = 1e-5):
+    """Helical (rotation-vector) form → quaternion: exp(v / 2)."""
+    return exp(v / 2.0, eps)
 
 
 def from_angle_axis(angle: np.ndarray, axis: np.ndarray) -> np.ndarray:

@@ -1,3 +1,4 @@
+from .edit import ZEGGS_ROOT_CHANNELS, edit_motion, feature_mask, in_between_mask
 from .engine import (
     ZeggsEngineConfig,
     ZeggsSampler,
@@ -7,7 +8,14 @@ from .engine import (
     unnormalize_poses,
 )
 from .engine_beat import BeatEngineConfig, BeatTwhSampler, prepare_seed_gesture
+from .restyle import restyle_window
+from .server import GestureServer, ServerConfig
+from .streaming import BeatTwhStreamSampler, ZeggsStreamSampler
+from .styles import blend_styles, style_grid, style_vector
 
-__all__ = ["BeatEngineConfig", "BeatTwhSampler", "ZeggsEngineConfig", "ZeggsSampler",
-           "crossfade_weights", "generate_multi_clip", "prepare_seed_gesture",
-           "slice_audio_windows", "unnormalize_poses"]
+__all__ = ["BeatEngineConfig", "BeatTwhSampler", "BeatTwhStreamSampler", "GestureServer",
+           "ServerConfig", "ZEGGS_ROOT_CHANNELS", "ZeggsEngineConfig", "ZeggsSampler",
+           "ZeggsStreamSampler", "blend_styles", "crossfade_weights", "edit_motion",
+           "feature_mask", "generate_multi_clip", "in_between_mask", "prepare_seed_gesture",
+           "restyle_window", "slice_audio_windows", "style_grid", "style_vector",
+           "unnormalize_poses"]

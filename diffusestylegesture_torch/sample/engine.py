@@ -21,8 +21,10 @@ buffers of the graph set that each window refills. Between windows only the
 seed carry, the root-delta correction and the crossfade run as eager ops.
 `graphs=False` runs the same step functions eagerly on the card: the
 comparison path, which gives the same numbers; on the CPU that is the only
-path. The window runner and the graph bookkeeping (`_WindowRun`,
-`_WindowSampler`) serve the BEAT/TWH engine (`engine_beat.py`) too.
+path. The window runner, the graph bookkeeping and the per-window carry
+(`_WindowRun`, `_WindowSampler.window`) serve the BEAT/TWH engine
+(`engine_beat.py`), the streams (`streaming.py`) and the server
+(`server.py`) too.
 """
 from __future__ import annotations
 
@@ -182,6 +184,7 @@ class _WindowSampler:
         self.cfg = cfg
         self.sampler_cfg = sampler_cfg
         self._runs: Dict[tuple, _WindowRun] = {}
+        self._crossfades: Dict[int, tuple] = {}
 
     @property
     def capture_seconds(self) -> float:
@@ -205,6 +208,33 @@ class _WindowSampler:
             return generator
         return torch.cuda.default_generators[dev.index] if dev.type == "cuda" else \
             torch.default_generator
+
+    def _crossfade(self, batch: int) -> tuple:
+        """`crossfade_weights` as device tensors, made once per batch size (a
+        copy from the host waits for the card, so none is made per call)."""
+        if batch not in self._crossfades:
+            self._crossfades[batch] = tuple(
+                torch.as_tensor(w, device=self.device)
+                for w in crossfade_weights(self.cfg.n_seed, batch, self.cfg.crossfade_n))
+        return self._crossfades[batch]
+
+    def window(self, run: _WindowRun, noise: Optional[torch.Tensor], first: bool,
+               seed: torch.Tensor, **cond: torch.Tensor) -> tuple:
+        """One window of the autoregressive loop: sample it under the carried
+        seed, then (after window 0) remove the root-translation delta (ref
+        `sample.py:269-282`, where the config asks for it) and crossfade its
+        first n_seed frames with the seed (`:284-288`). Returns (sample, the
+        next window's seed). The batch engines and the streams share it."""
+        cfg = self.cfg
+        sample = run.sample(noise, seed=seed, **cond)
+        if not first:
+            if getattr(cfg, "root_delta_correction", False):
+                delta = (sample[:, 0:3, :, 0] - seed[:, 0:3, :, 0])[..., None]
+                sample = torch.cat([sample[:, 0:3] - delta, sample[:, 3:]], dim=1)
+            wa, wb = self._crossfade(sample.shape[0])
+            head = seed * wa + sample[..., : cfg.n_seed] * wb
+            sample = torch.cat([head, sample[..., cfg.n_seed:]], dim=-1)
+        return sample, sample[..., -cfg.n_seed:]
 
 
 class ZeggsSampler(_WindowSampler):
@@ -275,23 +305,13 @@ class ZeggsSampler(_WindowSampler):
         generator = self._generator(generator)
         run.generator.set_state(generator.get_state())
         run.cond["style"].copy_(style)
-        wa, wb = (torch.as_tensor(w, device=dev)
-                  for w in crossfade_weights(cfg.n_seed, B, cfg.crossfade_n))
         seed = torch.zeros((B, cfg.njoints, 1, cfg.n_seed), device=dev)
         chunks = []
         for i in range(num_windows):
             noise = None
             if noise_windows is not None:
                 noise = torch.as_tensor(np.asarray(noise_windows[i], np.float32), device=dev)
-            sample = run.sample(noise, audio=window_feats(i), seed=seed)
-            if i > 0:
-                if cfg.root_delta_correction:
-                    # root-translation delta removal (ref `:269-282`)
-                    delta = (sample[:, 0:3, :, 0] - seed[:, 0:3, :, 0])[..., None]
-                    sample = torch.cat([sample[:, 0:3] - delta, sample[:, 3:]], dim=1)
-                head = seed * wa + sample[..., : cfg.n_seed] * wb
-                sample = torch.cat([head, sample[..., cfg.n_seed:]], dim=-1)
-            seed = sample[..., -cfg.n_seed:]
+            sample, seed = self.window(run, noise, i == 0, seed, audio=window_feats(i))
             chunks.append(sample[..., : cfg.stride])
         generator.set_state(run.generator.get_state())
         return torch.cat(chunks, dim=-1)[..., cfg.n_seed:]  # drop the warm-up seed frames

@@ -36,7 +36,7 @@ import numpy as np
 import torch
 
 from ..diffusion import SamplerConfig, Schedule
-from .engine import _WindowRun, _WindowSampler, crossfade_weights
+from .engine import _WindowRun, _WindowSampler
 
 VARIANTS = ("attention3", "attention4", "attention5")
 
@@ -48,6 +48,12 @@ def prepare_seed_gesture(raw: np.ndarray, mean: np.ndarray, std: np.ndarray) -> 
     vel = g[1:] - g[:-1]
     acc = vel[1:] - vel[:-1]
     return np.concatenate([g[2:], vel[1:], acc], axis=1).astype(np.float32)
+
+
+def unnormalize(seq: np.ndarray, mean: np.ndarray, std: np.ndarray) -> np.ndarray:
+    """The position block un-normalized as seq · std + mean (std is not clipped, as
+    it is for ZEGGS)."""
+    return seq * np.asarray(std) + np.asarray(mean)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -148,32 +154,27 @@ class BeatTwhSampler(_WindowSampler):
         generator = self._generator(generator)
         run.generator.set_state(generator.get_state())
 
-        def per_batch(a: np.ndarray) -> torch.Tensor:  # (n_seed, C) → (B, C, 1, n_seed)
-            t = torch.as_tensor(np.asarray(a, np.float32).T[None, :, None, :], device=dev)
-            return t.expand(B, -1, -1, -1)
-
         run.fill(style=style_t)
         if cfg.variant == "attention5":
-            run.fill(seed_last=per_batch(seed_last))
+            run.fill(seed_last=self.seed_tensor(seed_last, B))
         feats = torch.as_tensor(windows, device=dev)
-        wa, wb = (torch.as_tensor(w, device=dev)
-                  for w in crossfade_weights(cfg.n_seed, B, cfg.crossfade_n))
-        seed = per_batch(seed_gesture)
+        seed = self.seed_tensor(seed_gesture, B)
         samples = []
         for i in range(num):
             noise = None
             if noise_windows is not None:
                 noise = torch.as_tensor(np.asarray(noise_windows[i], np.float32), device=dev)
-            sample = run.sample(noise, audio=feats[i][None].expand((B,) + feats.shape[1:]),
-                                seed=seed)
-            if i > 0:
-                head = seed * wa + sample[..., : cfg.n_seed] * wb
-                sample = torch.cat([head, sample[..., cfg.n_seed:]], dim=-1)
-            seed = sample[..., -cfg.n_seed:]
+            sample, seed = self.window(run, noise, i == 0, seed,
+                                       audio=feats[i][None].expand((B,) + feats.shape[1:]))
             samples.append(sample)
         generator.set_state(run.generator.get_state())
 
         keep = cfg.njoints // cfg.motion_feature_division
         parts = [s[:, :keep, 0, : cfg.stride] for s in samples[:-1]] + [samples[-1][:, :keep, 0]]
         seq = torch.cat(parts, dim=-1).transpose(1, 2)[:, cfg.n_seed:].cpu().numpy()
-        return (seq * np.asarray(std) + np.asarray(mean))[:, :real_n]
+        return unnormalize(seq, mean, std)[:, :real_n]
+
+    def seed_tensor(self, a: np.ndarray, batch: int) -> torch.Tensor:
+        """(n_seed, njoints) seed frames → (batch, njoints, 1, n_seed) on the device."""
+        t = torch.as_tensor(np.asarray(a, np.float32).T[None, :, None, :], device=self.device)
+        return t.expand(batch, -1, -1, -1)

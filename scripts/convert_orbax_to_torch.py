@@ -18,6 +18,13 @@ receives `model.pt` (the model in reference checkpoint layout), `model_ema.pt`
 when the TrainState holds EMA params, and the stage dir's `schedule.json`.
 Pass the directory to `python -m diffusestylegesture_torch.cli.sample
 --model_path` (ZEGGS) or `cli.sample_beat --model_path` (BEAT/TWH).
+
+A ZeroEGGS save dir of the JAX `cli/zeroeggs.py train` (`config.json` beside
+the orbax `params/` of the speech encoder, style encoder and decoder) is
+recognized by its `config.json`: `--out` receives `model.pt` (through
+`models/convert.py::zeroeggs_state_dict_from_flax`) and a copy of
+`config.json`, which `python -m diffusestylegesture_torch.cli.zeroeggs generate
+--network` reads.
 """
 from __future__ import annotations
 
@@ -46,10 +53,32 @@ def trainstate_has_ema(path: str) -> bool:
     return isinstance(tree, dict) and tree.get("ema_params") is not None
 
 
+def convert_zeroeggs(save_dir: str, out_dir: str) -> list:
+    """A JAX ZeroEGGS save dir → `model.pt` + `config.json` in `out_dir`."""
+    import jax
+    import orbax.checkpoint as ocp
+    import torch
+
+    from diffusestylegesture_torch.models.convert import zeroeggs_state_dict_from_flax
+
+    params = ocp.StandardCheckpointer().restore(os.path.abspath(os.path.join(save_dir, "params")))
+    params = jax.tree_util.tree_map(np.asarray, params)
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "model.pt")
+    torch.save(zeroeggs_state_dict_from_flax(params), path)
+    config = os.path.join(out_dir, "config.json")
+    if os.path.abspath(config) != os.path.abspath(os.path.join(save_dir, "config.json")):
+        shutil.copy(os.path.join(save_dir, "config.json"), config)
+    return [path, config]
+
+
 def convert(model_path: str, out_dir: str) -> list:
     """Writes the port's files for `model_path` into `out_dir`; returns their paths."""
     import jax
     import torch
+
+    if os.path.exists(os.path.join(model_path, "config.json")):
+        return convert_zeroeggs(model_path, out_dir)
 
     from diffusestylegesture_tpu.cli.sample import load_orbax_params
     from diffusestylegesture_torch.models.convert import mdm_plus_state_dict_from_flax
@@ -73,9 +102,10 @@ def convert(model_path: str, out_dir: str) -> list:
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[1])
     p.add_argument("--model_path", required=True,
-                   help="orbax params dir, TrainLoop checkpoint dir or distill stage dir")
+                   help="orbax params dir, TrainLoop checkpoint dir, distill stage dir or "
+                        "ZeroEGGS save dir")
     p.add_argument("--out", required=True, help="directory for model.pt [model_ema.pt] "
-                                                "[schedule.json]")
+                                                "[schedule.json | config.json]")
     args = p.parse_args(argv)
     for path in convert(args.model_path, args.out):
         print("wrote", path)

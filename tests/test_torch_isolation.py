@@ -74,9 +74,12 @@ def test_package_imports_no_jax_in_a_fresh_interpreter():
         "'eval.embedding', 'eval.metrics', 'eval.unconstrained', 'train.distill', "
         "'audio.praat_pitch', 'data.text', 'data.beat_twh', 'models.mdm_plus', "
         "'sample.engine_beat', 'cli.sample_beat', 'motion.pipeline', 'motion.pipeline_extras', "
-        "'data.bvh_repair', 'data.beat_proc', 'data.h5_loader')}\n"
+        "'data.bvh_repair', 'data.beat_proc', 'data.h5_loader', 'utils.precision', "
+        "'utils.profiling', 'sample.edit', 'sample.restyle', 'sample.streaming', "
+        "'sample.server', 'cli.serve', 'models.zeroeggs', 'sample.engine_zeroeggs', "
+        "'data.zeroeggs_data', 'cli.zeroeggs')}\n"
         "print(len(mods), bad, sorted(new - set(mods)), 'h5py' in sys.modules)\n"
-        "sys.exit(1 if bad or len(mods) < 66 or not new <= set(mods) or 'h5py' in sys.modules "
+        "sys.exit(1 if bad or len(mods) < 77 or not new <= set(mods) or 'h5py' in sys.modules "
         "else 0)\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
                          timeout=120)
@@ -101,12 +104,29 @@ def test_resolve_device_raises_without_cuda(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
-def test_entry_points_default_to_cuda(monkeypatch):
+def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
+    from diffusestylegesture_torch.cli import serve as serve_cli
+    from diffusestylegesture_torch.cli import zeroeggs as zeroeggs_cli
     from diffusestylegesture_torch.diffusion import Schedule, named_beta_schedule
+    from diffusestylegesture_torch.models.zeroeggs import ZeroEGGS, ZeroEGGSConfig
+    from diffusestylegesture_torch.sample import edit
+    from diffusestylegesture_torch.sample.engine_zeroeggs import ZeroEggsGenerator
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         Schedule.create(named_beta_schedule("cosine", 10))
+    # the server, the streams, restyle_window and edit_motion run where their
+    # sampler, schedule and model lie, which default to the card (above)
+    for call in (lambda: edit.in_between_mask((1, 4, 1, 8), 2),
+                 lambda: edit.feature_mask((1, 4, 1, 8), [0]),
+                 lambda: ZeroEggsGenerator(ZeroEGGS(ZeroEGGSConfig(hidden_size=8), 4), {}),
+                 lambda: serve_cli.main(["--config", "c.yml", "--model_path", "m.pt"]),
+                 lambda: zeroeggs_cli.main(["train", "--data", str(tmp_path), "--save_dir",
+                                            str(tmp_path)]),
+                 lambda: zeroeggs_cli.main(["generate", "--network", str(tmp_path), "--stats",
+                                            "s.npz", "--audio", "a.wav", "--style", "x.bvh"])):
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()
 
 
 def _wavlm_reference_state_dict(model: WavLM) -> dict:

@@ -114,3 +114,94 @@ def interpolation_rounding_bar(raw) -> float:
     some positions so (ROADMAP §3)."""
     raw = np.asarray(raw, np.float64)
     return float(np.spacing(np.float32(len(raw) - 1)) * np.abs(np.diff(raw, axis=0)).max())
+
+
+ZEGGS_TINY_NJ = 32
+ZEGGS_TINY_MDM = dict(njoints=ZEGGS_TINY_NJ, latent_dim=96, ff_size=64, num_layers=2, n_seed=8)
+ZEGGS_TINY_WAVLM = dict(
+    encoder_layers=1, encoder_embed_dim=32, encoder_ffn_embed_dim=48, encoder_attention_heads=4,
+    conv_pos=8, conv_pos_groups=4, num_buckets=40, max_distance=80,
+    conv_feature_layers=((16, 10, 5), (16, 3, 2), (16, 3, 2), (16, 3, 2), (16, 3, 2),
+                         (16, 2, 2), (16, 2, 2)),
+)
+
+
+def zeggs_tiny_pair(seed: int = 0):
+    """A tiny ZEGGS MDM and WavLM on shared weights: flax init, randomized,
+    crossed into the port through `models/convert.py`. Returns the flax
+    modules and params (`fm`, `mparams`, `fw`, `wparams`), the port's eval-mode
+    modules on the CPU (`mdm`, `wavlm`) and seeded stats (`mean`, `std`)."""
+    import jax
+    import jax.numpy as jnp
+
+    from diffusestylegesture_tpu.models.mdm import MDM as FlaxMDM, MDMConfig as FlaxMDMConfig
+    from diffusestylegesture_tpu.models.wavlm import WavLM as FlaxWavLM
+    from diffusestylegesture_tpu.models.wavlm import WavLMConfig as FlaxWavLMConfig
+    from diffusestylegesture_torch.models.convert import (
+        mdm_state_dict_from_flax,
+        wavlm_state_dict_from_flax,
+    )
+    from diffusestylegesture_torch.models.mdm import MDM, MDMConfig
+    from diffusestylegesture_torch.models.wavlm import WavLM, WavLMConfig
+
+    nj, n_poses, n_seed = ZEGGS_TINY_NJ, 88, ZEGGS_TINY_MDM["n_seed"]
+    fw = FlaxWavLM(FlaxWavLMConfig(**ZEGGS_TINY_WAVLM))
+    wparams = jax.jit(fw.init)(jax.random.PRNGKey(seed + 1), jnp.zeros((1, 16000)))
+    wparams = {"params": randomize_flax_params(wparams["params"], seed + 1)}
+    fm = FlaxMDM(FlaxMDMConfig(**ZEGGS_TINY_MDM))
+    x = jnp.zeros((1, nj, 1, n_poses))
+    cond = {"style": jnp.zeros((1, 6)), "seed": x[..., :n_seed],
+            "audio": jnp.zeros((1, n_poses, ZEGGS_TINY_WAVLM["encoder_embed_dim"])),
+            "mask_local": jnp.ones((1, n_poses), bool)}
+    mparams = jax.jit(fm.init)(jax.random.PRNGKey(seed + 2), x, jnp.zeros((1,), jnp.int32), cond)
+    mparams = {"params": randomize_flax_params(mparams["params"], seed + 2)}
+    wavlm = WavLM(WavLMConfig(**ZEGGS_TINY_WAVLM)).eval()
+    wavlm.load_state_dict(wavlm_state_dict_from_flax(wparams, WavLMConfig(**ZEGGS_TINY_WAVLM)))
+    mdm = MDM(MDMConfig(**ZEGGS_TINY_MDM,
+                        audio_in_dim=ZEGGS_TINY_WAVLM["encoder_embed_dim"])).eval()
+    mdm.load_state_dict(mdm_state_dict_from_flax(mparams))
+    rng = np.random.default_rng(seed)
+    return dict(fw=fw, wparams=wparams, fm=fm, mparams=mparams, wavlm=wavlm, mdm=mdm,
+                mean=rng.standard_normal(nj).astype(np.float32),
+                std=(0.5 + rng.random(nj)).astype(np.float32))
+
+
+def jax_loop_draws(key, num_windows: int, steps: int, shape):
+    """Each window's draws in the JAX engine's loop for `key`, x_T first: the
+    engine splits a subkey per window; the loop splits it into (key,
+    init_key), draws x_T from init_key and then one array a step."""
+    import jax
+    import jax.numpy as jnp
+
+    out = []
+    for _ in range(num_windows):
+        key, sub = jax.random.split(key)
+        sub, init_key = jax.random.split(sub)
+        draws = [np.array(jax.random.normal(init_key, shape, dtype=jnp.float32))]
+        for _ in range(steps):
+            sub, nkey = jax.random.split(sub)
+            draws.append(np.array(jax.random.normal(nkey, shape, dtype=jnp.float32)))
+        out.append(draws)
+    return out
+
+
+def replay_draws(monkeypatch, windows):
+    """Make each window's program (one `init` a window) draw the given arrays
+    in order, x_T first (unless `init` is handed its noise)."""
+    from diffusestylegesture_torch.diffusion.sampling import SampleProgram
+
+    pending = iter(windows)
+    init = SampleProgram.init
+
+    def init_with_draws(self, noise=None, init_image=None):
+        self._draws = iter(next(pending))
+        init(self, noise, init_image)
+
+    monkeypatch.setattr(SampleProgram, "init", init_with_draws)
+    monkeypatch.setattr(SampleProgram, "_randn", lambda self: torch.from_numpy(next(self._draws)))
+
+
+def rel_err(out, ref) -> float:
+    """max |out − ref| over max(mean |ref|, 1): the windowed engines' bar is 2e-3."""
+    out, ref = np32(out), np32(ref)
+    return float(np.abs(out - ref).max()) / max(float(np.abs(ref).mean()), 1.0)
