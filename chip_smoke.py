@@ -123,10 +123,34 @@ Phases (any failure exits non-zero before the result line):
      a 12.5 s clip with two style examples in `add` and `stitch` (750-frame
      BVHs), and the rollout captured as a CUDA graph against its eager run,
      bitwise equal, ms per rollout step both ways;
-  12. print the card line, a `kernels` JSON line, an `e2e` JSON line, a `train`
+  12. the rest of the gesture models at the ZEGGS widths with seeded weights:
+     (a) the MFCC-conditioned MDM (`audio_feat='mfcc'`) on phase 5's wav
+     through `ZeggsSampler` with `make_mfcc_window_fn` (host features) on
+     CUDA graphs, DDPM-1000 (A 3,000 / B 24,000) and dpmpp5 (15 / 120), graph
+     and eager bitwise equal, host MFCC seconds beside generate seconds, the
+     kernel path within 2e-3 rel of the plain path on the same noise, a
+     host-feature stream within 2e-3 rel of the batch engine with its window
+     latency; (b) `cross_local_attention5` (A 15 / B 0), plain
+     `cross_local_attention` (15 / 120), style1 / style2 `trans_enc` and
+     `mytrans_enc` (0 / 120), `trans_dec` and `gru` (0 / 0), MFCC audio: one
+     replayed denoiser call against the plain path (2e-3 rel; device and wall
+     ms) and a dpmpp5 3-window generate on graphs, launches held; (c) MoE:
+     `cli.train --moe_experts 4 --device_cache` on phase 6's prepared clips
+     (batch 300, 20 steps, float32; loss and `moe_aux` finite; no kernel
+     launched), the step captured against eager over 3 steps, bitwise equal;
+     `cli.sample` on its checkpoint in dpmpp5 (expert count inferred; A 15 /
+     B 0) and one denoiser call of it through the kernel and the plain path
+     (routing flips counted, 2e-3 rel); (d) the baselines at B = 8:
+     `WavEncoder` on (8, 64000), `GeneratorLinear` / `GeneratorGRU` and their
+     `sample`, `Seq2SeqNet`, `GeneratorDiff` loss + backward and a 250-step
+     sample, DiffWave loss + backward and a 50-step sample, the upstream
+     local-attention README's `LocalTransformer` (256 tokens, dim 512, depth
+     6, window 256) generating 512 tokens, `Tisa` at T = 240: timed, finite,
+     shaped, no diffusion kernel launched;
+  13. print the card line, a `kernels` JSON line, an `e2e` JSON line, a `train`
      JSON line, a `distill` JSON line, a `beat_twh` JSON line, a
-     `beat_twh_train` JSON line, a `serving` JSON line, a `zeroeggs` JSON line
-     and, last, {"ok": true, "device": {...}}.
+     `beat_twh_train` JSON line, a `serving` JSON line, a `zeroeggs` JSON line,
+     a `models` JSON line and, last, {"ok": true, "device": {...}}.
 
 Device times of the kernels come from CUDA events around back-to-back calls
 queued behind a sleep kernel, so host launch overhead is not in them.
@@ -135,6 +159,7 @@ Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import os
 import subprocess
@@ -1858,6 +1883,25 @@ def counted(fn):
     return res, wall, (la.launches, el.launches, el.launches_bf16)
 
 
+def run_stream(stream, data, chunk, flush=False):
+    """Push `data` in `chunk`-sized pieces (then flush, if asked): (the motion
+    concatenated along time, ms from each window's last input to its motion,
+    i.e. the wall time of each push that completed a window)."""
+    import numpy as np
+
+    chunks, lat = [], []
+    for i in range(0, len(data), chunk):
+        got, wall = timed(lambda: stream.push(data[i: i + chunk]))
+        chunks += got
+        if got:
+            lat.append(wall * 1e3)
+    if flush:
+        got, wall = timed(stream.flush)
+        chunks += got
+        lat.append(wall * 1e3)
+    return np.concatenate(chunks, 1), lat
+
+
 def phase_serving(dev, tmp, card):
     """Phase 10: the serving surfaces on phase 5's full-width ZEGGS model and
     WavLM-Large and phase 8's TWH model."""
@@ -2013,19 +2057,6 @@ def phase_serving(dev, tmp, card):
           f"{json.dumps(res['solo'])}")
 
     # (c) streams over 0.5 s pushes: ZEGGS on the 12.5 s wav, TWH + on phase 8's features
-    def run_stream(stream, data, chunk, flush=False):
-        chunks, lat = [], []
-        for i in range(0, len(data), chunk):
-            got, wall = timed(lambda: stream.push(data[i: i + chunk]))
-            chunks += got
-            if got:  # this push completed a window: its last input to its motion
-                lat.append(wall * 1e3)
-        if flush:
-            got, wall = timed(stream.flush)
-            chunks += got
-            lat.append(wall * 1e3)
-        return np.concatenate(chunks, 1), lat
-
     chunk = int(STREAM_CHUNK_S * 16000)
     style = zf.style_onehot("Happy")[None]
 
@@ -2196,10 +2227,383 @@ def phase_zeroeggs(dev, tmp, card):
     return res
 
 
+# ---- phase 12 -------------------------------------------------------------------
+
+
+# the other MDM variants at the ZEGGS widths with MFCC audio: (name, MDMConfig
+# fields, kernel A launches, kernel B launches) a denoiser call
+MODEL_VARIANTS = (
+    ("cla5_style1", dict(cond_mode="cross_local_attention5_style1"), 1, 0),
+    ("cla_style1", dict(cond_mode="cross_local_attention_style1"), 1, 8),
+    ("style1_trans_enc", dict(cond_mode="style1", arch="trans_enc"), 0, 8),
+    ("style2_trans_enc", dict(cond_mode="style2", arch="trans_enc"), 0, 8),
+    ("style1_mytrans_enc", dict(cond_mode="style1", arch="mytrans_enc"), 0, 8),
+    ("style2_mytrans_enc", dict(cond_mode="style2", arch="mytrans_enc"), 0, 8),
+    ("style1_trans_dec", dict(cond_mode="style1", arch="trans_dec"), 0, 0),
+    ("style2_gru", dict(cond_mode="style2", arch="gru"), 0, 0),
+)
+MOE_EXPERTS, MOE_STEPS = 4, 20  # the JAX CLI's capacity factor 2.0; no published expert count
+BASELINE_BATCH = 8
+
+
+def model_pair(dev, **fields):
+    """A seeded full-width MDM (MDMConfig defaults: 1141 / 256 / 8 layers / 4
+    heads / ff 1024, window 11) on its kernel path, and its plain twin."""
+    import torch
+
+    from diffusestylegesture_torch.models.mdm import MDM, MDMConfig
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(SEED + 12)
+        model = MDM(MDMConfig(**fields)).to(dev).eval()
+    plain = MDM(MDMConfig(impl="plain", **fields)).to(dev).eval()
+    plain.load_state_dict(model.state_dict())
+    return model, plain
+
+
+def mfcc_sampler(dev, sched, sampler, graphs=None, host_s=None):
+    """The ZEGGS engine with the host-side MFCC window function; `host_s`, a
+    one-element list, accumulates the seconds the function takes."""
+    from diffusestylegesture_torch.sample import (ZeggsEngineConfig, ZeggsSampler,
+                                                  make_mfcc_window_fn)
+
+    fn = make_mfcc_window_fn(88)
+    if host_s is not None:
+        inner = fn
+
+        def fn(params, windows):
+            out, wall = timed(lambda: inner(params, windows))
+            host_s[0] += wall
+            return out
+
+        fn.host_side = True
+    return ZeggsSampler(lambda m, x, t, c, uncond=None: m(x, t, c, uncond=uncond), fn, sched,
+                        ZeggsEngineConfig(sampler=sampler), device=dev, graphs=graphs)
+
+
+def rel(out, ref) -> float:
+    """max |out − ref| over max(mean |ref|, 1)."""
+    import numpy as np
+
+    return float(np.abs(out - ref).max()) / max(float(np.abs(ref).mean()), 1.0)
+
+
+def denoiser_call(dev, model, plain, batch=1):
+    """One denoiser call at `batch` replayed from a CUDA graph (device and wall
+    ms) against the plain path on the same inputs: (times, relative error)."""
+    import torch
+
+    from diffusestylegesture_torch.utils.graphs import GraphSet
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    cfg = model.cfg
+    A = cfg.audio_feat_dim if cfg.audio_feat != "wavlm" else cfg.audio_in_dim
+    x = torch.randn(batch, cfg.njoints, 1, 88, generator=g, device=dev)
+    cond = {"style": torch.eye(6, device=dev)[:batch],
+            "seed": torch.randn(batch, cfg.njoints, 1, 8, generator=g, device=dev),
+            "audio": torch.randn(batch, 88, A, generator=g, device=dev),
+            "mask_local": torch.ones(batch, 88, dtype=torch.bool, device=dev)}
+    t = torch.full((batch,), 500, device=dev)
+    with torch.inference_mode():
+        out = torch.empty(batch, cfg.njoints, 1, 88, device=dev)
+        replay, _ = GraphSet(dev).capture(lambda: out.copy_(model(x, t, cond)))
+        replay.launches = (0, 0, 0)  # timing calls are not main-path launches
+        ms = {"graph_replay_device_ms": device_ms(replay.replay, iters=40, warmup=2)}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(50):
+            replay.replay()
+        torch.cuda.synchronize()
+        ms["graph_replay_wall_ms"] = (time.perf_counter() - t0) / 50 * 1e3
+        replay.replay()
+        ref = plain(x, t, cond)
+        err = rel(out.cpu().numpy(), ref.cpu().numpy())
+    return ms, err, (x, t, cond)
+
+
+def phase_models(dev, tmp, card, ctx):
+    """Phase 12: (a) the MFCC-conditioned ZEGGS model served and streamed, (b)
+    the other MDM variants, (c) the MoE trunk from training to serving, (d) the
+    baseline generators. Returns the `models` result, with the kernels'
+    launches on each path of (a)-(c) under `launches`."""
+    import numpy as np
+    import torch
+
+    from diffusestylegesture_torch import diffusion as D
+    from diffusestylegesture_torch.data import load_wav_16k
+    from diffusestylegesture_torch.motion import zeggs_features as zf
+    from diffusestylegesture_torch.sample import ZeggsStreamSampler
+
+    t0 = time.perf_counter()
+    betas = D.named_beta_schedule("cosine", 1000)
+    scheds = {"ddpm1000": (D.Schedule.create(betas, device=dev), "ddpm", 1000),
+              "dpmpp5": (D.spaced_schedule(betas, D.space_timesteps(1000, "ddim5"), device=dev),
+                         "dpmpp", 5)}
+    wav_path = os.path.join(tmp, "015_Happy_4_x_1_0.wav")
+    audio = load_wav_16k(wav_path)
+    stats = dict(mean=np.load(os.path.join(tmp, "data", "mean.npz"))["mean"],
+                 std=np.load(os.path.join(tmp, "data", "std.npz"))["std"])
+    style = zf.style_onehot("Happy")[None]
+    frames = 3 * 80 - 8
+    gen = lambda s=123456: torch.Generator(device=dev).manual_seed(s)  # noqa: E731
+    res, launches = {}, {}
+
+    # (a) the MFCC-conditioned model on the CUDA-graph engine, DDPM-1000 and dpmpp5
+    model, plain = model_pair(dev, audio_feat="mfcc")
+    mfcc = {}
+    for mode, (sched, sampler, calls) in scheds.items():
+        host = [0.0]
+        s = mfcc_sampler(dev, sched, sampler, host_s=host)
+        first, first_s = timed(lambda: s.generate(model, None, audio, style, gen(), **stats))
+        out, gen_s, counts = counted(lambda: s.generate(model, None, audio, style, gen(),
+                                                        **stats))
+        expected = (3 * calls, 3 * calls * 8, 0)
+        check(counts == expected, f"mfcc {mode}: launches {counts}, expected {expected}")
+        check(out.shape == (1, frames, 1141) and bool(np.isfinite(out).all()),
+              f"mfcc {mode}: poses {out.shape}")
+        eager, eager_s = timed(lambda: mfcc_sampler(dev, sched, sampler, graphs=False).generate(
+            model, None, audio, style, gen(), **stats))
+        same = bool(np.array_equal(out, eager)) and bool(np.array_equal(first, out))
+        check(same, f"mfcc {mode}: graph and eager poses differ")
+        launches[f"mfcc_{mode}"] = counts
+        mfcc[mode] = dict(first_generate_s=first_s, generate_s=gen_s, eager_generate_s=eager_s,
+                          host_mfcc_s_per_call=host[0] / 2,
+                          capture_s=s.capture_seconds, frames_per_s=frames / gen_s,
+                          local_attention_launches=counts[0], encoder_layer_launches=counts[1],
+                          graph_equals_eager=same)
+        print(f"models mfcc {mode} [{card}]: {json.dumps(mfcc[mode])}")
+    noise = np.random.default_rng(SEED + 2).standard_normal(
+        (3, 1, 1141, 1, 88)).astype(np.float32)
+    sched = scheds["dpmpp5"][0]
+    k_out, p_out = (mfcc_sampler(dev, sched, "dpmpp").generate(m, None, audio, style, gen(),
+                                                                noise_windows=noise, **stats)
+                    for m in (model, plain))
+    mfcc["kernel_vs_plain_rel"] = err = rel(k_out, p_out)
+    check(err <= E2E_REL, f"mfcc: kernel vs plain path {err} > {E2E_REL} rel")
+    s = mfcc_sampler(dev, sched, "dpmpp")
+    ref = s.generate(model, None, audio, style, gen(7), **stats)
+    (got, lat), _, counts = counted(lambda: run_stream(
+        ZeggsStreamSampler(s, model, None, style, gen(7), **stats), audio,
+        int(STREAM_CHUNK_S * 16000)))
+    check(got.shape == ref.shape, f"mfcc stream shape {got.shape} vs {ref.shape}")
+    mfcc["stream"] = dict(push_s=STREAM_CHUNK_S, window_to_motion_ms=lat,
+                          rel_dev_from_batch=rel(got, ref), launches=counts)
+    check(mfcc["stream"]["rel_dev_from_batch"] <= E2E_REL, "mfcc stream vs batch engine")
+    launches["mfcc_stream"] = counts
+    res["mfcc"] = mfcc
+    print(f"models mfcc kernel vs plain {err:.3e}, stream [{card}]: {json.dumps(mfcc['stream'])}")
+    del model, plain
+
+    # (b) the other variants: one replayed call against the plain path, a dpmpp5 generate
+    variants = {}
+    for name, fields, a, b in MODEL_VARIANTS:
+        model, plain = model_pair(dev, audio_feat="mfcc", **fields)
+        ms, err, _ = denoiser_call(dev, model, plain)
+        check(err <= E2E_REL, f"{name}: kernel vs plain call {err} > {E2E_REL} rel")
+        s = mfcc_sampler(dev, sched, "dpmpp")
+        s.generate(model, None, audio, style, gen(), **stats)  # captures
+        out, wall, counts = counted(lambda: s.generate(model, None, audio, style, gen(), **stats))
+        expected = (15 * a, 15 * b, 0)
+        check(counts == expected, f"{name}: launches {counts}, expected {expected}")
+        check(out.shape == (1, frames, 1141) and bool(np.isfinite(out).all()),
+              f"{name}: poses {out.shape}")
+        launches[f"{name}_dpmpp5"] = counts
+        variants[name] = dict(call_b1=ms, kernel_vs_plain_rel=err, generate_s=wall,
+                              capture_s=s.capture_seconds, local_attention_launches=counts[0],
+                              encoder_layer_launches=counts[1])
+        print(f"models {name} [{card}]: {json.dumps(variants[name])}")
+        del model, plain, s
+    res["variants"] = variants
+
+    # (c) MoE: train, serve, one call kernel vs plain
+    res["moe"] = phase_moe(dev, card, ctx, wav_path, launches)
+    # (d) the baseline generators
+    res["baselines"] = phase_baselines(dev, card)
+    res["launches"] = launches
+    res["phase_s"] = time.perf_counter() - t0
+    return res
+
+
+def phase_moe(dev, card, ctx, wav_path, launches):
+    """`cli.train --moe_experts` on phase 6's prepared clips (device cache,
+    captured steps), `cli.sample` on its checkpoint, and one denoiser call of
+    it through the kernel and the plain path with the routing compared."""
+    import numpy as np
+    import torch
+
+    from diffusestylegesture_torch import diffusion as D
+    from diffusestylegesture_torch.cli import sample as sample_cli, train as train_cli
+    from diffusestylegesture_torch.data.device_cache import (DeviceWindowCache,
+                                                             make_device_data_train_step)
+    from diffusestylegesture_torch.models.convert import load_reference_mdm
+    from diffusestylegesture_torch.models.mdm import MDM, MDMConfig
+    from diffusestylegesture_torch.models.moe import capacity, route
+    from diffusestylegesture_torch.train import TrainConfig, TrainState, make_zeggs_cond_builder
+
+    work, config = ctx["work"], ctx["config"]
+    res = {}
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        torch.cuda.reset_peak_memory_stats(dev)
+        out, _, counts = counted(lambda: train_cli.main(
+            ["--config", config, "--num_steps", str(MOE_STEPS), "--save_dir",
+             os.path.join(work, "out_moe"), "--log_interval", "10", "--seed", "0",
+             "--device_cache", "--moe_experts", str(MOE_EXPERTS)]))
+        loop, state = out["loop"], out["state"]
+        check(counts == (0, 0, 0), f"moe train: kernels launched while training {counts}")
+        check(state.step == MOE_STEPS and state.model.cfg.moe_experts == MOE_EXPERTS,
+              f"moe train: step {state.step}, experts {state.model.cfg.moe_experts}")
+        logged = [(d["loss"], d["moe_aux"]) for d in loop.logged]
+        check(len(logged) >= 2 and bool(np.isfinite(logged).all()), f"moe train: {logged}")
+        launches["moe_train"] = counts
+        res["train"] = dict(steps=MOE_STEPS, batch=TRAIN_BATCH, experts=MOE_EXPERTS,
+                            logged_loss_moe_aux=logged, ms_per_step=steady_ms([loop]),
+                            peak_memory_bytes=torch.cuda.max_memory_allocated(dev),
+                            capture_s=loop.captured.capture_seconds)
+
+        cache = DeviceWindowCache.from_zeggs(out["dataset"], dev)
+        sched = D.Schedule.create(D.named_beta_schedule("cosine", 1000), device=dev)
+        cfg = TrainConfig(lr=3e-5, moe_aux_weight=0.01)
+        step = make_device_data_train_step(sched, cfg, make_zeggs_cond_builder(8), TRAIN_BATCH)
+
+        def make():
+            with torch.random.fork_rng(devices=[]):
+                torch.manual_seed(SEED)
+                model = MDM(MDMConfig(audio_in_dim=cache.arrays["wavlm"].shape[-1],
+                                      moe_experts=MOE_EXPERTS, impl="plain")).to(dev)
+            st = TrainState(model, cfg, 1000)
+            g = torch.Generator(device=dev).manual_seed(0)
+            return (st, lambda: step(st, g, cache.arrays),
+                    lambda: step.device_step(st, g, cache.arrays), g)
+
+        equal, eager_ms, captured_ms, run = captured_vs_eager(make, steps=3)
+        check(equal, "moe train: the captured step differs from the eager step")
+        res["train"].update(captured_equals_eager_3_steps=equal, eager_ms_per_step=eager_ms,
+                            captured_ms_per_step=captured_ms)
+        del run, cache
+        print(f"models moe train [{card}]: {json.dumps(res['train'])}")
+
+        ckpt = os.path.join(work, "out_moe", str(MOE_STEPS))
+        served, _, counts = counted(lambda: sample_cli.main(
+            ["--config", config, "--model_path", ckpt, "--audiowavlm_path", wav_path,
+             "--sampler", "dpmpp", "--respace", "5", "--save_dir",
+             os.path.join(work, "served_moe"), "--seed", "123456"]))
+        poses = served["poses"]
+        check(poses.shape == (1, 3 * 80 - 8, 1141) and bool(np.isfinite(poses).all()),
+              f"moe served: poses {poses.shape}")
+        check(counts == (15, 0, 0), f"moe served: launches {counts}, expected (15, 0, 0)")
+        launches["moe_served"] = counts
+        res["served"] = dict(generate_s=served["generate_seconds"],
+                             capture_s=served["capture_seconds"], local_attention_launches=15,
+                             encoder_layer_launches=0)
+
+        mcfg = MDMConfig(moe_experts=MOE_EXPERTS)
+        model = load_reference_mdm(os.path.join(ckpt, "model.pt"), mcfg, device=dev)
+        plain = load_reference_mdm(os.path.join(ckpt, "model.pt"),
+                                   dataclasses.replace(mcfg, impl="plain"), device=dev)
+        routes = {"kernel": [], "plain": []}
+
+        def record(experts, mod, args):
+            xf = args[0].reshape(-1, args[0].shape[-1])
+            experts.append(route(xf, mod.router, mod.num_experts,
+                                 capacity(len(xf), mod.num_experts, mod.capacity_factor))[2])
+        ms, err, inputs = denoiser_call(dev, model, plain)
+        with torch.inference_mode():  # each path once more, eagerly, its routing recorded
+            for name, m in (("kernel", model), ("plain", plain)):
+                for layer in m.seqTransEncoder.layers:
+                    layer.moe.register_forward_pre_hook(functools.partial(record, routes[name]))
+                m(*inputs)
+        flips = int(sum(int((a != b).sum()) for a, b in zip(routes["kernel"], routes["plain"])))
+        check(err <= E2E_REL, f"moe call: kernel vs plain {err} > {E2E_REL} rel")
+        res["call_b1"] = dict(ms, kernel_vs_plain_rel=err, routing_flips=flips,
+                              tokens_routed=8 * 89)
+        print(f"models moe served and one call [{card}]: "
+              f"{json.dumps(dict(res['served'], call_b1=res['call_b1']))}")
+    finally:
+        os.chdir(cwd)
+    return res
+
+
+def phase_baselines(dev, card):
+    """The reference's baseline generators at B = 8: timed, finite, shaped;
+    no diffusion kernel launched."""
+    import torch
+
+    from diffusestylegesture_torch.models import baselines as bl
+    from diffusestylegesture_torch.models import diffwav as dw
+    from diffusestylegesture_torch.models import local_transformer as lt
+    from diffusestylegesture_torch.models import unet1d as un
+    from diffusestylegesture_torch.models.tisa import Tisa
+
+    B = BASELINE_BATCH
+    torch.manual_seed(SEED + 40)
+    g = torch.Generator(device=dev).manual_seed(SEED + 41)
+    wav = 0.1 * torch.randn(B, 64000, generator=g, device=dev)
+    pose = torch.rand(B, 240, 135, generator=g, device=dev) * 2 - 1
+    res = {}
+
+    def run(name, fn, shape):
+        out, wall = timed(lambda: (fn(), torch.cuda.synchronize())[0])
+        out = out if torch.is_tensor(out) else out[0]
+        check(tuple(out.shape) == shape and bool(torch.isfinite(out.float()).all()),
+              f"{name}: output {tuple(out.shape)}, expected {shape}")
+        res[name] = dict(s=wall, shape=list(shape))
+
+    def loss_backward(model, loss_fn):
+        model.train()
+        loss = loss_fn()
+        loss.backward()
+        check(all(p.grad is not None and bool(torch.isfinite(p.grad).all())
+                  for p in model.parameters() if p.requires_grad), "a gradient is not finite")
+        model.eval()
+        return loss.detach()[None]
+
+    from diffusestylegesture_torch.ops import encoder_layer as el
+    from diffusestylegesture_torch.ops import local_attention as la
+
+    la.launches = el.launches = el.launches_bf16 = 0
+    with torch.no_grad():
+        enc = bl.WavEncoder().to(dev).eval()
+        run("wav_encoder", lambda: enc(wav), (B, 240, 32))
+        for name, cls in (("generator_linear", bl.GeneratorLinear),
+                          ("generator_gru", bl.GeneratorGRU)):
+            m = cls().to(dev).eval()
+            run(name, lambda: m(wav)[0], (B, 240, 512))
+            run(name + "_sample", lambda: m.sample(wav), (B, 240))
+        s2s = bl.Seq2SeqNet(vocab=20000, embed_size=300, hidden_size=200, pose_dim=135,
+                            n_frames=240).to(dev).eval()
+        tokens = torch.randint(0, 20000, (B, 40), generator=g, device=dev)
+        run("seq2seq", lambda: s2s(tokens, pose), (B, 240, 135))
+        tisa = Tisa().to(dev)
+        run("tisa_t240", lambda: tisa(240), (12, 240, 240))
+    gd = un.GeneratorDiff().to(dev)
+    gsched = un.make_generator_diff_schedule(250, device=dev)
+    run("generator_diff_loss_backward", lambda: loss_backward(
+        gd, lambda: un.generator_diff_loss(gd, gsched, pose, wav, g)), (1,))
+    run("generator_diff_sample_250", lambda: un.generator_diff_sample(gd, gsched, wav, g),
+        (B, 240, 135))
+    dwm = dw.DiffWavModel().to(dev)
+    run("diffwav_loss_backward", lambda: loss_backward(
+        dwm, lambda: dw.diffwav_training_loss(dwm, pose, wav, g)), (1,))
+    run("diffwav_sample_50", lambda: dw.diffwav_sample(dwm, wav, g), (B, 240, 135))
+    # the upstream local-attention README's LocalTransformer
+    ltm = lt.LocalTransformer(num_tokens=256, max_seq_len=8192, dim=512, depth=6,
+                              local_attn_window_size=256).to(dev).eval()
+    prime = torch.randint(0, 256, (B, 1), generator=g, device=dev)
+    run("local_transformer_generate_512", lambda: lt.generate(ltm, prime, 512, generator=g),
+        (B, 512))
+    counts = (la.launches, el.launches, el.launches_bf16)
+    check(counts == (0, 0, 0), f"baselines: diffusion kernels launched {counts}")
+    print(f"models baselines (B={B}) [{card}]: {json.dumps(res)}")
+    return res
+
+
 SERVING_PATHS = ("serve", "serve_fast", "server", "stream", "restyle", "edit")
 
 
-def kernel_entries(la_err, la_t, el_err, el_t, e2e, distill, beat_twh, beat_twh_train, serving):
+def kernel_entries(la_err, la_t, el_err, el_t, e2e, distill, beat_twh, beat_twh_train, serving,
+                   models):
     """The `kernels` line's entries: each kernel with its launches on every
     path, its errors and its times at each shape it was timed at."""
     kernels = []
@@ -2257,6 +2661,8 @@ def kernel_entries(la_err, la_t, el_err, el_t, e2e, distill, beat_twh, beat_twh_
             launches_beat_twh_train=dict(
                 train=0, served_checkpoint=beat_twh_train["served"].get(f"{name}_launches", 0)),
             launches_serving={path: serving["launches"][path][column] for path in SERVING_PATHS},
+            # phase 12: the MFCC model, the other variants, the MoE trunk
+            launches_models={path: counts[column] for path, counts in models["launches"].items()},
             b2=batches[2], b16=batches[SERVER_BATCH], b300=b300, **extra))
     return kernels
 
@@ -2323,10 +2729,13 @@ def main() -> int:
         zeroeggs, zeroeggs_s = timed(lambda: phase_zeroeggs(dev, tmp, card))
         serving["phase_s"], zeroeggs["phase_s"] = serving_s, zeroeggs_s
         print(f"phase 10 {serving_s:.1f} s, phase 11 {zeroeggs_s:.1f} s")
+        # 12
+        models = phase_models(dev, tmp, card, ctx)
+        print(f"phase 12 {models['phase_s']:.1f} s")
 
-    # 12. lines
+    # 13. lines
     kernels = kernel_entries(la_err, la_t, el_err, el_t, e2e, distill, beat_twh, beat_twh_train,
-                             serving)
+                             serving, models)
     check(all(k["launches"] > 0 for k in kernels), "a kernel was not launched on its path")
     check(all(k["launches_distill"] > 0 for k in kernels[:2]),
           "a kernel was not launched on the distillation path")
@@ -2339,6 +2748,11 @@ def main() -> int:
               for path in ("serve", "server", "stream", "restyle", "edit"))
           and kernels[2]["launches_serving"]["serve_fast"] > 0,
           "a kernel was not launched on a serving surface")
+    check(all(k["launches_models"][path] > 0 for k in kernels[:2]
+              for path in ("mfcc_ddpm1000", "mfcc_dpmpp5", "mfcc_stream", "cla_style1_dpmpp5"))
+          and kernels[0]["launches_models"]["moe_served"] > 0
+          and kernels[1]["launches_models"]["style2_mytrans_enc_dpmpp5"] > 0,
+          "a kernel was not launched on a phase 12 path")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"e2e": e2e, "build_s": build_s}))
@@ -2348,6 +2762,7 @@ def main() -> int:
     print(json.dumps({"beat_twh_train": beat_twh_train, "card": card}))
     print(json.dumps({"serving": serving, "card": card}))
     print(json.dumps({"zeroeggs": zeroeggs, "card": card}))
+    print(json.dumps({"models": models, "card": card}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -35,11 +35,12 @@ from ..config import load_yaml_config
 from ..data import ZeggsWindowDataset
 from ..data.device_cache import DeviceWindowCache
 from ..device import resolve_device
-from ..models.convert import load_reference_mdm
+from ..models.convert import load_reference_mdm, read_reference_state_dict
 from ..models.mdm import MDMConfig
 from ..train import TrainConfig, TrainState, make_zeggs_cond_builder
 from ..train.distill import make_distill_step, student_schedule
 from ..utils.graphs import CapturedStep
+from .sample import resolve_moe_config
 
 
 def load_distilled(stage_dir: str, device="cuda"):
@@ -123,10 +124,11 @@ def main(argv=None):
         n_seed=cfg.n_seed, cond_mode=cfg.cond_mode, cond_mask_prob=cfg.cond_mask_prob,
         audio_feat=cfg.audio_feat, audio_in_dim=data.wavlm.shape[-1],
         moe_experts=cfg.get("moe_experts", 0), impl="kernel")
-    path = teacher_checkpoint(args.teacher)
-    teacher = load_reference_mdm(path, mcfg, device=device)
+    sd = read_reference_state_dict(teacher_checkpoint(args.teacher))
+    mcfg = resolve_moe_config(mcfg, sd)
+    teacher = load_reference_mdm(sd, mcfg, device=device)
     # the student starts from the teacher's weights and trains through the plain ops
-    student = load_reference_mdm(path, dataclasses.replace(mcfg, impl="plain"), device=device)
+    student = load_reference_mdm(sd, dataclasses.replace(mcfg, impl="plain"), device=device)
     builder = make_zeggs_cond_builder(cfg.n_seed)
     noise_schedule = cfg.get("noise_schedule", "cosine")
     base_betas = D.named_beta_schedule(noise_schedule, cfg.diffusion_steps)

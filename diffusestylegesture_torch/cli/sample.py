@@ -9,7 +9,8 @@ package's `cli/sample.py`, whose flags it takes, `--aot_dir` aside):
 `--model_path` is a reference-layout MDM `.pt`, or a directory written by
 `scripts/convert_orbax_to_torch.py` from any orbax layout of the JAX package
 (`model.pt`, `model_ema.pt` when the TrainState held EMA params, and a
-distilled student's `schedule.json`). The WavLM checkpoint is the yaml's
+distilled student's `schedule.json`); a MoE-trained checkpoint serves with
+its expert count (`resolve_moe_config`). The WavLM checkpoint is the yaml's
 `wavlm_path`. The quality gate is checked before any model is loaded. On the
 card the engine runs as CUDA graphs captured at first use; a graph lives in
 its process, so the JAX CLI's `--aot_dir` (ahead-of-time snapshots across
@@ -19,8 +20,10 @@ kernels are cached in `diffusestylegesture_torch/_build/`.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
+import sys
 import time
 from datetime import datetime
 
@@ -32,7 +35,8 @@ from ..audio import normalize_loudness
 from ..config import load_yaml_config
 from ..data import load_wav_16k
 from ..device import resolve_device
-from ..models.convert import load_reference_mdm, load_wavlm_checkpoint
+from ..models.convert import (load_reference_mdm, load_wavlm_checkpoint,
+                              read_reference_state_dict)
 from ..models.mdm import MDMConfig
 from ..models.wavlm import make_zeggs_wavlm_fn
 from ..motion import zeggs_features as zf
@@ -107,6 +111,26 @@ def mdm_config(cfg, audio_in_dim: int, serve_fast: bool = False) -> MDMConfig:
         activation="gelu_tanh" if serve_fast else "gelu")
 
 
+def infer_moe_experts(state_dict) -> int:
+    """Expert count of a MoE-trained checkpoint, 0 for a dense one: the
+    leading dim of a layer's `moe.w1` stack (E, D, F), as `cli/train.py
+    --moe_experts` writes it (JAX `cli/sample.py:92-103`)."""
+    return next((int(v.shape[0]) for k, v in state_dict.items() if k.endswith(".moe.w1")), 0)
+
+
+def resolve_moe_config(mcfg, state_dict, out=None):
+    """`mcfg` with `moe_experts` set to the checkpoint's: when the yaml lacks
+    the flag or disagrees, the checkpoint wins, in both directions (JAX
+    `cli/sample.py:106-126`). Every serving-side CLI (sample, sample_beat,
+    serve, distill) loads through it; any config with `moe_experts` works."""
+    moe_e = infer_moe_experts(state_dict)
+    if moe_e != mcfg.moe_experts:
+        print("note: checkpoint is " + (f"MoE-trained ({moe_e} experts)" if moe_e else "dense")
+              + " — overriding config", file=out or sys.stdout)
+        mcfg = dataclasses.replace(mcfg, moe_experts=moe_e)
+    return mcfg
+
+
 def read_stage_schedule(model_path: str):
     """A distilled student's `schedule.json` (its exact DDIM grid and the base
     schedule it was distilled from), or None when `model_path` is no stage dir."""
@@ -171,9 +195,10 @@ def main(argv=None):
     os.makedirs(args.save_dir, exist_ok=True)
     dtype = torch.bfloat16 if args.serve_fast else torch.float32
     wcfg, wavlm = load_wavlm_checkpoint(cfg.wavlm_path, device=device, dtype=dtype)
-    model = load_reference_mdm(model_checkpoint(args.model_path, args.use_ema),
-                               mdm_config(cfg, wcfg.encoder_embed_dim, args.serve_fast),
-                               device=device)
+    sd = read_reference_state_dict(model_checkpoint(args.model_path, args.use_ema))
+    model = load_reference_mdm(
+        sd, resolve_moe_config(mdm_config(cfg, wcfg.encoder_embed_dim, args.serve_fast), sd),
+        device=device)
 
     noise_schedule = cfg.get("noise_schedule", "cosine")
     if stage is not None:

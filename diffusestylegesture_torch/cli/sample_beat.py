@@ -38,11 +38,12 @@ import torch
 from .. import diffusion as D
 from ..config import apply_beat_twh_derivations, load_yaml_config
 from ..device import resolve_device
-from ..models.convert import load_reference_mdm_plus, load_wavlm_checkpoint
+from ..models.convert import (load_reference_mdm_plus, load_wavlm_checkpoint,
+                              read_reference_state_dict)
 from ..models.mdm_plus import MDMPlusConfig
 from ..sample import BeatEngineConfig, BeatTwhSampler, prepare_seed_gesture
 from ..sample.quality_gate import check_mode
-from .sample import model_checkpoint
+from .sample import model_checkpoint, resolve_moe_config
 
 VARIANTS = {
     "DiffuseStyleGesture": "attention3",
@@ -148,8 +149,9 @@ def main(argv=None):
         raise SystemExit("provide --textaudio_npy or (--wav and --tsv)")
 
     os.makedirs(args.save_dir, exist_ok=True)
-    model = load_reference_mdm_plus(model_checkpoint(args.model_path, use_ema=False),
-                                    mdm_plus_config(cfg, args.serve_fast), device=device)
+    sd = read_reference_state_dict(model_checkpoint(args.model_path, use_ema=False))
+    model = load_reference_mdm_plus(
+        sd, resolve_moe_config(mdm_plus_config(cfg, args.serve_fast), sd), device=device)
     mean = np.load(args.mean_npy)
     std = np.load(args.std_npy)
     features_s = wavlm_s = 0.0

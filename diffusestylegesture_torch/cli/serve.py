@@ -13,7 +13,7 @@ wav.) Requests are read from `--requests` or stdin and fed through the
 micro-batching `GestureServer`, so concurrent lines ride one batched engine
 call; one JSON line is printed per request, then `{"served", "batches"}`.
 Checkpoints load as in `cli/sample.py` (a reference `.pt` or a converted
-directory; a MoE checkpoint raises there).
+directory; a MoE checkpoint with its expert count).
 """
 from __future__ import annotations
 
@@ -31,12 +31,13 @@ from .. import diffusion as D
 from ..config import load_yaml_config
 from ..data import load_wav_16k
 from ..device import resolve_device
-from ..models.convert import load_reference_mdm, load_wavlm_checkpoint
+from ..models.convert import (load_reference_mdm, load_wavlm_checkpoint,
+                              read_reference_state_dict)
 from ..models.wavlm import make_zeggs_wavlm_fn
 from ..motion import zeggs_features as zf
 from ..sample import GestureServer, ServerConfig, ZeggsEngineConfig, ZeggsSampler
 from ..sample.styles import blend_styles
-from .sample import mdm_config, model_checkpoint
+from .sample import mdm_config, model_checkpoint, resolve_moe_config
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -81,9 +82,10 @@ def build_server(args, device) -> GestureServer:
     wcfg, wavlm = load_wavlm_checkpoint(
         cfg.wavlm_path, device=device,
         dtype=torch.bfloat16 if args.serve_fast else torch.float32)
-    model = load_reference_mdm(model_checkpoint(args.model_path, args.use_ema),
-                               mdm_config(cfg, wcfg.encoder_embed_dim, args.serve_fast),
-                               device=device)
+    sd = read_reference_state_dict(model_checkpoint(args.model_path, args.use_ema))
+    model = load_reference_mdm(
+        sd, resolve_moe_config(mdm_config(cfg, wcfg.encoder_embed_dim, args.serve_fast), sd,
+                               out=sys.stderr), device=device)
     sched = D.Schedule.create(
         D.named_beta_schedule(cfg.get("noise_schedule", "cosine"), cfg.diffusion_steps),
         device=device)

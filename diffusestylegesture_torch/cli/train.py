@@ -27,9 +27,12 @@ plain PyTorch ops (the CUDA kernels have no backward).
 
 `--bf16` runs the forward under bf16 autocast with float32 master weights,
 moments and EMA; `--device_cache` keeps the whole dataset on the card and
-gathers each batch there, one captured CUDA graph a step. The mesh and
-model-parallel flags of the JAX CLI raise: they come with later slices of the
-port.
+gathers each batch there, one captured CUDA graph a step. `--moe_experts N`
+swaps every trunk layer's FFN for a Switch-routed MoE of N experts
+(`models/moe.py`) and adds the load-balance loss with weight
+`--moe_aux_weight`; it defaults to the yaml's `moe_experts`, and an explicit
+0 trains dense from a MoE yaml. The mesh and model-parallel flags of the JAX
+CLI raise: they come with a later slice of the port.
 """
 from __future__ import annotations
 
@@ -49,7 +52,7 @@ from ..models.mdm_plus import MDMPlus
 from ..train import (LoopConfig, TrainConfig, TrainLoop, make_beat_cond_builder,
                      make_zeggs_cond_builder)
 
-LATER = {"use_mesh": 9, "tp": 9, "fsdp": 9, "pp": 9, "sp": 9, "split_qkv": 9, "moe_experts": 8}
+LATER = {"use_mesh": 9, "tp": 9, "fsdp": 9, "pp": 9, "sp": 9, "split_qkv": 9}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -66,10 +69,15 @@ def build_parser() -> argparse.ArgumentParser:
                    help="keep the window set on the card and gather each batch there")
     p.add_argument("--bf16", action="store_true",
                    help="bf16 autocast forward, float32 master weights / moments / EMA")
+    p.add_argument("--moe_experts", type=int, default=None,
+                   help="Switch-routed MoE FFN with this many experts in every trunk layer; "
+                        "default: the yaml's moe_experts (0 = dense); an explicit 0 forces dense")
+    p.add_argument("--moe_aux_weight", type=float, default=0.01,
+                   help="weight of the MoE load-balance loss")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     for flag in ("use_mesh", "fsdp", "split_qkv"):
         p.add_argument(f"--{flag}", action="store_true", help=argparse.SUPPRESS)
-    for flag in ("tp", "pp", "sp", "moe_experts"):
+    for flag in ("tp", "pp", "sp"):
         p.add_argument(f"--{flag}", type=int, default=None, help=argparse.SUPPRESS)
     return p
 
@@ -102,6 +110,7 @@ def build_zeggs(cfg, device: torch.device, seed: int):
         num_layers=cfg.get("num_layers", 8), num_heads=cfg.get("num_heads", 4),
         n_seed=cfg.n_seed, cond_mode=cfg.cond_mode, cond_mask_prob=cfg.cond_mask_prob,
         audio_feat=cfg.audio_feat, audio_in_dim=data.wavlm.shape[-1],
+        moe_experts=cfg.get("moe_experts", 0),
         # training runs the plain PyTorch ops with autograd, the counterpart of the
         # JAX trainer's XLA path (MDM attn_impl="xla", the flax trunk): the CUDA
         # kernels, like the Pallas kernels they port, have no backward
@@ -139,8 +148,10 @@ def main(argv=None):
     device = resolve_device(args.device)
     cfg = load_yaml_config(args.config, {k: getattr(args, k) for k in (
         "dataset", "name", "num_steps", "batch_size", "save_dir", "log_interval")})
-    if cfg.get("moe_experts", 0):
-        raise NotImplementedError("MoE training comes with slice 8 of the port")
+    if args.moe_experts is None:
+        # the yaml's MoE setting, as every serving CLI reads it; the flag, when given, wins
+        args.moe_experts = int(cfg.get("moe_experts", 0))
+    cfg.moe_experts = args.moe_experts
 
     t0 = time.perf_counter()
     if cfg.dataset == "ZEGGS":
@@ -169,7 +180,8 @@ def main(argv=None):
             lr=cfg.lr, weight_decay=cfg.get("weight_decay", 0.0),
             lr_anneal_steps=cfg.get("lr_anneal_steps", 0),
             schedule_sampler=cfg.get("schedule_sampler", "uniform"),
-            compute_dtype="bfloat16" if args.bf16 else cfg.get("compute_dtype", "float32")),
+            compute_dtype="bfloat16" if args.bf16 else cfg.get("compute_dtype", "float32"),
+            moe_aux_weight=args.moe_aux_weight if args.moe_experts > 0 else 0.0),
         loop_cfg=LoopConfig(
             num_steps=cfg.get("num_steps", 100_000), log_interval=cfg.get("log_interval", 50),
             save_interval=cfg.get("save_interval", 50_000), checkpoint_dir=cfg.get("save_dir"),

@@ -11,6 +11,14 @@
   `wavlm_state_dict_from_flax`: the JAX package's parameter trees (nested
   dicts of numpy arrays) → the port's state_dict. Dense kernels (in, out) transpose to (out, in); LayerNorm
   `scale` → `weight`; `layers_i` → `layers.i`; Conv (k, in, out) → (out, in, k).
+  Every conditioning mode and trunk of the MDM is covered: `input_process_plain`,
+  `embed_style` under style2, `seqTransDecoder`, `gru` and a MoE layer's
+  router and expert stacks.
+* `tisa_state_dict_from_flax`, `local_transformer_state_dict_from_flax`,
+  `baseline_state_dict_from_flax` (GeneratorLinear / GRU, Seq2SeqNet: the
+  reference's own layout, the inverse of the JAX `convert_*`),
+  `generator_diff_state_dict_from_flax`, `diffwav_state_dict_from_flax`: the
+  other models of `models/`.
 * `autoencoder_state_dict_from_flax`: the JAX evaluation autoencoder
   (`eval/embedding.py`) → the port's `GestureAutoencoder`; a ConvTranspose
   kernel (k, in, out) becomes (in, out, k) flipped along its taps.
@@ -63,45 +71,200 @@ def _unwrap(params: Mapping[str, Any]) -> Mapping[str, Any]:
 
 
 def encoder_layer_state_dict_from_flax(lp: Mapping[str, Any], prefix: str = "") -> StateDict:
-    """JAX `TorchEncoderLayer` params → `nn.TransformerEncoderLayer` names."""
+    """JAX `TorchEncoderLayer` params → `nn.TransformerEncoderLayer` names; a
+    MoE layer's `moe` scope (router, w1, b1, w2, b2) → `moe.*` as it is."""
     sd: StateDict = {}
-    sd[f"{prefix}self_attn.in_proj_weight"] = _t(np.asarray(lp["self_attn"]["in_proj"]["kernel"]).T)
-    sd[f"{prefix}self_attn.in_proj_bias"] = _t(lp["self_attn"]["in_proj"]["bias"])
-    _dense(sd, f"{prefix}self_attn.out_proj", lp["self_attn"]["out_proj"])
-    _dense(sd, f"{prefix}linear1", lp["linear1"])
-    _dense(sd, f"{prefix}linear2", lp["linear2"])
+    _attention(sd, f"{prefix}self_attn", lp["self_attn"])
+    if "moe" in lp:
+        m = lp["moe"]
+        _dense(sd, f"{prefix}moe.router", m["router"])
+        for name in ("w1", "b1", "w2", "b2"):
+            sd[f"{prefix}moe.{name}"] = _t(m[name])
+    else:
+        _dense(sd, f"{prefix}linear1", lp["linear1"])
+        _dense(sd, f"{prefix}linear2", lp["linear2"])
     _layernorm(sd, f"{prefix}norm1", lp["norm1"])
     _layernorm(sd, f"{prefix}norm2", lp["norm2"])
     return sd
 
 
+def _attention(sd: StateDict, prefix: str, a: Mapping[str, Any]) -> None:
+    """JAX `TorchMultiheadAttention` (packed in_proj, out_proj) → torch names."""
+    sd[f"{prefix}.in_proj_weight"] = _t(np.asarray(a["in_proj"]["kernel"]).T)
+    sd[f"{prefix}.in_proj_bias"] = _t(a["in_proj"]["bias"])
+    _dense(sd, f"{prefix}.out_proj", a["out_proj"])
+
+
+def _gru(sd: StateDict, prefix: str, tree: Mapping[str, Any]) -> None:
+    """JAX `TorchGRU` cells `l{i}_fwd|bwd` ({ih, hh} Dense) → `nn.GRU`'s
+    `weight_ih_l{i}[_reverse]` and friends."""
+    for name, cell in tree.items():
+        layer, direction = name[1:].split("_")
+        suffix = f"l{layer}" + ("_reverse" if direction == "bwd" else "")
+        for gate in ("ih", "hh"):
+            sd[f"{prefix}.weight_{gate}_{suffix}"] = _t(np.asarray(cell[gate]["kernel"]).T)
+            sd[f"{prefix}.bias_{gate}_{suffix}"] = _t(cell[gate]["bias"])
+
+
+def _layers(tree: Mapping[str, Any]) -> int:
+    return len([k for k in tree if k.startswith("layers_")])
+
+
 def mdm_state_dict_from_flax(params: Mapping[str, Any]) -> StateDict:
-    """JAX `models.mdm.MDM` params → the port's `MDM` state_dict."""
+    """JAX `models.mdm.MDM` (or `MDMPlus`) params, any conditioning mode and
+    trunk → the port's state_dict: the scopes present are carried
+    (`embed_style`, `embed_text`, `embed_text_last`, `WavEncoder`,
+    `input_process2`, `input_process_plain`, `seqTransEncoder` with dense or
+    MoE layers, `seqTransDecoder`, `gru`)."""
     p = _unwrap(params)
     sd: StateDict = {}
     _dense(sd, "embed_timestep.time_embed.0", p["embed_timestep"]["time_embed_0"])
     _dense(sd, "embed_timestep.time_embed.2", p["embed_timestep"]["time_embed_2"])
-    _dense(sd, "embed_style", p["embed_style"])
-    _dense(sd, "embed_text", p["embed_text"])
-    _dense(sd, "WavEncoder.audio_feature_map", p["WavEncoder"]["audio_feature_map"])
+    for name in ("embed_style", "embed_text", "embed_text_last", "input_process2",
+                 "input_process_plain"):
+        if name in p:
+            _dense(sd, name, p[name])
+    if "WavEncoder" in p:
+        _dense(sd, "WavEncoder.audio_feature_map", p["WavEncoder"]["audio_feature_map"])
     _dense(sd, "input_process.poseEmbedding", p["input_process"]["poseEmbedding"])
-    _dense(sd, "input_process2", p["input_process2"])
     _dense(sd, "output_process.poseFinal", p["output_process"]["poseFinal"])
-    enc = p["seqTransEncoder"]
-    for i in range(len([k for k in enc if k.startswith("layers_")])):
-        sd.update(encoder_layer_state_dict_from_flax(enc[f"layers_{i}"],
-                                                     f"seqTransEncoder.layers.{i}."))
+    if "seqTransEncoder" in p:
+        enc = p["seqTransEncoder"]
+        for i in range(_layers(enc)):
+            sd.update(encoder_layer_state_dict_from_flax(enc[f"layers_{i}"],
+                                                         f"seqTransEncoder.layers.{i}."))
+    if "seqTransDecoder" in p:
+        dec = p["seqTransDecoder"]
+        for i in range(_layers(dec)):
+            lp, pre = dec[f"layers_{i}"], f"seqTransDecoder.layers.{i}"
+            _attention(sd, f"{pre}.self_attn", lp["self_attn"])
+            _attention(sd, f"{pre}.multihead_attn", lp["multihead_attn"])
+            _dense(sd, f"{pre}.linear1", lp["linear1"])
+            _dense(sd, f"{pre}.linear2", lp["linear2"])
+            for norm in ("norm1", "norm2", "norm3"):
+                _layernorm(sd, f"{pre}.{norm}", lp[norm])
+    if "gru" in p:
+        _gru(sd, "gru", p["gru"])
     return sd
 
 
 def mdm_plus_state_dict_from_flax(params: Mapping[str, Any]) -> StateDict:
-    """JAX `models.mdm_plus.MDMPlus` params → the port's `MDMPlus` state_dict:
-    the MDM's names, and `embed_text_last` where the params have it
-    (cross_local_attention5). Also right for the ZEGGS MDM's params."""
-    sd = mdm_state_dict_from_flax(params)
+    """JAX `models.mdm_plus.MDMPlus` params → the port's `MDMPlus` state_dict
+    (the MDM's scopes, `embed_text_last` in cross_local_attention5, MoE layers)."""
+    return mdm_state_dict_from_flax(params)
+
+
+def _generic(sd: StateDict, prefix: str, tree: Mapping[str, Any], rename=lambda k: k) -> None:
+    """A flax param tree → torch names by the kind of each leaf dict: a Dense
+    kernel (in, out) → weight (out, in), a Conv kernel (k, in, out) →
+    (out, in, k), LayerNorm / GroupNorm `scale` → weight, an Embed's
+    `embedding` → weight; any other array as it is. `rename` maps each path
+    segment to the port's (e.g. `layers_3` → `layers.3`)."""
+    if "kernel" in tree:
+        k = np.asarray(tree["kernel"])
+        sd[f"{prefix}.weight"] = _conv(k) if k.ndim == 3 else _t(k.T)
+        if "bias" in tree:
+            sd[f"{prefix}.bias"] = _t(tree["bias"])
+        return
+    if "scale" in tree:
+        _layernorm(sd, prefix, tree)
+        return
+    if "embedding" in tree:
+        sd[f"{prefix}.weight"] = _t(tree["embedding"])
+        return
+    for name, sub in tree.items():
+        key = f"{prefix}.{rename(name)}" if prefix else rename(name)
+        if isinstance(sub, Mapping):
+            _generic(sd, key, sub, rename)
+        else:
+            sd[key] = _t(sub)
+
+
+def _wav_encoder(sd: StateDict, prefix: str, tree: Mapping[str, Any]) -> None:
+    """JAX baselines `WavEncoder` (l0..l3: conv + eval BatchNorm params) → the
+    reference's `feat_extractor` Sequential (conv at 0/3/6/9, BatchNorm1d at
+    1/4/7 with its running statistics)."""
+    for i in range(4):
+        lp, idx = tree[f"l{i}"], 3 * i
+        _generic(sd, f"{prefix}.feat_extractor.{idx}", lp["conv"])
+        if i < 3:
+            _batchnorm(sd, f"{prefix}.feat_extractor.{idx + 1}", lp)
+
+
+def _batchnorm(sd: StateDict, prefix: str, p: Mapping[str, Any]) -> None:
+    sd[f"{prefix}.running_mean"] = _t(p["bn_mean"])
+    sd[f"{prefix}.running_var"] = _t(p["bn_var"])
+    sd[f"{prefix}.weight"] = _t(p["bn_scale"])
+    sd[f"{prefix}.bias"] = _t(p["bn_bias"])
+    sd[f"{prefix}.num_batches_tracked"] = torch.tensor(0)
+
+
+def baseline_state_dict_from_flax(params: Mapping[str, Any]) -> StateDict:
+    """JAX `models.baselines` params (`GeneratorLinear`, `GeneratorGRU`,
+    `Seq2SeqNet`; also `GeneratorDiff` / `DiffWavModel`, whose other scopes go
+    through `_generic`) → the reference's state_dict layout, which the port's
+    modules carry."""
     p = _unwrap(params)
-    if "embed_text_last" in p:
-        _dense(sd, "embed_text_last", p["embed_text_last"])
+    sd: StateDict = {}
+    for name, sub in p.items():
+        if name == "WavEncoder":
+            _wav_encoder(sd, "WavEncoder", sub)
+        elif name == "project" and "l0_fwd" in sub:  # GeneratorGRU's GRU
+            _gru(sd, "project", sub)
+        elif name == "encoder":  # Seq2SeqNet
+            _generic(sd, "encoder.embedding", sub["embedding"])
+            _gru(sd, "encoder.gru", sub["gru"])
+        elif name == "decoder":
+            pre = "decoder.decoder"
+            _generic(sd, f"{pre}.attn.attn", sub["attn"]["attn"])
+            sd[f"{pre}.attn.v"] = _t(sub["attn"]["v"])
+            _generic(sd, f"{pre}.pre_linear.0", sub["pre_linear_fc"])
+            _batchnorm(sd, f"{pre}.pre_linear.1", sub)
+            for gate in ("ih", "hh"):
+                sd[f"{pre}.gru.weight_{gate}_l0"] = _t(np.asarray(sub["gru_cell"][gate]["kernel"]).T)
+                sd[f"{pre}.gru.bias_{gate}_l0"] = _t(sub["gru_cell"][gate]["bias"])
+            _generic(sd, f"{pre}.out", sub["out"])
+        else:
+            _generic(sd, name, sub, _baseline_rename)
+    return sd
+
+
+def _baseline_rename(seg: str) -> str:
+    """UNet1D / DiffWave1D scope names → the port's module paths."""
+    if seg.endswith(("_downsample", "_upsample")):
+        return f"convs.{seg}"
+    if "_block" in seg or seg.startswith("final_block"):
+        return f"blocks.{seg}"
+    if seg.startswith("layer") and seg[5:].isdigit():
+        return f"layers.{seg[5:]}"
+    return seg
+
+
+def generator_diff_state_dict_from_flax(params: Mapping[str, Any]) -> StateDict:
+    """JAX `models.unet1d.GeneratorDiff` params → `models.unet1d.GeneratorDiff`."""
+    return baseline_state_dict_from_flax(params)
+
+
+def diffwav_state_dict_from_flax(params: Mapping[str, Any]) -> StateDict:
+    """JAX `models.diffwav.DiffWavModel` params → `models.diffwav.DiffWavModel`."""
+    return baseline_state_dict_from_flax(params)
+
+
+def tisa_state_dict_from_flax(params: Mapping[str, Any]) -> StateDict:
+    """JAX `models.tisa.Tisa` params → `models.tisa.Tisa` (same names)."""
+    return {k: _t(v) for k, v in _unwrap(params).items()}
+
+
+def local_transformer_state_dict_from_flax(params: Mapping[str, Any]) -> StateDict:
+    """JAX `models.local_transformer.LocalTransformer` params → the port's:
+    `attn_i` / `ff_i` → `attn.i` / `ff.i`."""
+    sd: StateDict = {}
+
+    def rename(seg: str) -> str:
+        head, _, idx = seg.rpartition("_")
+        return f"{head}.{idx}" if head in ("attn", "ff") and idx.isdigit() else seg
+
+    _generic(sd, "", _unwrap(params), rename)
     return sd
 
 
@@ -137,9 +300,7 @@ def zeroeggs_state_dict_from_flax(params: Mapping[str, Any]) -> StateDict:
         elif "scale" in tree:
             _layernorm(sd, prefix, tree)
         elif "in_proj" in tree:  # TorchMultiheadAttention: packed in-projection
-            sd[f"{prefix}.in_proj_weight"] = _t(np.asarray(tree["in_proj"]["kernel"]).T)
-            sd[f"{prefix}.in_proj_bias"] = _t(tree["in_proj"]["bias"])
-            _dense(sd, f"{prefix}.out_proj", tree["out_proj"])
+            _attention(sd, prefix, tree)
         else:
             for name, sub in tree.items():
                 if name.startswith("gru_l"):  # decoder GRU cells
@@ -148,12 +309,7 @@ def zeroeggs_state_dict_from_flax(params: Mapping[str, Any]) -> StateDict:
                         sd[f"{cell}.weight_{gate}"] = _t(np.asarray(sub[gate]["kernel"]).T)
                         sd[f"{cell}.bias_{gate}"] = _t(sub[gate]["bias"])
                 elif name.startswith("l") and name.endswith(("_fwd", "_bwd")):  # nn.GRU
-                    layer, direction = name[1:].split("_")
-                    suffix = f"l{layer}" + ("_reverse" if direction == "bwd" else "")
-                    for gate in ("ih", "hh"):
-                        sd[f"{prefix}.weight_{gate}_{suffix}"] = _t(
-                            np.asarray(sub[gate]["kernel"]).T)
-                        sd[f"{prefix}.bias_{gate}_{suffix}"] = _t(sub[gate]["bias"])
+                    _gru(sd, prefix, {name: sub})
                 else:
                     walk(f"{prefix}.{name}", sub)
 
@@ -262,32 +418,41 @@ def fold_weight_norm(g: torch.Tensor, v: torch.Tensor, dim: int = 2) -> torch.Te
     return g * v / v.pow(2).sum(dim=dims, keepdim=True).sqrt()
 
 
-def _load_reference(path: str, model: torch.nn.Module,
-                    device: Union[str, torch.device]) -> torch.nn.Module:
+def read_reference_state_dict(path: str) -> StateDict:
     """A reference-layout `.pt` (bare state_dict or {'model_state_dict': …})
-    into `model`, which moves to `device` in eval mode. `clip_model.*` and
-    the buffers the port recomputes are not read. `weights_only=True`: a
-    malicious checkpoint cannot run code."""
-    dev = resolve_device(device)
+    → its state_dict on the CPU, `clip_model.*` left out. `weights_only=True`:
+    a malicious checkpoint cannot run code."""
     sd = torch.load(path, map_location="cpu", weights_only=True)
     if isinstance(sd, dict) and "model_state_dict" in sd:
         sd = sd["model_state_dict"]
-    sd = {k: v for k, v in sd.items() if not k.startswith("clip_model.")}
-    _load_into(model, sd, path)
+    return {k: v for k, v in sd.items() if not k.startswith("clip_model.")}
+
+
+def _load_reference(path: Union[str, Mapping[str, torch.Tensor]], model: torch.nn.Module,
+                    device: Union[str, torch.device]) -> torch.nn.Module:
+    """A reference-layout `.pt` (or its `read_reference_state_dict`) into
+    `model`, which moves to `device` in eval mode. The buffers the port
+    recomputes are not read."""
+    dev = resolve_device(device)
+    sd = read_reference_state_dict(path) if isinstance(path, str) else path
+    _load_into(model, sd, path if isinstance(path, str) else "state_dict")
     return model.to(dev).eval()
 
 
-def load_reference_mdm(path: str, cfg: MDMConfig = MDMConfig(),
+def load_reference_mdm(path: Union[str, Mapping[str, torch.Tensor]],
+                       cfg: MDMConfig = MDMConfig(),
                        device: Union[str, torch.device] = "cuda") -> MDM:
-    """A reference-layout ZEGGS MDM `.pt` → an eval-mode `MDM` on `device`."""
+    """A reference-layout ZEGGS MDM `.pt` (or its state_dict) → an eval-mode
+    `MDM` on `device`."""
     return _load_reference(path, MDM(cfg), device)
 
 
-def load_reference_mdm_plus(path: str, cfg: MDMPlusConfig = MDMPlusConfig(),
+def load_reference_mdm_plus(path: Union[str, Mapping[str, torch.Tensor]],
+                            cfg: MDMPlusConfig = MDMPlusConfig(),
                             device: Union[str, torch.device] = "cuda") -> MDMPlus:
     """A reference-layout BEAT/TWH MDM `.pt` (the counterpart of the JAX
-    `convert_mdm_beat_twh`), or the port's own `model.pt` of one → an
-    eval-mode `MDMPlus` on `device`."""
+    `convert_mdm_beat_twh`), or the port's own `model.pt` of one, or its
+    state_dict → an eval-mode `MDMPlus` on `device`."""
     return _load_reference(path, MDMPlus(cfg), device)
 
 

@@ -8,6 +8,13 @@ window attends to [previous window | own window]; window 0's previous keys
 and values are -1.0 pads at position -1, so causal masking never removes
 them and only the user mask (padded with False) does; scale D^-0.5,
 -maxfloat masking, softmax in float32.
+
+`exact_windowsize=True` also masks keys more than `window_size` positions
+behind the query, and `autopad=True` zero-pads the sequence to a multiple of
+the window (the mask, if any, with False) and cuts the output back: the
+configuration of the `LocalTransformer` wrapper (`models/local_transformer.py`).
+Kernel A computes only the denoisers' configuration (as the Pallas kernel,
+which asserts `not exact_windowsize`), so these options are plain-only.
 """
 from __future__ import annotations
 
@@ -26,10 +33,19 @@ def _look_around(x: torch.Tensor, pad_value) -> torch.Tensor:
 
 
 def local_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window_size: int,
-                          mask: Optional[torch.Tensor] = None, *, heads: int = 1) -> torch.Tensor:
+                          mask: Optional[torch.Tensor] = None, *, heads: int = 1,
+                          exact_windowsize: bool = False, autopad: bool = False) -> torch.Tensor:
     """q, k, v: (B·H, N, D); mask: optional (B, N) bool key validity."""
     bh, n, d = q.shape
     w = window_size
+    pad = (-n) % w if autopad else 0
+    if pad:
+        q, k, v = (torch.nn.functional.pad(t, (0, 0, 0, pad)) for t in (q, k, v))
+        if mask is not None:
+            mask = torch.nn.functional.pad(mask.bool(), (0, pad), value=False)
+        out = local_attention_plain(q, k, v, w, mask, heads=heads,
+                                    exact_windowsize=exact_windowsize)
+        return out[:, :n]
     if n % w:
         raise ValueError(f"sequence length {n} not divisible by window {w}")
     W = n // w
@@ -47,7 +63,10 @@ def local_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, win
     # accumulation): -maxfloat has no bf16 value
     with torch.autocast(q.device.type, enabled=False):
         sim = torch.einsum("bwie,bwje->bwij", bq.float(), bk.float()) * scale
-        sim = sim.masked_fill(q_pos < k_pos, NEG_INF)
+        causal = q_pos < k_pos
+        if exact_windowsize:
+            causal = causal | (q_pos > k_pos + w)
+        sim = sim.masked_fill(causal, NEG_INF)
         if mask is not None:
             b = mask.shape[0]
             mw = _look_around(mask.reshape(b, W, w).bool(), False)      # (b, W, 2w)

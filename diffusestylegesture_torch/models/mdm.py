@@ -1,37 +1,60 @@
-"""MDM denoiser, ZEGGS variant (DiffuseStyleGesture).
+"""MDM denoiser, ZEGGS variant (DiffuseStyleGesture), every conditioning mode and trunk.
 
 Port of `diffusestylegesture_tpu/models/mdm.py` and of its serving twin
-`models/fused_mdm.py` for the live configuration
-`cond_mode='cross_local_attention3_style1'`, `audio_feat='wavlm'` (latent
-256, 8 layers, 4 encoder heads, 8 local/rotary heads, window 11; reference
-`main/model/mdm.py:10-358`). Per step:
+`models/fused_mdm.py` (reference `main/model/mdm.py:10-358`). The live
+configuration is `cond_mode='cross_local_attention3_style1'`,
+`audio_feat='wavlm'` (latent 256, 8 layers, 4 encoder heads, 8 local/rotary
+heads, window 11). Per step:
 
   token = [style emb | seed emb] + timestep emb
   h = local_attention(rope(heads(Linear([token | pose emb | audio emb]))))
   out = Linear(encoder_trunk(rope(heads([token ; h])))[1:])
 
-The local attention and each trunk layer run through the hand-written
-CUDA kernels on a CUDA tensor (`ops/`); ``impl='plain'`` runs their plain
-PyTorch versions instead.
+The rest of the JAX `MDMConfig` matrix (`mdm.py:152-300`):
 
-``train=True`` is the training forward: independent per-example
-Bernoulli(`cond_mask_prob`) drops of the style and of the seed on top of
-`uncond` (JAX `mdm.py:153-160`), and dropout at the trunk's four places, all
+* `cross_local_attention5`: the local block only; plain
+  `cross_local_attention`: the trunk first, then the local block;
+* the plain branches (a cond mode without `cross_local_attention`, e.g.
+  `style1` / `style2`): pose features, (the token, for `gru`,) the audio
+  features and (`style2`, not `gru`) a second style embedding are concatenated
+  per frame and projected (`input_process_plain`); then `trans_enc` (the token
+  prepended, sinusoidal positions added), `mytrans_enc` (the same with RoPE
+  over the whole latent as one head instead), `trans_dec` (a post-norm decoder
+  over the frames with the token as its one-row memory) or `gru` (additive
+  positions, then a `num_layers` GRU). As in the JAX package, these repair
+  the reference's unrunnable branches with the same style/seed + timestep
+  token;
+* `audio_feat`: 'wavlm' (1024 → 64 through `WavEncoder`), 'mfcc' (13-d) or
+  'wav encoder' (32-d), the last two precomputed per frame;
+* `n_seed = 0` (no seed embedding), and `moe_experts` on every encoder trunk
+  (`models/moe.py`; a train forward then returns `(prediction, aux)`, the
+  mean of the layers' load-balance losses).
+
+The local attention and each dense encoder layer run through the
+hand-written CUDA kernels on a CUDA tensor (`ops/`); ``impl='plain'`` runs
+their plain PyTorch versions instead. The MoE FFN, the decoder and the GRU
+have no kernel and run their plain ops on every device.
+
+``train=True`` is the training forward: per-example Bernoulli(`cond_mask_prob`)
+drops of the style and of the seed on top of `uncond` (JAX `mdm.py:153-160`;
+the `style2` embedding takes the style drop), and dropout in the trunk, all
 drawn from the `generator` passed in, in that order. It needs
 ``impl='plain'``, the counterpart of the JAX trainer's XLA path
 (`attn_impl="xla"`, the flax trunk): neither CUDA kernel has a backward, nor
 has either Pallas kernel.
 
 ``dtype=torch.bfloat16`` is the serving mode (`--serve_fast`, with
-``activation='gelu_tanh'``): every trunk layer runs kernel B in its
+``activation='gelu_tanh'``): every encoder layer runs kernel B in its
 `mxu_bf16` mode (bf16 matmul operands, float32 sums; on the CPU the plain
-twin `TorchTransformerEncoder(..., mxu_bf16=True)`). The rest stays float32,
-the local block included: kernel A takes float32 only. The JAX model with
-``dtype=bfloat16`` (and bf16-cast params) runs the local block and the trunk's
-activations in bf16 as well; the port is held to it by the bench gate's
-bar, RMS/std 2e-2 of the final poses. Parameter names are the reference module's, so
-a reference state_dict loads with `load_state_dict` once `clip_model.*`
-and the unused buffers are dropped (`models/convert.py`).
+twin `TorchTransformerEncoder(..., mxu_bf16=True)`), and the MoE FFN and the
+decoder round their matmul operands the same way; the GRU stays float32. The
+rest stays float32, the local block included: kernel A takes float32 only.
+The JAX model with ``dtype=bfloat16`` (and bf16-cast params) runs the local
+block and the trunk's activations in bf16 as well; the port is held to it by
+the bench gate's bar, RMS/std 2e-2 of the final poses. Parameter names are
+the reference module's, so a reference state_dict loads with
+`load_state_dict` once `clip_model.*` and the unused buffers are dropped
+(`models/convert.py`).
 """
 from __future__ import annotations
 
@@ -42,11 +65,13 @@ import torch
 from torch import nn
 
 from . import rotary
-from .embeddings import InputProcess, OutputProcess, TimestepEmbedder, WavEncoder, mask_cond
+from .embeddings import (InputProcess, OutputProcess, TimestepEmbedder, WavEncoder, mask_cond,
+                         sinusoidal_pe)
 from .local_attention import local_attention
-from .transformer import TorchTransformerEncoder
+from .transformer import TorchTransformerDecoder, TorchTransformerEncoder
 
-AUDIO_FEAT_DIMS = {"wavlm": 64}
+AUDIO_FEAT_DIMS = {"wav encoder": 32, "mfcc": 13, "wavlm": 64}
+ARCHS = ("trans_enc", "mytrans_enc", "trans_dec", "gru")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,7 +85,7 @@ class MDMConfig:
     local_heads: int = 8  # rotary / local-attention heads
     dropout: float = 0.1  # the trunk's, in train mode
     activation: str = "gelu"
-    audio_feat: str = "wavlm"
+    audio_feat: str = "wavlm"  # "wavlm" | "mfcc" | "wav encoder"
     audio_in_dim: int = 1024  # WavLM feature width (Large: 1024)
     style_dim_in: int = 6
     style_dim: int = 64
@@ -68,10 +93,15 @@ class MDMConfig:
     cond_mode: str = "cross_local_attention3_style1"
     cond_mask_prob: float = 0.1
     window_size: int = 11
+    # the trunk of the plain (non cross_local_attention) branches
     arch: str = "trans_enc"
+    moe_experts: int = 0
+    moe_capacity_factor: float = 2.0
+    # the JAX package's pipelined trunk, split q/k/v layout and time-sharded
+    # local attention (attn_impl="seq_parallel"): the port's parallel slice
     trunk_impl: str = "loop"
     split_qkv: bool = False
-    moe_experts: int = 0
+    seq_parallel: bool = False
     # "kernel": the CUDA kernels on CUDA tensors; "plain": the plain
     # PyTorch versions everywhere (the comparison path)
     impl: str = "kernel"
@@ -86,26 +116,39 @@ class MDMConfig:
     def input_feats(self) -> int:
         return self.njoints * self.nfeats
 
+    @property
+    def ordering(self) -> str:
+        """'local_trunk' (cross_local_attention3), 'local' (5), 'trunk_local'
+        (cross_local_attention) or 'plain'."""
+        for key, order in (("cross_local_attention3", "local_trunk"),
+                           ("cross_local_attention5", "local"),
+                           ("cross_local_attention", "trunk_local")):
+            if key in self.cond_mode:
+                return order
+        return "plain"
+
     def validate(self) -> None:
         unsupported = []
-        if self.cond_mode != "cross_local_attention3_style1":
-            unsupported.append(f"cond_mode={self.cond_mode!r}")
-        if self.audio_feat != "wavlm":
-            unsupported.append(f"audio_feat={self.audio_feat!r}")
-        if self.arch != "trans_enc":
-            unsupported.append(f"arch={self.arch!r}")
         if self.trunk_impl != "loop":
             unsupported.append(f"trunk_impl={self.trunk_impl!r}")
         if self.split_qkv:
             unsupported.append("split_qkv")
-        if self.moe_experts:
-            unsupported.append(f"moe_experts={self.moe_experts}")
-        if self.n_seed == 0:
-            unsupported.append("n_seed=0")
+        if self.seq_parallel:
+            unsupported.append("attn_impl='seq_parallel'")
         if unsupported:
             raise NotImplementedError(
-                "the PyTorch port implements only the ZEGGS cross_local_attention3_style1 "
-                "+ wavlm denoiser; unsupported: " + ", ".join(unsupported))
+                "the PyTorch port's parallel slice brings: " + ", ".join(unsupported))
+        if self.audio_feat not in AUDIO_FEAT_DIMS:
+            raise ValueError(f"unknown audio_feat {self.audio_feat!r} ({sorted(AUDIO_FEAT_DIMS)})")
+        if self.ordering == "plain":
+            if self.arch not in ARCHS:
+                raise ValueError(f"unknown arch {self.arch!r} ({ARCHS})")
+            if self.arch in ("trans_dec", "gru") and self.moe_experts:
+                # these arches have no encoder trunk (JAX mdm.py:252-259)
+                raise ValueError(f"arch={self.arch!r} has no encoder trunk for moe_experts")
+        if "style1" in self.cond_mode and self.n_seed == 0 and self.style_dim != self.latent_dim:
+            raise ValueError("style1 with n_seed=0 makes the style embedding the token: "
+                             "style_dim must equal latent_dim")
         if self.impl not in ("kernel", "plain"):
             raise ValueError(f"unknown impl {self.impl!r}")
         if self.dtype not in (torch.float32, torch.bfloat16):
@@ -117,33 +160,60 @@ class MDM(nn.Module):
 
     x: (B, njoints, nfeats, T) noisy window; timesteps: (B,) int;
     cond: {'style': (B, 6), 'seed': (B, njoints, nfeats, n_seed),
-           'audio': (B, T, 1024), 'mask_local': (B, T) bool};
+           'audio': (B, T, 1024 wavlm | 13 mfcc | 32 wav encoder),
+           'mask_local': (B, T) bool};
     uncond: optional (B,) bool, per-example condition drop for CFG;
     train: the training forward (module docstring), which draws from
     `generator`; cond_drop: optional ((B,) style drops, (B,) seed drops) used
     in place of the draws, so that a test can replay another trainer's.
-    Returns the x0 prediction, (B, njoints, nfeats, T).
+    Returns the x0 prediction, (B, njoints, nfeats, T); a train forward with
+    `moe_experts > 0` returns (prediction, mean load-balance loss).
     """
 
     def __init__(self, cfg: MDMConfig = MDMConfig()):
         super().__init__()
         cfg.validate()
         self.cfg = cfg
-        D = cfg.latent_dim
+        D, A = cfg.latent_dim, cfg.audio_feat_dim
+        order = cfg.ordering
         self.embed_timestep = TimestepEmbedder(D)
-        self.embed_style = nn.Linear(cfg.style_dim_in, cfg.style_dim)
-        self.embed_text = nn.Linear(cfg.input_feats * cfg.n_seed, D - cfg.style_dim)
-        self.WavEncoder = WavEncoder(cfg.audio_in_dim, cfg.audio_feat_dim)
+        style2 = order == "plain" and "style2" in cfg.cond_mode and cfg.arch != "gru"
+        if "style1" in cfg.cond_mode:
+            self.embed_style = nn.Linear(cfg.style_dim_in, cfg.style_dim)
+            if cfg.n_seed:
+                self.embed_text = nn.Linear(cfg.input_feats * cfg.n_seed, D - cfg.style_dim)
+        elif cfg.n_seed:
+            self.embed_text = nn.Linear(cfg.input_feats * cfg.n_seed, D)
+        if style2:
+            self.embed_style = nn.Linear(cfg.style_dim_in, cfg.style_dim)
+        if cfg.audio_feat == "wavlm":
+            self.WavEncoder = WavEncoder(cfg.audio_in_dim, A)
+        # the JAX MDM applies input_process in every branch, so every checkpoint
+        # holds it; the plain branches do not read it
         self.input_process = InputProcess(cfg.input_feats, D)
-        self.input_process2 = nn.Linear(2 * D + cfg.audio_feat_dim, D)
-        self.seqTransEncoder = TorchTransformerEncoder(
-            cfg.num_layers, D, cfg.num_heads, cfg.ff_size, cfg.activation, cfg.dropout)
+        if order == "plain":
+            width = cfg.input_feats + A + (D if cfg.arch == "gru" else 0) + (
+                cfg.style_dim if style2 else 0)
+            self.input_process_plain = nn.Linear(width, D)
+            self.register_buffer("pe", torch.from_numpy(sinusoidal_pe(5000, D)), persistent=False)
+        else:
+            self.input_process2 = nn.Linear(2 * D + A, D)
+        if order in ("local_trunk", "trunk_local") or cfg.arch in ("trans_enc", "mytrans_enc") \
+                and order == "plain":
+            self.seqTransEncoder = TorchTransformerEncoder(
+                cfg.num_layers, D, cfg.num_heads, cfg.ff_size, cfg.activation, cfg.dropout,
+                cfg.moe_experts, cfg.moe_capacity_factor)
+        elif order == "plain" and cfg.arch == "trans_dec":
+            self.seqTransDecoder = TorchTransformerDecoder(
+                cfg.num_layers, D, cfg.num_heads, cfg.ff_size, cfg.activation, cfg.dropout)
+        elif order == "plain":
+            self.gru = nn.GRU(D, D, cfg.num_layers, batch_first=True)
         self.output_process = OutputProcess(cfg.input_feats, D, cfg.njoints, cfg.nfeats)
 
     def forward(self, x: torch.Tensor, timesteps: torch.Tensor, cond: Dict[str, torch.Tensor],
                 uncond: Optional[torch.Tensor] = None, train: bool = False,
                 generator: Optional[torch.Generator] = None,
-                cond_drop: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
+                cond_drop: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
         cfg = self.cfg
         B, _, _, T = x.shape
         D, H = cfg.latent_dim, cfg.local_heads
@@ -163,19 +233,68 @@ class MDM(nn.Module):
                 for _ in range(2))
 
         emb_t = self.embed_timestep(timesteps)
-        style_emb = mask_cond(self.embed_style(cond["style"]), uncond, style_drop)
-        seed_emb = self.embed_text(mask_cond(cond["seed"].reshape(B, -1), uncond, seed_drop))
-        token = torch.cat([style_emb, seed_emb], dim=-1) + emb_t        # (B, D)
-        enc_audio = self.WavEncoder(cond["audio"])                        # (B, T, 64)
-        x_ = self.input_process(x)                                        # (B, T, D)
+        seed = None
+        if cfg.n_seed:
+            seed = self.embed_text(mask_cond(cond["seed"].reshape(B, -1), uncond, seed_drop))
+        if "style1" in cfg.cond_mode:
+            style_emb = mask_cond(self.embed_style(cond["style"]), uncond, style_drop)
+            token = style_emb if seed is None else torch.cat([style_emb, seed], dim=-1)
+        else:
+            token = seed if seed is not None else torch.zeros(B, D, device=x.device)
+        token = token + emb_t                                             # (B, D)
+        enc_audio = self.WavEncoder(cond["audio"]) if cfg.audio_feat == "wavlm" else cond["audio"]
+        mxu_bf16 = cfg.dtype == torch.bfloat16
+        aux = [] if train and cfg.moe_experts else None
+        order = cfg.ordering
 
-        # local block: cat(token, pose, audio) → Linear → RoPE → windowed attention
-        cat = torch.cat([token[:, None, :].expand(B, T, D), x_, enc_audio], dim=-1)
-        h = local_block(self.input_process2(cat), H, cfg.window_size, cond.get("mask_local"),
-                        cfg.impl)
-        out = trunk(self.seqTransEncoder, token, h, H, cfg.impl, cfg.dtype == torch.bfloat16,
-                    train, generator)
-        return self.output_process(out)
+        def local(seq):
+            # cat(token, seq, audio) → Linear → RoPE → windowed attention
+            cat = torch.cat([token[:, None, :].expand(B, T, D), seq, enc_audio], dim=-1)
+            return local_block(self.input_process2(cat), H, cfg.window_size,
+                               cond.get("mask_local"), cfg.impl)
+
+        def encoder(seq):
+            return trunk(self.seqTransEncoder, token, seq, H, cfg.impl, mxu_bf16, train,
+                         generator, aux)
+
+        if order == "local_trunk":
+            out = encoder(local(self.input_process(x)))
+        elif order == "local":
+            out = local(self.input_process(x))
+        elif order == "trunk_local":
+            out = local(encoder(self.input_process(x)))
+        else:
+            out = self._plain(x, token, enc_audio, cond, uncond, style_drop, mxu_bf16, train,
+                              generator, aux)
+        out = self.output_process(out)
+        if aux is not None:
+            return out, torch.stack(aux).mean()
+        return out
+
+    def _plain(self, x, token, enc_audio, cond, uncond, style_drop, mxu_bf16, train, generator,
+               aux):
+        """The plain branches (JAX `mdm.py:229-297`): per-frame features →
+        `input_process_plain` → additive sinusoidal positions (RoPE over the
+        whole latent for mytrans_enc) → the arch's trunk."""
+        cfg = self.cfg
+        B, _, _, T = x.shape
+        D = cfg.latent_dim
+        feats = [x.reshape(B, cfg.input_feats, T).transpose(1, 2), enc_audio]
+        if cfg.arch == "gru":
+            feats.insert(1, token[:, None, :].expand(B, T, D))
+        elif "style2" in cfg.cond_mode:
+            style2 = mask_cond(self.embed_style(cond["style"]), uncond, style_drop)
+            feats.append(style2[:, None, :].expand(B, T, cfg.style_dim))
+        h = self.input_process_plain(torch.cat(feats, dim=-1))
+        if cfg.arch in ("trans_enc", "mytrans_enc"):
+            seq = torch.cat([token[:, None, :], h], dim=1)
+            seq = rotary.rope(seq) if cfg.arch == "mytrans_enc" else seq + self.pe[: T + 1]
+            return self.seqTransEncoder(seq, impl=cfg.impl, mxu_bf16=mxu_bf16, train=train,
+                                        generator=generator, aux=aux)[:, 1:]
+        seq = h + self.pe[:T]
+        if cfg.arch == "trans_dec":
+            return self.seqTransDecoder(seq, token[:, None, :], mxu_bf16, train, generator)
+        return self.gru(seq)[0]
 
 
 def local_block(proj: torch.Tensor, heads: int, window: int, mask: Optional[torch.Tensor],
@@ -198,11 +317,14 @@ def local_block(proj: torch.Tensor, heads: int, window: int, mask: Optional[torc
 
 def trunk(encoder: TorchTransformerEncoder, token: torch.Tensor, h: torch.Tensor, heads: int,
           impl: str, mxu_bf16: bool, train: bool = False,
-          generator: Optional[torch.Generator] = None) -> torch.Tensor:
+          generator: Optional[torch.Generator] = None,
+          aux: Optional[list] = None) -> torch.Tensor:
     """Prepend the (B, D) token to the (B, T, D) frames, RoPE over `heads`
-    heads, run the encoder layers (kernel B on the kernel route), drop the
-    token: (B, T, D)."""
+    heads, run the encoder layers (kernel B on the kernel route for the dense
+    ones), drop the token: (B, T, D). MoE layers append their load-balance
+    loss to `aux`."""
     B = h.shape[0]
     seq = torch.cat([token[:, None, :], h], dim=1)
     seq = rotary.heads_merge(rotary.rope(rotary.heads_split(seq, heads)), B, heads).contiguous()
-    return encoder(seq, impl=impl, mxu_bf16=mxu_bf16, train=train, generator=generator)[:, 1:]
+    return encoder(seq, impl=impl, mxu_bf16=mxu_bf16, train=train, generator=generator,
+                   aux=aux)[:, 1:]

@@ -21,6 +21,9 @@ Port of `diffusestylegesture_tpu/models/mdm_plus.py` (reference
 The local block and the trunk are the ZEGGS `MDM`'s (`models/mdm.py`): the
 local attention runs kernel A and each trunk layer kernel B on a CUDA tensor
 (`impl="kernel"`), their plain PyTorch versions with `impl="plain"`.
+`moe_experts > 0` swaps every trunk layer's FFN for the Switch-routed
+`models/moe.py::MoEFeedForward` (JAX `mdm_plus.py:76-78`); those layers run
+their plain ops (kernel B computes a dense FFN).
 `dtype=torch.bfloat16` is the serving mode (kernel B's `mxu_bf16` mode, the
 rest float32), as in `MDM`. `train=True` is the training forward (per-example
 drops of the style, and of the seed in variant 3, then dropout in the trunk),
@@ -62,10 +65,13 @@ class MDMPlusConfig:
     cond_mode: str = "cross_local_attention4_style1"
     cond_mask_prob: float = 0.1
     window_size: int = 15
-    # the JAX package's other trunk, layouts and parallel paths (slices 8 and 9)
+    # >0: a Switch-routed MoE FFN in every trunk layer (`models/moe.py`)
+    moe_experts: int = 0
+    moe_capacity_factor: float = 2.0
+    # the JAX package's pipelined trunk, split q/k/v layout and time-sharded
+    # local attention: the port's parallel slice
     trunk_impl: str = "loop"
     split_qkv: bool = False
-    moe_experts: int = 0
     seq_parallel: bool = False
     # "kernel": the CUDA kernels on CUDA tensors; "plain": the plain versions
     impl: str = "kernel"
@@ -89,8 +95,6 @@ class MDMPlusConfig:
             unsupported.append(f"trunk_impl={self.trunk_impl!r}")
         if self.split_qkv:
             unsupported.append("split_qkv")
-        if self.moe_experts:
-            unsupported.append(f"moe_experts={self.moe_experts}")
         if self.seq_parallel:
             unsupported.append("seq_parallel")
         if unsupported:
@@ -113,7 +117,9 @@ class MDMPlus(nn.Module):
     T_a = T (variant 3), T − n_seed (4), T − 2·n_seed (5);
     uncond: optional (B,) bool, per-example condition drop for CFG;
     train / generator / cond_drop: as `MDM.forward` (the seed drop acts in
-    variant 3 only). Returns the x0 prediction, (B, njoints, nfeats, T).
+    variant 3 only). Returns the x0 prediction, (B, njoints, nfeats, T); a
+    train forward with `moe_experts > 0` returns (prediction, mean
+    load-balance loss of the MoE layers).
     """
 
     def __init__(self, cfg: MDMPlusConfig = MDMPlusConfig()):
@@ -135,7 +141,8 @@ class MDMPlus(nn.Module):
         self.input_process = InputProcess(cfg.input_feats, D)
         self.input_process2 = nn.Linear(2 * D + A, D)
         self.seqTransEncoder = TorchTransformerEncoder(
-            cfg.num_layers, D, cfg.num_heads, cfg.ff_size, cfg.activation, cfg.dropout)
+            cfg.num_layers, D, cfg.num_heads, cfg.ff_size, cfg.activation, cfg.dropout,
+            cfg.moe_experts, cfg.moe_capacity_factor)
         self.output_process = OutputProcess(cfg.input_feats, D, cfg.njoints, cfg.nfeats)
 
     def forward(self, x: torch.Tensor, timesteps: torch.Tensor, cond: Dict[str, torch.Tensor],
@@ -182,9 +189,10 @@ class MDMPlus(nn.Module):
         cat = torch.cat([token[:, None, :].expand(B, T, D), x_, enc_text], dim=-1)
         h = local_block(self.input_process2(cat), H, cfg.window_size, cond.get("mask_local"),
                         cfg.impl)
-        out = trunk(self.seqTransEncoder, token, h, H, cfg.impl, cfg.dtype == torch.bfloat16,
-                    train, generator)
-        return self.output_process(out)
+        aux = [] if train and cfg.moe_experts else None
+        out = self.output_process(trunk(self.seqTransEncoder, token, h, H, cfg.impl,
+                                        cfg.dtype == torch.bfloat16, train, generator, aux))
+        return out if aux is None else (out, torch.stack(aux).mean())
 
 
 def beat_mdm(**overrides) -> MDMPlus:

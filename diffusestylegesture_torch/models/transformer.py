@@ -19,6 +19,19 @@ at the JAX layer's four places, the attention weights, after attention,
 after the FFN activation and after the FFN (`transformer.py:88,136,149,151`),
 its masks drawn from the `generator` passed in. The CUDA kernel has no
 backward, in this package as in the JAX one, so training never takes it.
+
+`moe_experts > 0` swaps a layer's dense FFN for the Switch-routed
+`models/moe.py::MoEFeedForward` (JAX `transformer.py:111-143`): attention and
+both LayerNorms stay, and the layer runs these plain ops on every device,
+since kernel B computes a dense FFN. The layer's load-balance loss goes into
+the `aux` list the encoder is given (the JAX layer `sow`s it).
+
+`TorchTransformerDecoder` is the torch-1.9 post-norm decoder of the
+`trans_dec` MDM trunk (JAX `transformer.py:156-214`): self-attention,
+cross-attention to the memory (one packed in-projection whose query rows
+act on the frames and key/value rows on the memory), the FFN, each followed
+by residual + LayerNorm, no final norm. No kernel computes it: it runs these
+plain ops on every device.
 """
 from __future__ import annotations
 
@@ -72,13 +85,22 @@ class TorchMultiheadAttention(nn.Module):
         nn.init.zeros_(self.out_proj.bias)
 
     def forward(self, x: torch.Tensor, mxu_bf16: bool = False, p_drop: float = 0.0,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                kv: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Self-attention over x (B, T, D), or cross-attention to kv (B, S, D)
+        when given: the q rows of the packed projection act on x, the k and v
+        rows on kv."""
         B, T, D = x.shape
         H = self.num_heads
         hd = D // H
         r = _operand(mxu_bf16)
-        q, k, v = F.linear(r(x), r(self.in_proj_weight), self.in_proj_bias).chunk(3, dim=-1)
-        q, k, v = (t.reshape(B, T, H, hd).transpose(1, 2) for t in (q, k, v))
+        if kv is None:
+            q, k, v = F.linear(r(x), r(self.in_proj_weight), self.in_proj_bias).chunk(3, dim=-1)
+        else:
+            q = F.linear(r(x), r(self.in_proj_weight[:D]), self.in_proj_bias[:D])
+            k, v = F.linear(r(kv), r(self.in_proj_weight[D:]), self.in_proj_bias[D:]).chunk(2, -1)
+        q = q.reshape(B, T, H, hd).transpose(1, 2)
+        k, v = (t.reshape(B, t.shape[1], H, hd).transpose(1, 2) for t in (k, v))
         sim = torch.matmul(r(q), r(k).transpose(-1, -2)) * hd ** -0.5
         attn = dropout(torch.softmax(sim, dim=-1), p_drop, generator)
         out = torch.matmul(r(attn), r(v))
@@ -86,30 +108,51 @@ class TorchMultiheadAttention(nn.Module):
                         self.out_proj.bias)
 
 
+def _ffn(layer: nn.Module, x: torch.Tensor, r, p: float,
+         generator: Optional[torch.Generator]) -> torch.Tensor:
+    """linear1 → activation → dropout → linear2 of a dense post-norm layer."""
+    h = F.linear(r(x), r(layer.linear1.weight), layer.linear1.bias)
+    h = dropout(activation_fn(layer.activation)(h), p, generator)
+    return F.linear(r(h), r(layer.linear2.weight), layer.linear2.bias)
+
+
 class TorchEncoderLayer(nn.Module):
     """torch-1.9 `nn.TransformerEncoderLayer` (post-norm); `dropout` is the rate
-    of its train-mode forward."""
+    of its train-mode forward. `moe_experts > 0`: the FFN is a
+    `MoEFeedForward` named `moe` (no `linear1` / `linear2`)."""
 
     def __init__(self, d_model: int, nhead: int, dim_feedforward: int = 2048,
-                 activation: str = "gelu", dropout: float = 0.0):
+                 activation: str = "gelu", dropout: float = 0.0, moe_experts: int = 0,
+                 moe_capacity_factor: float = 2.0):
         super().__init__()
         activation_fn(activation)  # validate early
         self.activation = activation
         self.dropout = dropout
         self.self_attn = TorchMultiheadAttention(d_model, nhead)
-        self.linear1 = nn.Linear(d_model, dim_feedforward)
-        self.linear2 = nn.Linear(dim_feedforward, d_model)
+        if moe_experts > 0:
+            from .moe import MoEFeedForward
+
+            self.moe = MoEFeedForward(d_model, dim_feedforward, moe_experts, moe_capacity_factor,
+                                      activation, dropout)
+        else:
+            self.moe = None
+            self.linear1 = nn.Linear(d_model, dim_feedforward)
+            self.linear2 = nn.Linear(dim_feedforward, d_model)
         self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
         self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
 
     def forward(self, x: torch.Tensor, mxu_bf16: bool = False, train: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        r = _operand(mxu_bf16)
+                generator: Optional[torch.Generator] = None,
+                aux: Optional[list] = None) -> torch.Tensor:
+        """`aux`: a list the MoE layer appends its load-balance loss to."""
         p = self.dropout if train else 0.0
         x = self.norm1(x + dropout(self.self_attn(x, mxu_bf16, p, generator), p, generator))
-        h = F.linear(r(x), r(self.linear1.weight), self.linear1.bias)
-        h = dropout(activation_fn(self.activation)(h), p, generator)
-        h = F.linear(r(h), r(self.linear2.weight), self.linear2.bias)
+        if self.moe is None:
+            h = _ffn(self, x, _operand(mxu_bf16), p, generator)
+        else:
+            h, layer_aux = self.moe(x, mxu_bf16, train, generator)
+            if aux is not None:
+                aux.append(layer_aux)
         return self.norm2(x + dropout(h, p, generator))
 
 
@@ -117,21 +160,27 @@ class TorchTransformerEncoder(nn.Module):
     """Stack of `TorchEncoderLayer`s, no final norm (as the reference)."""
 
     def __init__(self, num_layers: int, d_model: int, nhead: int, dim_feedforward: int = 2048,
-                 activation: str = "gelu", dropout: float = 0.0):
+                 activation: str = "gelu", dropout: float = 0.0, moe_experts: int = 0,
+                 moe_capacity_factor: float = 2.0):
         super().__init__()
         self.layers = nn.ModuleList(
-            TorchEncoderLayer(d_model, nhead, dim_feedforward, activation, dropout)
+            TorchEncoderLayer(d_model, nhead, dim_feedforward, activation, dropout, moe_experts,
+                              moe_capacity_factor)
             for _ in range(num_layers))
 
     def forward(self, x: torch.Tensor, impl: str = "kernel", mxu_bf16: bool = False,
-                train: bool = False, generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """impl="kernel": each layer through the CUDA kernel on a CUDA tensor
-        (its plain version on a CPU tensor); impl="plain": plain everywhere.
-        mxu_bf16: the bf16-operand mode of every layer (module docstring).
-        train: the training forward, plain only (module docstring)."""
+                train: bool = False, generator: Optional[torch.Generator] = None,
+                aux: Optional[list] = None) -> torch.Tensor:
+        """impl="kernel": each dense layer through the CUDA kernel on a CUDA
+        tensor (its plain version on a CPU tensor), each MoE layer through its
+        plain ops (kernel B computes a dense FFN); impl="plain": plain
+        everywhere. mxu_bf16: the bf16-operand mode of every layer (module
+        docstring). train: the training forward, plain only (module
+        docstring). aux: a list that collects each MoE layer's load-balance
+        loss."""
         if impl == "plain":
             for layer in self.layers:
-                x = layer(x, mxu_bf16, train, generator)
+                x = layer(x, mxu_bf16, train, generator, aux)
             return x
         if impl != "kernel":
             raise ValueError(f"unknown trunk impl {impl!r}")
@@ -141,5 +190,51 @@ class TorchTransformerEncoder(nn.Module):
         from ..ops.encoder_layer import encoder_layer
 
         for layer in self.layers:
-            x = encoder_layer(x, layer, mxu_bf16)
+            x = encoder_layer(x, layer, mxu_bf16) if layer.moe is None else \
+                layer(x, mxu_bf16, aux=aux)
+        return x
+
+
+class TorchDecoderLayer(nn.Module):
+    """torch-1.9 `nn.TransformerDecoderLayer` (post-norm): self-attention,
+    cross-attention to the memory, FFN, each with residual + LayerNorm."""
+
+    def __init__(self, d_model: int, nhead: int, dim_feedforward: int = 2048,
+                 activation: str = "gelu", dropout: float = 0.0):
+        super().__init__()
+        activation_fn(activation)  # validate early
+        self.activation = activation
+        self.dropout = dropout
+        self.self_attn = TorchMultiheadAttention(d_model, nhead)
+        self.multihead_attn = TorchMultiheadAttention(d_model, nhead)
+        self.linear1 = nn.Linear(d_model, dim_feedforward)
+        self.linear2 = nn.Linear(dim_feedforward, d_model)
+        self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
+        self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
+        self.norm3 = nn.LayerNorm(d_model, eps=1e-5)
+
+    def forward(self, x: torch.Tensor, memory: torch.Tensor, mxu_bf16: bool = False,
+                train: bool = False, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        p = self.dropout if train else 0.0
+        x = self.norm1(x + dropout(self.self_attn(x, mxu_bf16, p, generator), p, generator))
+        ca = self.multihead_attn(x, mxu_bf16, p, generator, kv=memory)
+        x = self.norm2(x + dropout(ca, p, generator))
+        return self.norm3(x + dropout(_ffn(self, x, _operand(mxu_bf16), p, generator), p,
+                                      generator))
+
+
+class TorchTransformerDecoder(nn.Module):
+    """Stack of `TorchDecoderLayer`s, no final norm (torch's default)."""
+
+    def __init__(self, num_layers: int, d_model: int, nhead: int, dim_feedforward: int = 2048,
+                 activation: str = "gelu", dropout: float = 0.0):
+        super().__init__()
+        self.layers = nn.ModuleList(
+            TorchDecoderLayer(d_model, nhead, dim_feedforward, activation, dropout)
+            for _ in range(num_layers))
+
+    def forward(self, x: torch.Tensor, memory: torch.Tensor, mxu_bf16: bool = False,
+                train: bool = False, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        for layer in self.layers:
+            x = layer(x, memory, mxu_bf16, train, generator)
         return x

@@ -4,6 +4,7 @@ from .engine import (
     ZeggsSampler,
     crossfade_weights,
     generate_multi_clip,
+    make_mfcc_window_fn,
     slice_audio_windows,
     unnormalize_poses,
 )
@@ -16,6 +17,6 @@ from .styles import blend_styles, style_grid, style_vector
 __all__ = ["BeatEngineConfig", "BeatTwhSampler", "BeatTwhStreamSampler", "GestureServer",
            "ServerConfig", "ZEGGS_ROOT_CHANNELS", "ZeggsEngineConfig", "ZeggsSampler",
            "ZeggsStreamSampler", "blend_styles", "crossfade_weights", "edit_motion",
-           "feature_mask", "generate_multi_clip", "in_between_mask", "prepare_seed_gesture",
+           "feature_mask", "generate_multi_clip", "in_between_mask", "make_mfcc_window_fn", "prepare_seed_gesture",
            "restyle_window", "slice_audio_windows", "style_grid", "style_vector",
            "unnormalize_poses"]

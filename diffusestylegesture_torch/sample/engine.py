@@ -21,7 +21,13 @@ buffers of the graph set that each window refills. Between windows only the
 seed carry, the root-delta correction and the crossfade run as eager ops.
 `graphs=False` runs the same step functions eagerly on the card: the
 comparison path, which gives the same numbers; on the CPU that is the only
-path. The window runner, the graph bookkeeping and the per-window carry
+path.
+
+A window function marked `host_side` (`make_mfcc_window_fn`: the Sphinx MFCC
+of an `audio_feat='mfcc'` MDM, reference `inference_mfcc`) runs on the host
+over numpy windows, outside every graph (JAX `engine.py:155-164,244-256,
+366-372`); its features go to the card once, and each window copies its row
+into the run's static audio buffer, which the captured steps read. The window runner, the graph bookkeeping and the per-window carry
 (`_WindowRun`, `_WindowSampler.window`) serve the BEAT/TWH engine
 (`engine_beat.py`), the streams (`streaming.py`) and the server
 (`server.py`) too.
@@ -264,10 +270,18 @@ class ZeggsSampler(_WindowSampler):
         return super().capture_seconds + sum(rec[1].capture_seconds
                                              for rec in self._encoders.values())
 
-    def encode(self, wavlm_params, windows: torch.Tensor) -> torch.Tensor:
-        """WavLM over (W, S) windows → (W, n_poses, D) features; on the graph
-        path one replay of the encoder captured for W windows (the result is
-        the graph's output buffer, overwritten by the next call)."""
+    def encode(self, wavlm_params, windows) -> torch.Tensor:
+        """The window function over (W, S) windows (numpy or a tensor) →
+        (W, n_poses, D) features on the device. WavLM: on the graph path one
+        replay of the encoder captured for W windows (the result is the
+        graph's output buffer, overwritten by the next call). A host-side
+        function: its numpy result copied to the device."""
+        if getattr(self.wavlm_apply, "host_side", False):
+            host = windows.cpu().numpy() if torch.is_tensor(windows) else windows
+            feats = self.wavlm_apply(wavlm_params, np.asarray(host, np.float32))
+            return torch.as_tensor(np.asarray(feats, np.float32), device=self.device)
+        if not torch.is_tensor(windows):
+            windows = torch.as_tensor(np.asarray(windows, np.float32), device=self.device)
         if not self.graphs:
             return self.wavlm_apply(wavlm_params, windows)
         key = (tuple(windows.shape), id(wavlm_params))
@@ -352,7 +366,7 @@ class ZeggsSampler(_WindowSampler):
 
         style_t = torch.as_tensor(np.atleast_2d(np.asarray(style, np.float32)), device=dev)
         B = style_t.shape[0]
-        feats = self.encode(wavlm_params, torch.as_tensor(windows, device=dev))
+        feats = self.encode(wavlm_params, windows)
         out = self.sample_windows(
             params, lambda i: feats[i][None].expand((B,) + tuple(feats.shape[1:])),
             real_windows, style_t, generator, noise_windows)
@@ -392,11 +406,32 @@ def generate_multi_clip(sampler: ZeggsSampler, params, wavlm_params, audios: Seq
     for i, s in enumerate(sliced):
         padded[i, : s.shape[0]] = s
     dev = sampler.device
-    flat = torch.as_tensor(padded.reshape(B * w_max, -1), device=dev)
-    feats = sampler.encode(wavlm_params, flat)
+    feats = sampler.encode(wavlm_params, padded.reshape(B * w_max, -1))
     feats = feats.reshape((B, w_max) + tuple(feats.shape[1:]))
     styles_t = torch.as_tensor(np.asarray(styles, np.float32), device=dev)
     out = sampler.sample_windows(params, lambda w: feats[:, w], w_max, styles_t, generator,
                                  noise_windows)
     seq = _poses_out(out[:, :, 0].transpose(1, 2), mean, std, False, transfer_dtype)
     return [seq[i, : max(0, c * cfg.stride - cfg.n_seed)] for i, c in enumerate(counts)]
+
+
+def make_mfcc_window_fn(n_poses: int = 88, fps: int = 20) -> Callable:
+    """The window function of the MFCC conditioning mode (JAX
+    `engine.py:550-572`; reference `inference_mfcc`,
+    `main/mydiffusion_zeggs/sample.py:59-207`): per window, the 13 Sphinx
+    cepstra at the motion frame rate, zero-padded or cut to `n_poses` rows.
+    Host-side numpy (`host_side = True`): the engines run it outside their
+    graphs and copy its (W, n_poses, 13) result to the card."""
+    from ..audio import sphinx_mfcc_energy
+
+    def fn(_unused_params, windows: np.ndarray) -> np.ndarray:
+        feats = []
+        for w in np.asarray(windows):
+            m = sphinx_mfcc_energy(w, frate=fps)[:, :-2]  # (T', 13)
+            if len(m) < n_poses:
+                m = np.pad(m, ((0, n_poses - len(m)), (0, 0)))
+            feats.append(m[:n_poses])
+        return np.stack(feats).astype(np.float32)
+
+    fn.host_side = True
+    return fn

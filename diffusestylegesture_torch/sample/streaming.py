@@ -16,9 +16,11 @@ give on the whole clip for the same generator state, up to the encoder: the
 stream runs WavLM one window at a time, the batch engine over all windows
 at once, and a library may choose other algorithms for the two shapes.
 
-The JAX streams take host-side feature functions (the Sphinx-MFCC mode,
-`make_mfcc_window_fn`, with an `audio_feat='mfcc'` MDM); the port's MDM has
-no MFCC mode yet, so a `host_side` window function raises here.
+A host-side window function (the Sphinx-MFCC mode, `make_mfcc_window_fn`,
+with an `audio_feat='mfcc'` MDM; JAX `streaming.py:104-106`) runs on the host
+over each window's audio, through the sampler's own `encode`, before the
+window's graphs replay; its features are copied into the run's static audio
+buffer like the batch engine's.
 """
 from __future__ import annotations
 
@@ -51,10 +53,6 @@ class ZeggsStreamSampler:
     def __init__(self, sampler: ZeggsSampler, params, wavlm_params, style: np.ndarray,
                  generator: Optional[torch.Generator] = None,
                  mean: Optional[np.ndarray] = None, std: Optional[np.ndarray] = None):
-        if getattr(sampler.wavlm_apply, "host_side", False):
-            raise NotImplementedError(
-                "host-side window features (make_mfcc_window_fn, an audio_feat='mfcc' MDM) "
-                "are not ported yet: they come with the MDM's conditioning-mode matrix")
         self.sampler, self.params, self.wavlm_params = sampler, params, wavlm_params
         self.cfg = cfg = sampler.cfg
         dev = sampler.device
@@ -84,8 +82,7 @@ class ZeggsStreamSampler:
     def _run_window(self, window_audio: np.ndarray) -> np.ndarray:
         sampler, cfg = self.sampler, self.cfg
         B = self.style.shape[0]
-        feats = sampler.encode(self.wavlm_params,
-                               torch.as_tensor(window_audio[None], device=sampler.device))
+        feats = sampler.encode(self.wavlm_params, window_audio[None])
         run = sampler._run(self.params, B)
         run.cond["style"].copy_(self.style)  # sessions share the run: refill per window
         run.generator.set_state(self._generator.get_state())

@@ -45,6 +45,10 @@ class TrainConfig:
     # "bfloat16": the forward under bf16 autocast; master weights, moments and
     # EMA stay float32, and the loss is computed in float32
     compute_dtype: str = "float32"
+    # weight of the MoE load-balance loss (Switch Transformer: 0.01); it acts
+    # when the model's train forward returns (prediction, aux), as a model
+    # with moe_experts > 0 does
+    moe_aux_weight: float = 0.0
 
 
 class FlatParams:
@@ -214,7 +218,9 @@ def make_train_step(sched: Schedule, cfg: TrainConfig,
     the model the style and seed drops (unless `cond_drop` is given) and the
     dropout masks layer by layer. The metrics are device tensors (no host
     sync): the loss terms per example, `loss`, `grad_norm`, `param_norm`,
-    `t` and `loss_per_example`.
+    `t` and `loss_per_example`. A MoE model's train forward returns
+    (prediction, aux); with `cfg.moe_aux_weight` the loss gains
+    `moe_aux_weight · aux` and the metrics `moe_aux` (JAX `state.py:164-180`).
 
     `step.device_step` is the same step without the host's step count
     (`state.step`): all of it runs on the device and every state update is
@@ -243,12 +249,17 @@ def make_train_step(sched: Schedule, cfg: TrainConfig,
         if noise is None:
             noise = torch.randn(x_start.shape, generator=generator, device=dev)
 
+        aux_acc = []
+
         def model_fn(x, tt):
             # no cast cache: a CUDA graph must not keep casts cached at capture
             with torch.autocast(dev.type, dtype=torch.bfloat16, enabled=bf16,
                                 cache_enabled=False):
                 out = state.model(x, tt, cond, train=True, generator=generator,
                                   cond_drop=cond_drop)
+            if isinstance(out, tuple):  # (prediction, MoE load-balance loss)
+                out, aux = out
+                aux_acc.append(aux.float())
             return out.float()  # the diffusion loss in float32 whatever the forward's dtype
 
         state.params.grad.zero_()
@@ -256,6 +267,11 @@ def make_train_step(sched: Schedule, cfg: TrainConfig,
                                      mean_type=cfg.mean_type, var_type=cfg.var_type,
                                      loss_kind=cfg.loss_kind, lambda_vel=cfg.lambda_vel)
         loss = torch.mean(terms["loss"] * weights)
+        terms = dict(terms)
+        if aux_acc and cfg.moe_aux_weight:
+            aux_mean = sum(aux_acc) / len(aux_acc)
+            loss = loss + cfg.moe_aux_weight * aux_mean
+            terms["moe_aux"] = aux_mean
         loss.backward()
         if loss_aware:
             # the unweighted per-example losses (ref `training_loop.py:256-259`)

@@ -12,8 +12,11 @@ steps of the full TrainState, the latest is taken) or a distilled-student
 stage dir (`cli/distill.py`: `params/` beside `schedule.json`), of the ZEGGS
 `MDM` or of the BEAT/TWH `MDMPlus`. The params go through
 `cli/sample.py::load_orbax_params` and the port's
-`models/convert.py::mdm_plus_state_dict_from_flax` (the MDM's names, and
-`embed_text_last` where a cross_local_attention5 model has it). `--out`
+`models/convert.py::mdm_plus_state_dict_from_flax`, which carries whatever
+scopes the params hold: `embed_text_last` of a cross_local_attention5 MDMPlus,
+the other MDM variants' `input_process_plain`, `seqTransDecoder` or `gru`,
+and a MoE trunk's per-layer `moe` router and expert stacks (the port's serving
+CLIs read the expert count from `model.pt`). `--out`
 receives `model.pt` (the model in reference checkpoint layout), `model_ema.pt`
 when the TrainState holds EMA params, and the stage dir's `schedule.json`.
 Pass the directory to `python -m diffusestylegesture_torch.cli.sample

@@ -77,9 +77,10 @@ def test_package_imports_no_jax_in_a_fresh_interpreter():
         "'data.bvh_repair', 'data.beat_proc', 'data.h5_loader', 'utils.precision', "
         "'utils.profiling', 'sample.edit', 'sample.restyle', 'sample.streaming', "
         "'sample.server', 'cli.serve', 'models.zeroeggs', 'sample.engine_zeroeggs', "
-        "'data.zeroeggs_data', 'cli.zeroeggs')}\n"
+        "'data.zeroeggs_data', 'cli.zeroeggs', 'models.moe', 'models.tisa', "
+        "'models.local_transformer', 'models.baselines', 'models.unet1d', 'models.diffwav')}\n"
         "print(len(mods), bad, sorted(new - set(mods)), 'h5py' in sys.modules)\n"
-        "sys.exit(1 if bad or len(mods) < 77 or not new <= set(mods) or 'h5py' in sys.modules "
+        "sys.exit(1 if bad or len(mods) < 83 or not new <= set(mods) or 'h5py' in sys.modules "
         "else 0)\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
                          timeout=120)

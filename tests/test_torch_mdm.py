@@ -73,7 +73,11 @@ def test_weight_bridge_round_trip():
 
 
 def test_unsupported_modes_raise():
-    for bad in (dict(cond_mode="cross_local_attention5_style1"), dict(arch="trans_dec"),
-                dict(moe_experts=2), dict(split_qkv=True), dict(trunk_impl="pipeline")):
+    """Only the parallel slice's options raise; the other modes of the JAX
+    MDM build (`test_torch_mdm_variants.py` holds them against it)."""
+    for bad in (dict(split_qkv=True), dict(trunk_impl="pipeline"), dict(seq_parallel=True)):
         with pytest.raises(NotImplementedError):
             MDM(MDMConfig(**{**KW, **bad}))
+    for ok in (dict(cond_mode="cross_local_attention5_style1"),
+               dict(cond_mode="style1", arch="trans_dec"), dict(moe_experts=2)):
+        MDM(MDMConfig(**{**KW, **ok}))

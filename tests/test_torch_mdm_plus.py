@@ -202,7 +202,8 @@ def test_reference_state_dict_round_trip(models, tmp_path):
                                   _port(model, "kernel", x, t, cond))
 
 
-@pytest.mark.parametrize("bad", [dict(moe_experts=2), dict(trunk_impl="pipeline"),
+@pytest.mark.parametrize("bad", [dict(moe_experts=2, trunk_impl="pipeline"),
+                                 dict(trunk_impl="pipeline"),
                                  dict(split_qkv=True), dict(seq_parallel=True),
                                  dict(cond_mode="cross_local_attention6_style1")],
                          ids=["moe", "pipeline", "split_qkv", "seq_parallel", "cond_mode"])

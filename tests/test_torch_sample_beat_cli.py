@@ -166,8 +166,10 @@ def test_quality_gate(tmp_path, monkeypatch, capsys):
 
 
 def test_moe_yaml_and_missing_features_raise(tmp_path):
+    # a MoE yaml is served (the expert count comes from the checkpoint, which
+    # is missing here)
     cfg_path, _, tail = write_run(tmp_path, checkpoint=False, moe_experts=4)
-    with pytest.raises(NotImplementedError, match="moe_experts"):
+    with pytest.raises(FileNotFoundError):
         cli.main(["--config", cfg_path, "--model_path", "m.pt", "--textaudio_npy", "x.npy",
                   "--save_dir", str(tmp_path / "out")] + tail)
     with pytest.raises(SystemExit, match="textaudio_npy"):

@@ -9,7 +9,8 @@ motion agrees within 2e-3 relative (the windowed engine's bar). For one
 generator the port's stream equals the port's batch engine within 1e-5.
 Sessions over one sampler share one window run and interleave without
 disturbing each other; `flush()` without a push is empty; a host-side
-window function raises.
+window function is taken (`test_torch_mfcc_engine.py` holds that mode
+against the JAX stream).
 """
 import functools
 
@@ -141,8 +142,10 @@ def test_zeggs_stream_keeps_short_tails_and_refuses_host_features(zeggs):
     mfcc_fn.host_side = True
     host = ZeggsSampler(_apply, mfcc_fn, _torch_sched(), ZeggsEngineConfig(njoints=ZEGGS_TINY_NJ),
                         device="cpu")
-    with pytest.raises(NotImplementedError, match="mfcc"):
-        ZeggsStreamSampler(host, z["mdm"], None, np.eye(6)[0], None)
+    # host-side window features are taken now (the MFCC mode); a short tail
+    # stays buffered there too
+    host_stream = ZeggsStreamSampler(host, z["mdm"], None, np.eye(6)[0], None)
+    assert host_stream.push(z["audio"][:63999]) == [] and host_stream.frames_emitted == 0
 
 
 NJ, N_POSES, N_SEED, AUDIO, STYLE = 36, 30, 5, 40, 4

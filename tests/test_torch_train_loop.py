@@ -263,8 +263,7 @@ def test_cli_train_refuses_what_later_slices_bring(prepared):
 
     cfg = str(prepared / "zeggs.yml")
     for flags, slice_no in ((["--tp", "2"], 9), (["--use_mesh"], 9), (["--fsdp"], 9),
-                            (["--pp", "2"], 9), (["--sp", "2"], 9), (["--split_qkv"], 9),
-                            (["--moe_experts", "4"], 8)):
+                            (["--pp", "2"], 9), (["--sp", "2"], 9), (["--split_qkv"], 9)):
         with pytest.raises(NotImplementedError, match=f"slice {slice_no}"):
             train_cli.main(["--config", cfg, "--device", "cpu"] + flags)
 
