@@ -147,10 +147,43 @@ Phases (any failure exits non-zero before the result line):
      local-attention README's `LocalTransformer` (256 tokens, dim 512, depth
      6, window 256) generating 512 tokens, `Tisa` at T = 240: timed, finite,
      shaped, no diffusion kernel launched;
-  13. print the card line, a `kernels` JSON line, an `e2e` JSON line, a `train`
+  13. text-to-motion at the HumanML3D widths with seeded weights: (a) kernel B
+     at the trunk's shapes, x (B, T, 512), H 4, F 1024, T 121 / 177 / 197
+     (6 s, the first T past the whole-row attention grid's 176, 9.8 s) at
+     B 2 / 6 / 64 (one prompt, 3 repetitions and 32 prompts under CFG), and
+     (2, 400, 256): 8 seeded layers in both operand modes against the plain
+     layer (1e-4 / 1e-2 per layer), two calls bitwise equal, times beside
+     the plain layer, nn.TransformerEncoderLayer (bf16 autocast for bf16) and
+     the bound, and the attention grid each shape takes (whole rows or key
+     tiles); (b) a seeded HumanML3D-format corpus (160 clips of 263-d joint
+     vecs, 40-196 frames at 20 fps, `caption#tokens#0.0#0.0` texts, a split,
+     Mean / Std, a 300-d GloVe table) → `cli.train_t2m` at the published
+     widths (512 / 8 layers / ff 1024, 196 frames, batch 64, cosine-1000, a
+     seeded hash-tokenized CLIP ViT-B/32 text tower: 512 wide, 12 layers, 8
+     heads, 77 tokens) in float32 and `--bf16`, 20 steps each: finite losses,
+     ms/step, peak memory, no kernel launched; (c) `cli.generate` on the
+     float32 checkpoint, one prompt, 3 repetitions, guidance 2.5, on CUDA
+     graphs: DDPM-1000 at 9.8 s (196 frames, T 197, key tiles) and at 6 s
+     (120 frames), DDIM 50 at 9.8 s, launches held to kernel B 8,000 /
+     8,000 / 400 and kernel A 0, `results.npy` (3, 22, 3, frames) finite,
+     capture seconds beside generate seconds; the 9.8 s DDPM run through the
+     eager loop (in this process) bitwise equal to the CLI's on graphs; the kernel path within 2e-3 rel
+     of the plain path (DDIM 50, the same seed); one replayed B = 6 TextMDM
+     call (device and wall ms); (d) seeded evaluators at the published widths:
+     the T2M evaluator's matching score, R-precision top 1-3, FID and
+     diversity of (c)'s features against the corpus, STGCN on (64, 24, 6, 60)
+     rot6d, the motion discriminator on (64, 72, 60), `Rotation2xyz` over a
+     seeded synthetic SMPL (6,890 vertices, 24 joints, 10 betas) at
+     (64, 25, 6, 60): finite, timed;
+  14. export: phase 9's TWH and BEAT training BVHs and its written BVH through
+     `cli.export_gltf --player` to GLB and the player HTML; `read_glb` reads
+     each back with one node a joint and one animation channel a rotated or
+     translated joint; timed (no matplotlib: the card's machine has none);
+  15. print the card line, a `kernels` JSON line, an `e2e` JSON line, a `train`
      JSON line, a `distill` JSON line, a `beat_twh` JSON line, a
      `beat_twh_train` JSON line, a `serving` JSON line, a `zeroeggs` JSON line,
-     a `models` JSON line and, last, {"ok": true, "device": {...}}.
+     a `models` JSON line, a `t2m` JSON line, an `export` JSON line and, last,
+     {"ok": true, "device": {...}}.
 
 Device times of the kernels come from CUDA events around back-to-back calls
 queued behind a sleep kernel, so host launch overhead is not in them.
@@ -2599,11 +2632,397 @@ def phase_baselines(dev, card):
     return res
 
 
+# ---- phase 13 -------------------------------------------------------------------
+
+# kernel B at the text-to-motion trunk's shapes: T (6 s, the first T past the
+# whole-row attention grid's 176 at head dim 128, 9.8 s = 196 frames + the
+# token) at D 512, and batches (one prompt under CFG, `generate`'s 3
+# repetitions under CFG, the reference evaluation's 32 prompts under CFG)
+T2M_SHAPES = (121, 177, 197)
+T2M_BATCHES = (2, 6, 64)
+T2M_WIDE = (400, 256)  # past the whole-row grid's T 336 at head dim 64
+T2M_CLIPS = 160
+T2M_BATCH = 64           # cli.train_t2m's default
+T2M_TRAIN_STEPS = 20
+T2M_DIFFUSION_STEPS = 1000
+T2M_RESPACE = 50
+# cli.generate's runs: DDPM at 9.8 s (T 197, key tiles) and at its default 6 s
+# (T 121, whole rows), DDIM 50 at 9.8 s
+T2M_RUNS = ("ddpm_9.8s", "ddpm_6.0s", "ddim50_9.8s")
+T2M_PROMPT = "a person walks forward slowly"
+T2M_TOKENS = "a/DET person/NOUN walk/VERB forward/ADV slowly/ADV"
+T2M_CAPTIONS = (("a person walks forward slowly", T2M_TOKENS),
+                ("someone waves the left hand", "someone/PRON wave/VERB the/DET left/ADJ "
+                                                 "hand/NOUN"),
+                ("a man jumps up and down", "a/DET man/NOUN jump/VERB up/ADV and/CCONJ "
+                                            "down/ADV"),
+                ("a person turns around", "a/DET person/NOUN turn/VERB around/ADV"))
+T2M_WORDS = ("unk", "sos", "eos", "a", "person", "walk", "forward", "slowly", "someone", "wave",
+             "the", "left", "hand", "man", "jump", "up", "and", "down", "turn", "around")
+# the published CLIP ViT-B/32 text tower: width 512, 12 layers, 8 heads, 77 tokens
+T2M_CLIP_FLAGS = ("--clip_width", "512", "--clip_layers", "12")
+
+
+def write_t2m_corpus(root, n, seed=SEED):
+    """A seeded HumanML3D-format corpus: 263-d `new_joint_vecs` of 40-196
+    frames (20 fps, smooth), `caption#tokens#0.0#0.0` text files (two captions
+    a clip), a split file, Mean / Std and a 300-d GloVe table of its words."""
+    import pickle
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    dirs = {k: os.path.join(root, k) for k in ("new_joint_vecs", "texts", "glove")}
+    for d in dirs.values():
+        os.makedirs(d, exist_ok=True)
+    ids = []
+    for i in range(n):
+        name = f"{i:06d}"
+        ids.append(name)
+        length = int(rng.integers(40, 197))
+        t = np.arange(length)[:, None] / 20.0
+        freq = rng.uniform(0.2, 1.5, (1, 263))
+        motion = np.sin(2 * np.pi * freq * t + rng.uniform(0, 6, (1, 263))) \
+            + 0.05 * rng.standard_normal((length, 263))
+        np.save(os.path.join(dirs["new_joint_vecs"], name + ".npy"), motion.astype(np.float32))
+        caps = [T2M_CAPTIONS[i % len(T2M_CAPTIONS)], T2M_CAPTIONS[(i + 1) % len(T2M_CAPTIONS)]]
+        with open(os.path.join(dirs["texts"], name + ".txt"), "w") as f:
+            f.write("".join(f"{c}#{tok}#0.0#0.0\n" for c, tok in caps))
+    split = os.path.join(root, "train.txt")
+    with open(split, "w") as f:
+        f.write("\n".join(ids))
+    frames = np.concatenate([np.load(os.path.join(dirs["new_joint_vecs"], n_ + ".npy"))
+                             for n_ in ids])
+    np.save(os.path.join(root, "Mean.npy"), frames.mean(0))
+    np.save(os.path.join(root, "Std.npy"), frames.std(0) + 1e-6)
+    np.save(os.path.join(dirs["glove"], "our_vab_data.npy"),
+            rng.standard_normal((len(T2M_WORDS), 300)).astype(np.float32))
+    with open(os.path.join(dirs["glove"], "our_vab_words.pkl"), "wb") as f:
+        pickle.dump(list(T2M_WORDS), f)
+    with open(os.path.join(dirs["glove"], "our_vab_idx.pkl"), "wb") as f:
+        pickle.dump({w: i for i, w in enumerate(T2M_WORDS)}, f)
+    return dict(motion_dir=dirs["new_joint_vecs"], text_dir=dirs["texts"], split=split,
+                mean=os.path.join(root, "Mean.npy"), std=os.path.join(root, "Std.npy"),
+                glove=dirs["glove"])
+
+
+def phase_t2m_kernel(dev):
+    """Phase 13 (a): kernel B at the text-to-motion trunk's shapes, 8 seeded
+    layers, both operand modes, against the plain layer; times beside the
+    plain layer, nn.TransformerEncoderLayer and the bound; which attention
+    grid each shape takes."""
+    import torch
+    from torch import nn
+
+    from diffusestylegesture_torch.models.transformer import TorchTransformerEncoder
+    from diffusestylegesture_torch.ops import encoder_layer as el
+
+    H, F, L = 4, 1024, 8
+    rows = []
+    cases = [(T, 512, B) for T in T2M_SHAPES for B in T2M_BATCHES] + [(*T2M_WIDE, 2)]
+    for T, D, B in cases:
+        torch.manual_seed(SEED)
+        trunk = TorchTransformerEncoder(L, D, H, F, "gelu").to(dev).eval()
+        layer = trunk.layers[0]
+        ref = nn.TransformerEncoderLayer(D, H, F, dropout=0.0, activation="gelu",
+                                         batch_first=True, norm_first=False).to(dev).eval()
+        ref.load_state_dict(layer.state_dict())
+        tile = el.key_tile(T, D, H)
+        check(tile >= 0, f"kernel B takes no attention grid at T={T}, D={D}")
+        nbytes, flops = encoder_layer_cost(B, T, D, H, F)
+        with torch.no_grad():
+            x = torch.randn(B, T, D, device=dev)
+            for mode, (bf16, atol, products, rate) in ENCODER_MODES.items():
+                h, worst = x, 0.0
+                for i, lyr in enumerate(trunk.layers):
+                    out = el.encoder_layer(h, lyr, mxu_bf16=bf16)
+                    err = (out - lyr(h, mxu_bf16=bf16)).abs().max().item()
+                    check(err <= atol, f"t2m encoder_layer {mode} ({B}, {T}, {D}) layer {i} "
+                                       f"err {err}")
+                    worst = max(worst, err)
+                    h = out
+                again = el.encoder_layer(x, layer, mxu_bf16=bf16)
+                check(torch.equal(again, el.encoder_layer(x, layer, mxu_bf16=bf16)),
+                      f"t2m encoder_layer {mode} ({B}, {T}, {D}): two calls differ")
+
+                def library():
+                    with torch.autocast("cuda", dtype=torch.bfloat16, enabled=bf16):
+                        return ref(x)
+
+                row = dict(B=B, T=T, D=D, H=H, F=F, mode=mode, key_tile=tile,
+                           attention="key tiles" if tile else "whole row", max_abs_err=worst,
+                           ms=device_ms(lambda: el.encoder_layer(x, layer, mxu_bf16=bf16)),
+                           plain_ms=device_ms(lambda: layer(x, mxu_bf16=bf16), iters=10),
+                           library_ms=device_ms(library, iters=10))
+                row["bound_ms"], row["bound_by"] = bound(nbytes, products * flops, rate)
+                rows.append(row)
+                print(f"t2m encoder_layer: {json.dumps(row)}")
+    return rows
+
+
+def t2m_denoiser_call(dev, model, plain, text_emb, frames):
+    """One TextMDM call at the CFG batch of `text_emb` replayed from a CUDA
+    graph (device and wall ms) against the plain path: (times, rel error)."""
+    import torch
+
+    from diffusestylegesture_torch.utils.graphs import GraphSet
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    B = 2 * text_emb.shape[0]
+    x = torch.randn(B, model.cfg.njoints, 1, frames, generator=g, device=dev)
+    cond = {"text_emb": torch.cat([text_emb, text_emb])}
+    uncond = torch.arange(B, device=dev) >= B // 2
+    t = torch.full((B,), 500, device=dev)
+    with torch.inference_mode():
+        out = torch.empty_like(x)
+        replay, _ = GraphSet(dev).capture(lambda: out.copy_(model(x, t, cond, uncond=uncond)))
+        replay.launches = (0, 0, 0)  # timing calls are not main-path launches
+        ms = {"graph_replay_device_ms": device_ms(replay.replay, iters=20, warmup=2)}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            replay.replay()
+        torch.cuda.synchronize()
+        ms["graph_replay_wall_ms"] = (time.perf_counter() - t0) / 20 * 1e3
+        replay.replay()
+        err = rel(out.cpu().numpy(), plain(x, t, cond, uncond=uncond).cpu().numpy())
+    return ms, err
+
+
+def synthetic_smpl_arrays(rng, V=6890, J=24, nb=10):
+    """Seeded SMPL-shaped arrays (the neutral model's sizes): a body-sized
+    template, small blend shapes, row-normalised regressors and weights."""
+    import numpy as np
+
+    from diffusestylegesture_torch.models.smpl import SMPL_PARENTS
+
+    reg = rng.random((J, V)) ** 8
+    w = rng.random((V, J)) ** 6
+    extra = rng.random((9, V)) ** 8
+    return dict(v_template=0.5 * rng.standard_normal((V, 3)),
+                shapedirs=0.01 * rng.standard_normal((V, 3, nb)),
+                posedirs=0.001 * rng.standard_normal(((J - 1) * 9, V * 3)),
+                J_regressor=reg / reg.sum(1, keepdims=True),
+                weights=w / w.sum(1, keepdims=True),
+                J_regressor_extra=extra / extra.sum(1, keepdims=True),
+                kintree_parents=np.asarray(SMPL_PARENTS))
+
+
+def phase_t2m(dev, tmp, card):
+    """Phase 13 (b)-(d): text-to-motion training, serving and evaluation at
+    the HumanML3D widths with seeded weights."""
+    import numpy as np
+    import torch
+
+    from diffusestylegesture_torch.cli import generate, train_t2m
+    from diffusestylegesture_torch.data import humanml as hd
+    from diffusestylegesture_torch.eval import action2motion as a2m
+    from diffusestylegesture_torch.eval import stgcn
+    from diffusestylegesture_torch.eval import t2m_evaluator as tev
+    from diffusestylegesture_torch.models import smpl
+    from diffusestylegesture_torch.models.clip_text import caption_encoder_from_spec
+    from diffusestylegesture_torch.ops import encoder_layer as el
+    from diffusestylegesture_torch.ops import local_attention as la
+
+    t_phase = time.perf_counter()
+    root = os.path.join(tmp, "t2m")
+    corpus = write_t2m_corpus(root, T2M_CLIPS)
+    data_flags = ["--motion_dir", corpus["motion_dir"], "--text_dir", corpus["text_dir"],
+                  "--split", corpus["split"], "--mean", corpus["mean"], "--std", corpus["std"],
+                  "--batch_size", str(T2M_BATCH), "--num_frames", "196",
+                  "--diffusion_steps", str(T2M_DIFFUSION_STEPS), *T2M_CLIP_FLAGS]
+    res = {"corpus_clips": T2M_CLIPS}
+
+    # (b) training: float32 and --bf16 at the published widths, plain trunk
+    for name, extra in (("f32", []), ("bf16", ["--bf16"])):
+        save = os.path.join(root, f"save_{name}")
+        torch.cuda.reset_peak_memory_stats(dev)
+        la.launches = el.launches = el.launches_bf16 = 0
+        run, wall = timed(lambda: train_t2m.main(
+            data_flags + ["--save_dir", save, "--num_steps", str(T2M_TRAIN_STEPS),
+                          "--log_interval", "5", "--save_interval", str(T2M_TRAIN_STEPS)]
+            + extra))
+        launches = (la.launches, el.launches, el.launches_bf16)
+        losses = [d["loss"] for d in run["loop"].logged]
+        check(launches == (0, 0, 0), f"t2m training launched kernels: {launches}")
+        check(len(losses) > 0 and bool(np.isfinite(losses).all()),
+              f"t2m training {name}: losses {losses}")
+        res[f"train_{name}"] = dict(
+            steps=run["state"].step, batch=T2M_BATCH, losses=losses,
+            ms_per_step=steady_ms([run["loop"]]),
+            peak_bytes=torch.cuda.max_memory_allocated(dev), caption_encode_s=run["encode_s"],
+            cli_wall_s=wall, launches=launches)
+        print(f"t2m train {name} [{card}]: {json.dumps(res[f'train_{name}'])}")
+    save = os.path.join(root, "save_f32")
+
+    # (c) serving: cli.generate on the float32 checkpoint, CUDA graphs
+    prompt = ["--text_prompt", T2M_PROMPT, "--num_repetitions", "3", "--guidance_param", "2.5",
+              "--save_feats"]
+    runs = dict(zip(T2M_RUNS, ((["--motion_length", "9.8"], T2M_DIFFUSION_STEPS),
+                               ([], T2M_DIFFUSION_STEPS),
+                               (["--motion_length", "9.8", "--sampler", "ddim", "--respace",
+                                 str(T2M_RESPACE)], T2M_RESPACE))))
+    layers = 8
+    served, outs = {}, {}
+    for name, (flags, steps) in runs.items():
+        out_dir = os.path.join(root, f"gen_{name}")
+        out, wall, counts = counted(lambda: generate.main(
+            ["--model_path", save, "--output_dir", out_dir] + prompt + flags))
+        check(counts == (0, steps * layers, 0),
+              f"t2m generate {name}: launches {counts}, expected (0, {steps * layers}, 0)")
+        results = np.load(os.path.join(out, "results.npy"), allow_pickle=True).item()
+        frames = 196 if "9.8" in name else 120
+        check(results["motion"].shape == (3, 22, 3, frames)
+              and bool(np.isfinite(results["motion"]).all()),
+              f"t2m generate {name}: motion {results['motion'].shape}")
+        outs[name] = out
+        served[name] = dict(local_attention_launches=counts[0], encoder_layer_launches=counts[1],
+                            encoder_layer_bf16_launches=counts[2], frames=frames, motion_shape=list(results["motion"].shape),
+                            generate_s=generate.LAST_RUN["seconds"],
+                            capture_s=generate.LAST_RUN["capture_seconds"], cli_wall_s=wall,
+                            key_tile=el.key_tile(frames + 1, 512, 4))
+        print(f"t2m generate {name} [{card}]: {json.dumps(served[name])}")
+    # the same 9.8 s DDPM run through the eager loop (`sample_t2m(graphs=False)`,
+    # the CLI's seed): its features bitwise equal to the CLI's on graphs
+    with open(os.path.join(save, "t2m_config.json")) as f:
+        spec = json.load(f)
+    encode, _ = caption_encoder_from_spec(spec["clip"], save, dev)
+    emb = torch.from_numpy(np.tile(encode([T2M_PROMPT]), (3, 1))).to(dev)
+    cfg, model = generate.load_t2m_model(save, dev)
+    _, plain = generate.load_t2m_model(save, dev, impl="plain")
+    (eager, _), wall, counts = counted(lambda: generate.sample_t2m(
+        model, generate.make_schedule(cfg, 0, dev), emb, 196, sampler="ddpm", seed=10,
+        graphs=False))
+    feats = eager[:, :, 0, :].transpose(1, 2).cpu().numpy() * np.load(cfg["std"]) \
+        + np.load(cfg["mean"])
+    check(np.array_equal(feats, np.load(os.path.join(outs["ddpm_9.8s"], "results_feats.npy"))),
+          "t2m generate: graphs and the eager loop differ")
+    served["eager_ddpm_9.8s"] = dict(encoder_layer_launches=counts[1], generate_s=wall,
+                                     bitwise_equal_to_graphs=True)
+    # the kernel path against the plain path on the same noise (DDIM 50, 9.8 s)
+    sched = generate.make_schedule(cfg, T2M_RESPACE, dev)
+    kernel_out, _ = generate.sample_t2m(model, sched, emb, 196, sampler="ddim", seed=SEED)
+    plain_out, _ = generate.sample_t2m(plain, sched, emb, 196, sampler="ddim", seed=SEED,
+                                       graphs=False)
+    kp_err = rel(kernel_out.cpu().numpy(), plain_out.cpu().numpy())
+    check(kp_err <= E2E_REL, f"t2m kernel path vs plain path: rel {kp_err}")
+    served["kernel_vs_plain_ddim50_rel"] = kp_err
+    served["denoiser_b6"], call_err = t2m_denoiser_call(dev, model, plain, emb, 196)
+    check(call_err <= E2E_REL, f"t2m denoiser call kernel vs plain: rel {call_err}")
+    served["denoiser_b6"]["rel_err_vs_plain"] = call_err
+    res["serve"] = served
+
+    # (d) evaluation at the published widths, seeded weights
+    ev = {}
+    wv = hd.WordVectorizer(corpus["glove"], "our_vab")
+    mean, std = np.load(corpus["mean"]), np.load(corpus["std"])
+    dcfg = hd.T2MConfig(motion_dir=corpus["motion_dir"], text_dir=corpus["text_dir"],
+                        max_motion_length=196)
+    gt = list(hd.Text2MotionDataset(dcfg, mean, std, corpus["split"], wv, seed=0).batches(32))
+    feats = np.concatenate([np.load(os.path.join(outs[n], "results_feats.npy"))
+                            for n in ("ddpm_9.8s", "ddim50_9.8s")])
+    n = len(feats)
+    tokens = ["sos/OTHER"] + T2M_TOKENS.split(" ") + ["eos/OTHER"]
+    w_embs = np.zeros((n, dcfg.max_text_len + 2, 300), np.float32)
+    pos = np.zeros((n, dcfg.max_text_len + 2, len(hd.POS_enumerator)), np.float32)
+    for j, tk in enumerate(tokens):
+        w_embs[:, j], pos[:, j] = wv[tk]
+    gen = {"word_embs": w_embs, "pos_ohot": pos, "cap_lens": np.full(n, len(tokens)),
+           "motions": ((feats - mean) / std).astype(np.float32), "m_lens": np.full(n, 196)}
+    evaluator = tev.T2MEvaluator(tev.T2MEvaluator.seeded_checkpoint(SEED), device=dev)
+    t0 = time.perf_counter()
+    match, rprec, acts = tev.evaluate_matching_score(evaluator, {"gen": [gen], "gt": gt})
+    fids = tev.evaluate_fid(evaluator, gt, acts)
+    divs = {**tev.evaluate_diversity({"gen": acts["gen"]}, n - 1),
+            **tev.evaluate_diversity({"gt": acts["gt"]}, min(100, len(acts["gt"]) - 1))}
+    torch.cuda.synchronize()
+    ev["t2m"] = dict(matching_score={k: float(v) for k, v in match.items()},
+                     r_precision_top123={k: v.tolist() for k, v in rprec.items()},
+                     fid={k: float(v) for k, v in fids.items()}, diversity=divs,
+                     gt_rows=len(acts["gt"]), gen_rows=n, seconds=time.perf_counter() - t0)
+    values = [*match.values(), *fids.values(), *divs.values()] + \
+        [x for v in rprec.values() for x in v]
+    check(bool(np.isfinite(values).all()), f"t2m evaluation: {ev['t2m']}")
+    rng = np.random.default_rng(SEED)
+    with torch.no_grad():
+        a2 = stgcn.A2MEvaluation(None, 6, 40, init_seed=SEED, device=dev)
+        motion = torch.randn(64, a2.graph.num_node, 6, 60, generator=torch.Generator(
+            device=dev).manual_seed(SEED), device=dev)
+        f, logits = a2.model(motion)
+        # the evaluators launch many small kernels: wall time with the card synchronized
+        ev["stgcn"] = dict(input=list(motion.shape),
+                           wall_ms=timed_steps(lambda: a2.model(motion), 10))
+        check(f.shape == (64, 256) and logits.shape == (64, 40)
+              and bool(torch.isfinite(logits).all()), "stgcn: features or logits")
+        disc = a2m.MotionDiscriminator(72).to(dev).eval()
+        m = torch.randn(64, 24, 3, 60, device=dev)
+        lengths = torch.full((64,), 60, device=dev)
+        yh = disc(m, lengths)
+        ev["motion_discriminator"] = dict(input=[64, 72, 60],
+                                          wall_ms=timed_steps(lambda: disc(m, lengths), 10))
+        check(yh.shape == (64, 12) and bool(torch.isfinite(yh).all()), "motion discriminator")
+        r2x = smpl.Rotation2xyz(smpl.SmplJoints(smpl.SmplModel.from_arrays(
+            dev, **synthetic_smpl_arrays(rng))))
+        x6 = 0.5 * torch.randn(64, 25, 6, 60, device=dev)
+
+        def to_xyz():
+            return r2x(x6, None, pose_rep="rot6d", translation=True, glob=True,
+                       jointstype="smpl", vertstrans=False)
+
+        xyz = to_xyz()
+        ev["rotation2xyz"] = dict(input=list(x6.shape), output=list(xyz.shape),
+                                  wall_ms=timed_steps(to_xyz, 5))
+        check(xyz.shape == (64, 24, 3, 60) and bool(torch.isfinite(xyz).all()), "rotation2xyz")
+    res["eval"] = ev
+    res["phase_s"] = time.perf_counter() - t_phase
+    print(f"t2m [{card}]: {json.dumps(res)}")
+    return res
+
+
+# ---- phase 14 -------------------------------------------------------------------
+
+
+def phase_export(tmp, card):
+    """Phase 14: phase 9's TWH and BEAT training BVHs and its written BVH through
+    `cli.export_gltf` to GLB and the player HTML; `read_glb` reads each GLB back."""
+    from diffusestylegesture_torch.cli import export_gltf
+    from diffusestylegesture_torch.motion import gltf_export
+    from diffusestylegesture_torch.motion import pipeline as P
+
+    work = os.path.join(tmp, "beat_twh_train")
+    bvhs = [os.path.join(work, "twh_raw", TWH_TRAIN_CLIPS[0] + ".bvh"),
+            os.path.join(work, "beat_raw", BEAT_TRAIN_CLIPS[0] + ".bvh"),
+            os.path.join(work, "served", "served.bvh")]
+    out_dir = os.path.join(tmp, "export")
+    written, wall = timed(lambda: export_gltf.main(bvhs + ["--outdir", out_dir, "--player"]))
+    check(len(written) == 2 * len(bvhs), f"export: wrote {written}")
+    res = {"cli_wall_s": wall, "files": {}}
+    for path in bvhs:
+        stem = os.path.splitext(os.path.basename(path))[0]
+        track = P.parse_bvh(path)
+        glb = os.path.join(out_dir, stem + ".glb")
+        gltf, blob = gltf_export.read_glb(glb)
+        rotated = sum(len(P.joint_rot_order(track, j)) == 3 for j in track.names)
+        moved = sum(len([c for c in track.channels.get(j, []) if c.endswith("position")]) == 3
+                    for j in track.names)
+        channels = len(gltf["animations"][0]["channels"])
+        check(len(gltf["nodes"]) == len(track.names) and len(gltf["animations"]) == 1
+              and channels == rotated + moved,
+              f"export {stem}: {len(gltf['nodes'])} nodes for {len(track.names)} joints, "
+              f"{channels} channels for {rotated + moved}")
+        res["files"][stem] = dict(frames=len(track.values), joints=len(track.names),
+                                  nodes=len(gltf["nodes"]), channels=channels,
+                                  glb_bytes=os.path.getsize(glb),
+                                  html_bytes=os.path.getsize(os.path.join(out_dir, stem + ".html")))
+    print(f"export [{card}]: {json.dumps(res)}")
+    return res
+
+
 SERVING_PATHS = ("serve", "serve_fast", "server", "stream", "restyle", "edit")
 
 
 def kernel_entries(la_err, la_t, el_err, el_t, e2e, distill, beat_twh, beat_twh_train, serving,
-                   models):
+                   models, t2m_rows, t2m):
     """The `kernels` line's entries: each kernel with its launches on every
     path, its errors and its times at each shape it was timed at."""
     kernels = []
@@ -2663,7 +3082,14 @@ def kernel_entries(la_err, la_t, el_err, el_t, e2e, distill, beat_twh, beat_twh_
             launches_serving={path: serving["launches"][path][column] for path in SERVING_PATHS},
             # phase 12: the MFCC model, the other variants, the MoE trunk
             launches_models={path: counts[column] for path, counts in models["launches"].items()},
+            # phase 13: text-to-motion generate (float32 trunk; A runs on no t2m path)
+            launches_t2m={run: t2m["serve"][run][f"{name}_launches"] for run in T2M_RUNS},
             b2=batches[2], b16=batches[SERVER_BATCH], b300=b300, **extra))
+    # kernel B's text-to-motion rows (phase 13a), on both of its entries by mode
+    for k in kernels[1:]:
+        mode = "f32" if k["name"] == "encoder_layer" else "bf16"
+        k["t2m_shapes"] = [{key: v for key, v in row.items() if key != "mode"}
+                           for row in t2m_rows if row["mode"] == mode]
     return kernels
 
 
@@ -2732,10 +3158,15 @@ def main() -> int:
         # 12
         models = phase_models(dev, tmp, card, ctx)
         print(f"phase 12 {models['phase_s']:.1f} s")
+        # 13-14
+        (t2m_rows, t2m), t2m_s = timed(lambda: (phase_t2m_kernel(dev), phase_t2m(dev, tmp, card)))
+        export = phase_export(tmp, card)
+        t2m["phase_wall_s"] = t2m_s
+        print(f"phase 13 {t2m_s:.1f} s, phase 14 {export['cli_wall_s']:.1f} s")
 
-    # 13. lines
+    # 15. lines
     kernels = kernel_entries(la_err, la_t, el_err, el_t, e2e, distill, beat_twh, beat_twh_train,
-                             serving, models)
+                             serving, models, t2m_rows, t2m)
     check(all(k["launches"] > 0 for k in kernels), "a kernel was not launched on its path")
     check(all(k["launches_distill"] > 0 for k in kernels[:2]),
           "a kernel was not launched on the distillation path")
@@ -2753,6 +3184,8 @@ def main() -> int:
           and kernels[0]["launches_models"]["moe_served"] > 0
           and kernels[1]["launches_models"]["style2_mytrans_enc_dpmpp5"] > 0,
           "a kernel was not launched on a phase 12 path")
+    check(all(kernels[1]["launches_t2m"][run] > 0 for run in T2M_RUNS),
+          "kernel B was not launched on the text-to-motion generate path")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"e2e": e2e, "build_s": build_s}))
@@ -2763,6 +3196,8 @@ def main() -> int:
     print(json.dumps({"serving": serving, "card": card}))
     print(json.dumps({"zeroeggs": zeroeggs, "card": card}))
     print(json.dumps({"models": models, "card": card}))
+    print(json.dumps({"t2m": t2m, "card": card}))
+    print(json.dumps({"export": export, "card": card}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -50,7 +50,12 @@
 //       1. QKV      qkv = x Win^T + bin; one block per 16 rows x 64 columns
 //       2. attn     one block per (batch, head, 16 queries): S = Q K^T,
 //                   softmax, O = P V on tensor cores; Q, K, V, P in shared
-//                   memory; each warp owns its tiles
+//                   memory; each warp owns its tiles. Where one head's
+//                   keys and values do not fit in shared memory whole
+//                   (T > 176 at head dim 128, T > 336 at head dim 64),
+//                   the key-tiled grid streams them in tiles of 64 keys
+//                   with an online softmax instead; the host picks the
+//                   grid from the shape (dsg_encoder_layer_key_tile)
 //       3. out+FF1  one 8-block cluster per 16 rows: block r computes the
 //                   pre-norm columns [r D/8, (r+1) D/8) of x + a Wout^T + bout;
 //                   after one cluster barrier every block reads all 16 rows
@@ -82,6 +87,10 @@
 // cluster barriers per LayerNorm, W2 streamed after W1 in one MLP grid) 53.9
 // us. scripts/encoder_layer_timing.py, in one process: this one 38.1 us (46.3
 // at B=2; bf16 mode 31.6 and 39.2), the seven-grid one beside it 47.0 (54.0).
+// The key-tiled attention grid (chip_smoke.py phase 13, same card): a layer at
+// (6, 197, 512), H=4 takes 0.472 ms against 0.281 ms for the plain layer and
+// 4.62 ms against 1.70 at B=64; it reloads each K/V tile per 16-query block
+// and does not overlap the copies with the products.
 #include <cfloat>
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -670,6 +679,103 @@ encoder_layer_attention(const float* __restrict__ qkv, float* __restrict__ out, 
   mark(1, 5);
 }
 
+// ---- grid 2, key tiles: the same attention with keys and values in tiles ---------
+// For rows of keys that do not fit in shared memory whole (T = 197 at head dim
+// 128, T > 336 at head dim 64): one block per (batch, head, 16 queries), as
+// above, streams K and V through shared memory `kt` keys at a time (kt = 64,
+// or 32 / 16 at head dims whose 64-key tiles do not fit) and keeps a running
+// maximum m and sum l per query row (online softmax). Per tile: S = (Q K^T) *
+// scale; m' = max(m, max S); p = exp(S - m'), 0 on the padded keys; l = l
+// exp(m - m') + sum p; O = O exp(m - m') + p V, O in f32 shared memory (each
+// value owned by one thread). At the end out = O / l. The probabilities enter
+// P V unnormalised (rounded to bf16 in the mxu_bf16 mode), so the result
+// differs from the whole-row grid by rounding only. Shared memory depends on
+// kt and the head dim, not on T. Every sum runs in a fixed order: no atomics,
+// bitwise-equal repeats.
+template <bool BF16>
+__global__ void __launch_bounds__(kThreads)
+encoder_layer_attention_tiled(const float* __restrict__ qkv, float* __restrict__ out, int T,
+                              int D, int H, float scale, int kt) {
+  extern __shared__ __align__(16) float smem[];
+  const int hd = D / H, b = blockIdx.x / H, h = blockIdx.x % H, q0 = blockIdx.y * kRows;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int hk = round_up(hd, 16), hn = round_up(hd, 8);
+  const int sq = kstride(hd), sv = vstride(hd), sp_ = kstride(kt);
+  float* qs = smem;             // [16][sq]  Q tile
+  float* ks = qs + kRows * sq;  // [kt][sq]  K tile
+  float* vs = ks + kt * sq;     // [kt][sv]  V tile
+  float* ps = vs + kt * sv;     // [16][sp_] scores, then unnormalised probabilities
+  float* os = ps + kRows * sp_; // [16][hn]  O, the running P V
+  float* ms = os + kRows * hn;  // [16]      running maximum
+  float* ls = ms + kRows;       // [16]      running sum
+  float* cs = ls + kRows;       // [16]      this tile's correction exp(m - m')
+  mark(1, 0);
+  grid_dependency_wait();
+  mark(1, 1);
+  launch_dependents();
+  const size_t ld = 3 * static_cast<size_t>(D);
+  const float* base = qkv + static_cast<size_t>(b) * T * ld + h * hd;
+  issue_rows(qs, sq, base, ld, q0, T, kRows, hd, hk);
+  for (int i = threadIdx.x; i < kRows * hn; i += kThreads) os[i] = 0.0f;
+  if (threadIdx.x < kRows) {
+    ms[threadIdx.x] = -FLT_MAX;
+    ls[threadIdx.x] = 0.0f;
+  }
+  for (int k0 = 0; k0 < T; k0 += kt) {
+    const int nk = min(kt, T - k0);  // valid keys of this tile
+    issue_rows(ks, sq, base + D, ld, k0, T, kt, hd, hk);
+    issue_rows(vs, sv, base + 2 * D, ld, k0, T, kt, hd, hn);
+    cp_async_wait_all();
+    // S = (Q K^T) * scale over the tile's kt keys
+    {
+      const Split sp(kt / 8, 1);
+      float acc[kNtMax][4] = {};
+      warp_mma<BF16, false>(acc, sp, qs, sq, ks, sq, hk);
+      for_each_acc(acc, sp, [&](int r, int c, float v) { ps[r * sp_ + c] = v * scale; });
+    }
+    __syncthreads();
+    // running maximum and sum; the padded keys get probability 0
+    for (int r = warp; r < kRows; r += kWarps) {
+      float* row = ps + r * sp_;
+      float mt = -FLT_MAX;
+      for (int j = lane; j < nk; j += 32) mt = fmaxf(mt, row[j]);
+      const float m_old = ms[r], m_new = fmaxf(m_old, warp_max(mt));
+      float sum = 0.0f;
+      for (int j = lane; j < kt; j += 32) {
+        const float e = j < nk ? expf(row[j] - m_new) : 0.0f;
+        row[j] = e;
+        sum += e;
+      }
+      sum = warp_sum(sum);
+      __syncwarp();
+      if (lane == 0) {
+        const float corr = expf(m_old - m_new);
+        cs[r] = corr;
+        ls[r] = ls[r] * corr + sum;
+        ms[r] = m_new;
+      }
+    }
+    __syncthreads();
+    // O = O * corr + P V, V read k-major; each O value has one owner
+    for (int n0 = 0; n0 < hn / 8; n0 += kWarps * kNtMax) {
+      const Split sp(min(hn / 8 - n0, kWarps * kNtMax), 1);
+      float acc[kNtMax][4] = {};
+      warp_mma<BF16, true>(acc, sp, ps, sp_, vs + n0 * 8, sv, kt);
+      for_each_acc(acc, sp, [&](int r, int c, float v) {
+        float* o = os + r * hn + n0 * 8 + c;
+        *o = *o * cs[r] + v;
+      });
+    }
+    __syncthreads();  // K, V and P are free for the next tile
+  }
+  mark(1, 2);
+  for (int i = threadIdx.x; i < kRows * hd; i += kThreads) {
+    const int r = i / hd, c = i % hd;
+    if (q0 + r < T) out[(static_cast<size_t>(b) * T + q0 + r) * D + h * hd + c] = os[r * hn + c] / ls[r];
+  }
+  mark(1, 5);
+}
+
 // ---- grid 3: y = LN1(x + a Wout^T + bout), h = act(y W1^T + b1) -----------------
 // One cluster per 16 rows. Block `rank` computes columns [rank db, rank db + db)
 // of the pre-norm rows; after one cluster barrier every block normalises all
@@ -876,6 +982,28 @@ size_t attention_smem(int T, int D, int H) {
   return sizeof(float) *
          ((kRows + tk) * kstride(hd) + tk * vstride(hd) + kRows * kstride(T));
 }
+size_t attention_tiled_smem(int kt, int D, int H) {
+  const int hd = D / H;
+  return sizeof(float) * ((kRows + kt) * kstride(hd) + kt * vstride(hd) + kRows * kstride(kt) +
+                          kRows * round_up(hd, 8) + 3 * kRows);
+}
+
+// The attention grid's key tile: 0 for the whole-row grid where one head's
+// keys and values fit in shared memory whole, else the keys per tile of the
+// key-tiled grid (the most of kKeyTiles that fits); -1 when neither fits.
+constexpr int kKeyTiles[] = {64, 32, 16};
+int key_tile(int T, int D, int H) {
+  if (attention_smem(T, D, H) <= kSmemLimit) return 0;
+  for (int kt : kKeyTiles) {
+    if (attention_tiled_smem(kt, D, H) <= kSmemLimit) return kt;
+  }
+  return -1;
+}
+size_t attention_grid_smem(int T, int D, int H) {
+  const int kt = key_tile(T, D, H);
+  if (kt < 0) return kSmemLimit + 1;
+  return kt ? attention_tiled_smem(kt, D, H) : attention_smem(T, D, H);
+}
 Smem out_ff1_smem(int D, int F) {
   const int db = slice(D), fb = slice(F);
   return Smem(kRows * kstride(D) + (kRows + 1) * db + 2 * D + fb, series_chunks(db, D),
@@ -962,10 +1090,19 @@ cudaError_t launch_grid(int which, const LayerArgs& a, cudaStream_t stream) {
                                              s.bytes, false, stream, a.x, a.w_in, a.b_in, qkv, M,
                                              D, s.stages);
     }
-    case 2:
-      return launch<encoder_layer_attention<BF16>>(
-          dim3(a.B * a.H, (a.T + kRows - 1) / kRows), attention_smem(a.T, D, a.H), false, stream,
-          static_cast<const float*>(qkv), attn, a.T, D, a.H, a.scale);
+    case 2: {
+      const int kt = key_tile(a.T, D, a.H);
+      const dim3 grid(a.B * a.H, (a.T + kRows - 1) / kRows);
+      if (kt < 0) return cudaErrorInvalidConfiguration;
+      if (kt) {
+        return launch<encoder_layer_attention_tiled<BF16>>(
+            grid, attention_tiled_smem(kt, D, a.H), false, stream, static_cast<const float*>(qkv),
+            attn, a.T, D, a.H, a.scale, kt);
+      }
+      return launch<encoder_layer_attention<BF16>>(grid, attention_smem(a.T, D, a.H), false,
+                                                   stream, static_cast<const float*>(qkv), attn,
+                                                   a.T, D, a.H, a.scale);
+    }
     case 3: {
       const Smem s = out_ff1_smem(D, F);
       if (s.stages < 0) return cudaErrorInvalidConfiguration;
@@ -996,7 +1133,7 @@ cudaError_t run(int which, bool bf16, const LayerArgs& a, cudaStream_t stream) {
     if (reinterpret_cast<size_t>(p) % 16) return cudaErrorMisalignedAddress;
   }
   if (a.B < 1 || a.T < 1 || a.D % a.H || (a.D / a.H) % 4 || a.D % 4 || a.F % 4 ||
-      a.D > kMaxWidth) {
+      a.D > kMaxWidth || which < 0 || which > 4) {
     return cudaErrorInvalidValue;
   }
   for (int g = which ? which : 1; g <= (which ? which : 4); ++g) {
@@ -1009,13 +1146,17 @@ cudaError_t run(int which, bool bf16, const LayerArgs& a, cudaStream_t stream) {
 }  // namespace
 
 // The largest dynamic shared memory (bytes) one of the layer's four grids
-// needs; above 227 KB (no weight layout fits) the layer cannot run.
+// needs; above 227 KB (no layout fits) the layer cannot run.
 extern "C" size_t dsg_encoder_layer_smem_bytes(int T, int D, int H, int F) {
   const Smem s[] = {qkv_smem(D), out_ff1_smem(D, F), ff2_ln2_smem(D, F)};
-  size_t most = attention_smem(T, D, H);
+  size_t most = attention_grid_smem(T, D, H);
   for (const Smem& g : s) most = std::max(most, g.stages < 0 ? kSmemLimit + 1 : g.bytes);
   return most;
 }
+
+// Keys per tile of the attention grid the layer takes at this shape: 0 for the
+// whole-row grid, -1 when none fits.
+extern "C" int dsg_encoder_layer_key_tile(int T, int D, int H) { return key_tile(T, D, H); }
 
 // Floats of device workspace one layer needs: qkv, the attention output, y and h.
 extern "C" size_t dsg_encoder_layer_workspace_floats(int B, int T, int D, int F) {

@@ -14,6 +14,9 @@
   Every conditioning mode and trunk of the MDM is covered: `input_process_plain`,
   `embed_style` under style2, `seqTransDecoder`, `gru` and a MoE layer's
   router and expert stacks.
+* `text_mdm_state_dict_from_flax`: the JAX text-to-motion `TextMDM`; its
+  CLIP text encoder's params go through
+  `models/clip_text.py::clip_state_dict_from_flax`.
 * `tisa_state_dict_from_flax`, `local_transformer_state_dict_from_flax`,
   `baseline_state_dict_from_flax` (GeneratorLinear / GRU, Seq2SeqNet: the
   reference's own layout, the inverse of the JAX `convert_*`),
@@ -151,6 +154,13 @@ def mdm_state_dict_from_flax(params: Mapping[str, Any]) -> StateDict:
 def mdm_plus_state_dict_from_flax(params: Mapping[str, Any]) -> StateDict:
     """JAX `models.mdm_plus.MDMPlus` params → the port's `MDMPlus` state_dict
     (the MDM's scopes, `embed_text_last` in cross_local_attention5, MoE layers)."""
+    return mdm_state_dict_from_flax(params)
+
+
+def text_mdm_state_dict_from_flax(params: Mapping[str, Any]) -> StateDict:
+    """JAX `models.mdm_text.TextMDM` params → the port's `TextMDM` state_dict
+    (`embed_timestep`, `embed_text`, `input_process`, `seqTransEncoder`,
+    `output_process`)."""
     return mdm_state_dict_from_flax(params)
 
 

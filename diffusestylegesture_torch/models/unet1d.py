@@ -194,8 +194,10 @@ class GeneratorDiff(nn.Module):
         return self.unet(x, t, audio_feat, x_self_cond)
 
 
-def make_generator_diff_schedule(timesteps: int = 250, device="cpu") -> Schedule:
-    """lucidrains `GaussianDiffusion1D`'s default for 1-D data: cosine betas."""
+def make_generator_diff_schedule(timesteps: int = 250, device="cuda") -> Schedule:
+    """lucidrains `GaussianDiffusion1D`'s default for 1-D data: cosine betas, on
+    the card unless the caller asks for the CPU (`Schedule.create` raises
+    without one)."""
     return Schedule.create(named_beta_schedule("cosine", timesteps), device=device)
 
 

@@ -11,6 +11,12 @@ layer requires grad, since its result would silently carry no gradient
 call that issues the layer's four CUDA grids on the current stream.
 `launches` counts the float32 (3xTF32) layer launches, `launches_bf16`
 those in the `mxu_bf16` operand mode.
+
+The attention grid holds one head's keys and values in shared memory whole
+where they fit (every ZEGGS / BEAT / TWH shape), and streams them in key
+tiles with an online softmax where they do not (T > 176 at head dim 128, as
+HumanML3D's T = 197; T > 336 at head dim 64). `key_tile(T, D, H)` says which
+one a shape takes.
 """
 from __future__ import annotations
 
@@ -42,6 +48,8 @@ def _library():
         lib.dsg_encoder_layer.restype = ctypes.c_int
         lib.dsg_encoder_layer_smem_bytes.argtypes = [ctypes.c_int] * 4
         lib.dsg_encoder_layer_smem_bytes.restype = ctypes.c_size_t
+        lib.dsg_encoder_layer_key_tile.argtypes = [ctypes.c_int] * 3
+        lib.dsg_encoder_layer_key_tile.restype = ctypes.c_int
         lib.dsg_encoder_layer_workspace_floats.argtypes = [ctypes.c_int] * 4
         lib.dsg_encoder_layer_workspace_floats.restype = ctypes.c_size_t
         _lib = lib
@@ -54,6 +62,12 @@ def layer_weights(layer: TorchEncoderLayer):
     return (a.in_proj_weight, a.in_proj_bias, a.out_proj.weight, a.out_proj.bias,
             layer.norm1.weight, layer.norm1.bias, layer.linear1.weight, layer.linear1.bias,
             layer.linear2.weight, layer.linear2.bias, layer.norm2.weight, layer.norm2.bias)
+
+
+def key_tile(T: int, D: int, H: int) -> int:
+    """Keys per tile of the attention grid the kernel runs at this shape: 0 for
+    the whole-row grid, -1 when neither fits (builds the library)."""
+    return _library().dsg_encoder_layer_key_tile(T, D, H)
 
 
 def encoder_layer(x: torch.Tensor, layer: TorchEncoderLayer,

@@ -28,6 +28,18 @@ recognized by its `config.json`: `--out` receives `model.pt` (through
 `models/convert.py::zeroeggs_state_dict_from_flax`) and a copy of
 `config.json`, which `python -m diffusestylegesture_torch.cli.zeroeggs generate
 --network` reads.
+
+A text-to-motion save dir of the JAX `cli/train_t2m.py` (`t2m_config.json`
+beside the numbered orbax steps) is recognized by its `t2m_config.json`:
+`--out` receives `<step>/model.pt` (and `model_ema.pt` when the TrainState
+holds EMA params) for the latest step, through
+`models/convert.py::text_mdm_state_dict_from_flax`, and the config. A caption
+encoder spec that names only a seed (no `params_path`) stands for the JAX
+`ClipTextEncoder` initialised from `jax.random.PRNGKey(seed)`: its weights are
+written to `<out>/clip_text.npz` (the flat npz of the JAX
+`train/checkpoint.py::save_params_npz`) and the spec names that file, so that
+`python -m diffusestylegesture_torch.cli.generate --model_path <out>` (and the
+JAX one) serve it.
 """
 from __future__ import annotations
 
@@ -75,6 +87,55 @@ def convert_zeroeggs(save_dir: str, out_dir: str) -> list:
     return [path, config]
 
 
+def convert_t2m(save_dir: str, out_dir: str) -> list:
+    """A JAX train_t2m save dir → `<step>/model.pt` [`model_ema.pt`],
+    `t2m_config.json` and, for a seed-only encoder spec, `clip_text.npz`."""
+    import json
+
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from diffusestylegesture_tpu.cli.sample import load_orbax_params
+    from diffusestylegesture_tpu.models.clip_text import ClipTextConfig, ClipTextEncoder
+    from diffusestylegesture_tpu.train.checkpoint import save_params_npz
+    from diffusestylegesture_torch.models.convert import text_mdm_state_dict_from_flax
+
+    with open(os.path.join(save_dir, "t2m_config.json")) as f:
+        cfg = json.load(f)
+    step = max(int(d) for d in os.listdir(save_dir) if d.isdigit())
+    step_dir = os.path.join(out_dir, str(step))
+    os.makedirs(step_dir, exist_ok=True)
+
+    def save(tree, name):
+        tree = jax.tree_util.tree_map(np.asarray, tree)
+        path = os.path.join(step_dir, name)
+        torch.save(text_mdm_state_dict_from_flax(tree), path)
+        return path
+
+    written = [save(load_orbax_params(save_dir), "model.pt")]
+    if trainstate_has_ema(save_dir):
+        written.append(save(load_orbax_params(save_dir, use_ema=True), "model_ema.pt"))
+    clip = dict(cfg["clip"])
+    if not clip.get("params_path"):
+        ccfg = ClipTextConfig(vocab_size=clip["vocab_size"], width=clip["width"],
+                              layers=clip["layers"], heads=clip["heads"],
+                              context_length=clip["context_length"],
+                              projection_dim=clip["projection_dim"])
+        params = ClipTextEncoder(ccfg).init(
+            jax.random.PRNGKey(clip["seed"]),
+            jnp.zeros((1, clip["context_length"]), jnp.int32))["params"]
+        path = os.path.join(out_dir, "clip_text.npz")
+        save_params_npz(path, params)
+        written.append(path)
+        clip["params_path"] = "clip_text.npz"
+    path = os.path.join(out_dir, "t2m_config.json")
+    with open(path, "w") as f:
+        json.dump({**cfg, "clip": clip}, f, indent=1)
+    written.append(path)
+    return written
+
+
 def convert(model_path: str, out_dir: str) -> list:
     """Writes the port's files for `model_path` into `out_dir`; returns their paths."""
     import jax
@@ -82,6 +143,8 @@ def convert(model_path: str, out_dir: str) -> list:
 
     if os.path.exists(os.path.join(model_path, "config.json")):
         return convert_zeroeggs(model_path, out_dir)
+    if os.path.exists(os.path.join(model_path, "t2m_config.json")):
+        return convert_t2m(model_path, out_dir)
 
     from diffusestylegesture_tpu.cli.sample import load_orbax_params
     from diffusestylegesture_torch.models.convert import mdm_plus_state_dict_from_flax
@@ -106,7 +169,7 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[1])
     p.add_argument("--model_path", required=True,
                    help="orbax params dir, TrainLoop checkpoint dir, distill stage dir or "
-                        "ZeroEGGS save dir")
+                        "ZeroEGGS or train_t2m save dir")
     p.add_argument("--out", required=True, help="directory for model.pt [model_ema.pt] "
                                                 "[schedule.json | config.json]")
     args = p.parse_args(argv)

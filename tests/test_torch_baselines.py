@@ -283,7 +283,7 @@ def _gd():
     params = _params(jm, jnp.asarray(x), jnp.zeros((2,), jnp.int32), jnp.asarray(wav))
     model = _load(tun.GeneratorDiff(**kw), generator_diff_state_dict_from_flax(params))
     jsched = jun.make_generator_diff_schedule(12)
-    tsched = tun.make_generator_diff_schedule(12)
+    tsched = tun.make_generator_diff_schedule(12, device="cpu")
     return jm, params, model, jsched, tsched, wav, x
 
 

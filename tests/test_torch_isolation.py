@@ -78,9 +78,13 @@ def test_package_imports_no_jax_in_a_fresh_interpreter():
         "'utils.profiling', 'sample.edit', 'sample.restyle', 'sample.streaming', "
         "'sample.server', 'cli.serve', 'models.zeroeggs', 'sample.engine_zeroeggs', "
         "'data.zeroeggs_data', 'cli.zeroeggs', 'models.moe', 'models.tisa', "
-        "'models.local_transformer', 'models.baselines', 'models.unet1d', 'models.diffwav')}\n"
+        "'models.local_transformer', 'models.baselines', 'models.unet1d', 'models.diffwav', "
+        "'utils.rotations', 'motion.humanml', 'models.clip_text', 'models.mdm_text', "
+        "'cli.generate', 'data.humanml', 'cli.train_t2m', 'eval.t2m', 'eval.t2m_evaluator', "
+        "'models.smpl', 'eval.stgcn', 'eval.action2motion', 'motion.gltf_export', "
+        "'motion.viz', 'motion.mocap_player', 'cli.export_gltf')}\n"
         "print(len(mods), bad, sorted(new - set(mods)), 'h5py' in sys.modules)\n"
-        "sys.exit(1 if bad or len(mods) < 83 or not new <= set(mods) or 'h5py' in sys.modules "
+        "sys.exit(1 if bad or len(mods) < 99 or not new <= set(mods) or 'h5py' in sys.modules "
         "else 0)\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
                          timeout=120)
@@ -112,6 +116,13 @@ def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
     from diffusestylegesture_torch.models.zeroeggs import ZeroEGGS, ZeroEGGSConfig
     from diffusestylegesture_torch.sample import edit
     from diffusestylegesture_torch.sample.engine_zeroeggs import ZeroEggsGenerator
+    from diffusestylegesture_torch.cli import generate as generate_cli
+    from diffusestylegesture_torch.cli import train_t2m as train_t2m_cli
+    from diffusestylegesture_torch.eval.stgcn import A2MEvaluation
+    from diffusestylegesture_torch.eval.t2m_evaluator import T2MEvaluator
+    from diffusestylegesture_torch.models.clip_text import make_caption_encoder
+    from diffusestylegesture_torch.models.smpl import SmplModel
+    from diffusestylegesture_torch.models.unet1d import make_generator_diff_schedule
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
@@ -125,7 +136,17 @@ def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
                  lambda: zeroeggs_cli.main(["train", "--data", str(tmp_path), "--save_dir",
                                             str(tmp_path)]),
                  lambda: zeroeggs_cli.main(["generate", "--network", str(tmp_path), "--stats",
-                                            "s.npz", "--audio", "a.wav", "--style", "x.bvh"])):
+                                            "s.npz", "--audio", "a.wav", "--style", "x.bvh"]),
+                 lambda: make_generator_diff_schedule(10),
+                 lambda: make_caption_encoder(width=8, layers=1, heads=2, vocab_size=16,
+                                              projection_dim=4, context_length=4),
+                 lambda: T2MEvaluator({}),
+                 lambda: A2MEvaluation(None, 6, 12),
+                 lambda: SmplModel.from_arrays(v_template=np.zeros((1, 3))),
+                 lambda: generate_cli.main(["--model_path", str(tmp_path), "--text_prompt", "x"]),
+                 lambda: train_t2m_cli.main(["--motion_dir", "m", "--text_dir", "t", "--split",
+                                             "s", "--mean", "m", "--std", "s", "--save_dir",
+                                             str(tmp_path)])):
         with pytest.raises(RuntimeError, match="cuda"):
             call()
 
@@ -377,14 +398,47 @@ def test_cuda_encoder_layer_is_deterministic(cuda_device, mxu_bf16):
 
 @pytest.mark.cuda
 def test_cuda_encoder_layer_rejects_what_shared_memory_cannot_hold(cuda_device):
-    # the attention grid holds all keys of a head: at head dim 64, T 336 is the most
+    # the whole-row attention grid holds all keys of a head: at head dim 64, T 336
+    # is the most it takes; past it the key-tiled grid runs. At T 64 one head of
+    # width 1024 fits neither grid (601 KB whole, 270 KB in 16-key tiles)
+    assert ops_encoder_layer.key_tile(336, 256, 4) == 0
+    assert ops_encoder_layer.key_tile(337, 256, 4) == 64
+    assert ops_encoder_layer.key_tile(64, 1024, 1) == -1
     layer = TorchEncoderLayer(256, 4, 1024).to(cuda_device).eval()
+    wide = TorchEncoderLayer(1024, 1, 1024).to(cuda_device).eval()
     before = ops_encoder_layer.launches
     with torch.no_grad():
         ops_encoder_layer.encoder_layer(torch.randn(1, 336, 256, device=cuda_device), layer)
+        ops_encoder_layer.encoder_layer(torch.randn(1, 400, 256, device=cuda_device), layer)
         with pytest.raises(ValueError, match="shared memory"):
-            ops_encoder_layer.encoder_layer(torch.randn(1, 400, 256, device=cuda_device), layer)
-    assert ops_encoder_layer.launches == before + 1
+            ops_encoder_layer.encoder_layer(torch.randn(1, 64, 1024, device=cuda_device), wide)
+    assert ops_encoder_layer.launches == before + 2
+
+
+# the key-tiled attention grid: HumanML3D's text-to-motion trunk (T 197, head
+# dim 128, past the whole-row grid's T 176), the first T past it, T 400 at head
+# dim 64, and the first T past the whole-row grid's 336 there (a 17-key tile)
+TILED_SHAPES = [(2, 197, 512), (3, 177, 512), (2, 400, 256), (1, 337, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mxu_bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", TILED_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_cuda_encoder_layer_key_tiles_match_plain(cuda_device, shape, mxu_bf16):
+    B, T, D = shape
+    torch.manual_seed(0)
+    layer = TorchEncoderLayer(D, 4, 1024).to(cuda_device).eval()
+    assert ops_encoder_layer.key_tile(T, D, 4) == 64
+    x = torch.randn(B, T, D, device=cuda_device)
+    before = (ops_encoder_layer.launches, ops_encoder_layer.launches_bf16)
+    with torch.no_grad():
+        out = ops_encoder_layer.encoder_layer(x, layer, mxu_bf16=mxu_bf16)
+        again = ops_encoder_layer.encoder_layer(x, layer, mxu_bf16=mxu_bf16)
+        ref = layer(x, mxu_bf16=mxu_bf16)
+    after = (ops_encoder_layer.launches, ops_encoder_layer.launches_bf16)
+    assert after == (before[0] + 2 * (not mxu_bf16), before[1] + 2 * mxu_bf16)
+    assert torch.equal(out, again)
+    assert (out - ref).abs().max().item() <= (1e-2 if mxu_bf16 else 1e-4)
 
 
 @pytest.mark.cuda

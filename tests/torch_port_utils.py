@@ -205,3 +205,19 @@ def rel_err(out, ref) -> float:
     """max |out − ref| over max(mean |ref|, 1): the windowed engines' bar is 2e-3."""
     out, ref = np32(out), np32(ref)
     return float(np.abs(out - ref).max()) / max(float(np.abs(ref).mean()), 1.0)
+
+
+def jax_single_loop_draws(key, steps: int, shape):
+    """The draws of one JAX sampling loop called with `key` directly (no
+    window split, as the JAX `cli/generate.py` calls it), x_T first: the loop
+    splits `key` into (key, init_key), draws x_T from init_key and then one
+    array a step."""
+    import jax
+    import jax.numpy as jnp
+
+    key, init_key = jax.random.split(key)
+    draws = [np.array(jax.random.normal(init_key, shape, dtype=jnp.float32))]
+    for _ in range(steps):
+        key, nkey = jax.random.split(key)
+        draws.append(np.array(jax.random.normal(nkey, shape, dtype=jnp.float32)))
+    return draws
