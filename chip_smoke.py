@@ -179,11 +179,26 @@ Phases (any failure exits non-zero before the result line):
      `cli.export_gltf --player` to GLB and the player HTML; `read_glb` reads
      each back with one node a joint and one animation channel a rotated or
      translated joint; timed (no matplotlib: the card's machine has none);
-  15. print the card line, a `kernels` JSON line, an `e2e` JSON line, a `train`
+  15. parallelism over every visible card (`diffusestylegesture_torch/parallel/`):
+     (a) `ZeggsSampler.generate(mesh=)` at B = 16 in dpmpp5 and DDPM-1000 and
+     `BeatTwhSampler.generate(mesh=)` TWH + in dpmpp5 over a serving mesh of
+     the cards (one replica and its graphs a card), each within 2e-3 rel of
+     the one-card run, every card launching kernels A and B as the one-card
+     run does, frames/s both ways; (b) `cli.train` at full width (batch 300,
+     20 steps, device cache) on phase 6's clips in a spawned NCCL group of one
+     rank a card under --use_mesh, --fsdp, --tp, --sp and --pp (degree
+     min(2, cards), 4 microbatches; one card: degree 1), the logged losses
+     within 1e-5 rel of the one-process run (--pp: of the one-process --pp 1
+     run), no kernel launched, ms/step and peak memory per rank; (c) in that
+     group one B = 16 ZEGGS denoiser call through sequence-parallel local
+     attention (kernel A over [halo | shard]) and through the pipelined trunk
+     (kernel B per stage), each within 2e-3 rel of the plain path, launches
+     held, device ms beside the unsharded kernel path's;
+  16. print the card line, a `kernels` JSON line, an `e2e` JSON line, a `train`
      JSON line, a `distill` JSON line, a `beat_twh` JSON line, a
      `beat_twh_train` JSON line, a `serving` JSON line, a `zeroeggs` JSON line,
-     a `models` JSON line, a `t2m` JSON line, an `export` JSON line and, last,
-     {"ok": true, "device": {...}}.
+     a `models` JSON line, a `t2m` JSON line, an `export` JSON line, a
+     `parallel` JSON line and, last, {"ok": true, "device": {...}}.
 
 Device times of the kernels come from CUDA events around back-to-back calls
 queued behind a sleep kernel, so host launch overhead is not in them.
@@ -3018,11 +3033,265 @@ def phase_export(tmp, card):
     return res
 
 
+# ---- phase 15 ------------------------------------------------------------------
+
+
+PARALLEL_STEPS = 20  # cli.train steps of each phase-15 run
+PARALLEL_LOG = 5
+PARALLEL_MICROBATCHES = 4
+MESH_BATCH = 16  # the server's batch, spread over the serving mesh
+# (name, cli.train flags past the shared ones); {d} is the degree min(2, cards)
+PARALLEL_TRAIN_RUNS = (
+    ("use_mesh", ["--use_mesh"]),
+    ("fsdp", ["--use_mesh", "--fsdp"]),
+    ("tp", ["--tp", "{d}"]),
+    ("sp", ["--sp", "{d}"]),
+    ("pp", ["--pp", "{d}", "--pipe_microbatches", "{m}"]),
+)
+
+
+def parallel_train_args(work, name, flags, degree):
+    """cli.train's flags; the pipelined runs take 4 microbatches on one card and
+    `degree` on more (batch 300 over data 2 leaves 150 rows a rank)."""
+    micro = PARALLEL_MICROBATCHES if degree == 1 else degree
+    return (["--config", os.path.join(HERE, "configs", "zeggs.yml"),
+             "--num_steps", str(PARALLEL_STEPS), "--log_interval", str(PARALLEL_LOG),
+             "--seed", "0", "--device_cache", "--save_dir", os.path.join(work, f"out_par_{name}")]
+            + [f.format(d=degree, m=micro) for f in flags])
+
+
+def parallel_train_run(dev, work, name, flags, degree):
+    """One cli.train run in this process: its logged losses, ms/step, peak
+    memory and kernel launches."""
+    import torch
+
+    from diffusestylegesture_torch.cli import train as train_cli
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    out, wall, counts = counted(lambda: train_cli.main(
+        parallel_train_args(work, name, flags, degree)))
+    loop = out["loop"]
+    losses = [float(d["loss"]) for d in loop.logged]
+    return dict(losses=losses, ms_per_step=steady_ms([loop]), wall_s=wall,
+                peak_memory_bytes=torch.cuda.max_memory_allocated(dev), launches=counts,
+                captured=loop.captured is not None,
+                capture_s=loop.captured.capture_seconds if loop.captured is not None else 0.0,
+                moment_elements=loop.state.optimizer.mu.numel(),
+                param_elements=loop.state.params.numel)
+
+
+def parallel_inference(dev, mdm_pt, mesh_size):
+    """(c): one ZEGGS denoiser call at B = 16 through sequence-parallel local
+    attention (kernel A over [halo | shard]) and through the pipelined trunk
+    (kernel B per stage, 4 microbatches), each against the plain path; their
+    launches and device times beside the unsharded kernel path's."""
+    import torch
+
+    from diffusestylegesture_torch.models.convert import load_reference_mdm
+    from diffusestylegesture_torch.models.mdm import MDMConfig
+    from diffusestylegesture_torch.parallel import multihost
+
+    seq = multihost.global_mesh(("seq",), (mesh_size,))
+    pipe = multihost.global_mesh(("pipe",), (mesh_size,))
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    B = MESH_BATCH
+    x = torch.randn(B, 1141, 1, 88, generator=g, device=dev)
+    t = torch.randint(0, 1000, (B,), generator=g, device=dev)
+    cond = {"style": torch.eye(6, device=dev)[torch.arange(B, device=dev) % 6],
+            "seed": torch.randn(B, 1141, 1, 8, generator=g, device=dev),
+            "audio": torch.randn(B, 88, 1024, generator=g, device=dev),
+            "mask_local": torch.ones(B, 88, dtype=torch.bool, device=dev)}
+    plain = load_reference_mdm(mdm_pt, MDMConfig(impl="plain"), device=dev)
+    kernel = load_reference_mdm(mdm_pt, MDMConfig(), device=dev)
+    res = {}
+    with torch.inference_mode():
+        ref = plain(x, t, cond)
+        for name, cfg in (("seq_parallel", MDMConfig(seq_parallel=True, seq_mesh=seq)),
+                          ("pipeline", MDMConfig(trunk_impl="pipeline", pipe_mesh=pipe,
+                                                 pipe_microbatches=PARALLEL_MICROBATCHES))):
+            model = load_reference_mdm(mdm_pt, cfg, device=dev)
+            out, _, counts = counted(lambda: model(x, t, cond))
+            err = rel(out.float().cpu().numpy(), ref.float().cpu().numpy())
+            check(err <= E2E_REL, f"{name} inference: {err} > {E2E_REL} rel of the plain path")
+            res[name] = dict(kernel_vs_plain_rel=err, local_attention_launches=counts[0],
+                             encoder_layer_launches=counts[1],
+                             encoder_layer_bf16_launches=counts[2],
+                             ms=device_ms(lambda: model(x, t, cond), iters=4, warmup=2))
+        res["unsharded_kernel_ms"] = device_ms(lambda: kernel(x, t, cond), iters=4, warmup=2)
+    per = 8 // mesh_size
+    check(res["seq_parallel"]["local_attention_launches"] == 1
+          and res["seq_parallel"]["encoder_layer_launches"] == 8,
+          f"seq_parallel inference launches {res['seq_parallel']}")
+    check(res["pipeline"]["local_attention_launches"] == 1
+          and res["pipeline"]["encoder_layer_launches"] == per * PARALLEL_MICROBATCHES,
+          f"pipelined inference launches {res['pipeline']}")
+    return res
+
+
+def _parallel_rank(rank, world, port, work, mdm_pt, out_dir):
+    """One rank of phase 15's spawned group (NCCL, one card a rank): the meshed
+    cli.train runs, then the sequence-parallel and pipelined inference."""
+    import torch
+
+    os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(world),
+                      MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    sys.path.insert(0, HERE)
+    from diffusestylegesture_torch import resolve_device
+    from diffusestylegesture_torch.parallel import multihost
+
+    torch.cuda.set_device(rank)
+    dev = resolve_device(f"cuda:{rank}")
+    res = {"train": {}}
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        degree = min(2, world)
+        for name, flags in PARALLEL_TRAIN_RUNS:
+            res["train"][name] = parallel_train_run(dev, work, name, flags, degree)
+        res["inference"] = parallel_inference(dev, mdm_pt, world)
+    finally:
+        os.chdir(cwd)
+        multihost.shutdown()
+    torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+def phase_parallel(dev, tmp, card, ctx):
+    """15. (a) ZEGGS (dpmpp5, DDPM-1000) and TWH + (dpmpp5) served at B = 16
+    over a mesh of every visible card, against the one-card run; (b) cli.train
+    at full width on phase 6's clips in a spawned NCCL group of one rank a
+    card, under --use_mesh, --fsdp, --tp, --sp and --pp; (c) sequence-parallel
+    and pipelined inference in that group."""
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+
+    from diffusestylegesture_torch import diffusion as D
+    from diffusestylegesture_torch.cli import sample_beat as beat_cli
+    from diffusestylegesture_torch.config import apply_beat_twh_derivations, load_yaml_config
+    from diffusestylegesture_torch.data import load_wav_16k
+    from diffusestylegesture_torch.models.convert import (load_reference_mdm,
+                                                          load_reference_mdm_plus,
+                                                          load_wavlm_checkpoint)
+    from diffusestylegesture_torch.models.mdm import MDMConfig
+    from diffusestylegesture_torch.parallel import make_mesh, multihost
+    from diffusestylegesture_torch.sample import prepare_seed_gesture
+
+    t_phase = time.perf_counter()
+    cards = torch.cuda.device_count()
+    mesh = make_mesh()
+    res = {"cards": cards, "card": card, "mesh_batch": MESH_BATCH, "serving": {}}
+
+    # (a) serving over the mesh
+    mdm_pt = os.path.join(tmp, "model000000000.pt")
+    model = load_reference_mdm(mdm_pt, MDMConfig(), device=dev)
+    _, wavlm = load_wavlm_checkpoint(os.path.join(tmp, "WavLM-Large.pt"), device=dev)
+    audio = load_wav_16k(os.path.join(tmp, "015_Happy_4_x_1_0.wav"))
+    style = np.eye(6, dtype=np.float32)[np.arange(MESH_BATCH) % 6]
+    betas = D.named_beta_schedule("cosine", 1000)
+
+    def serve(name, make, call, frames):
+        out = {}
+        for label, m in (("one_card", None), ("mesh", mesh)):
+            sampler = make()
+            call(sampler, m)  # captures the graphs
+            (poses, wall, counts) = counted(lambda: call(sampler, m))
+            out[label] = (poses, wall, counts, sampler.lane_launches if m is not None else None)
+        (p1, w1, c1, _), (pm, wm, cm, lanes) = out["one_card"], out["mesh"]
+        err = rel(pm, p1)
+        check(pm.shape == p1.shape and err <= E2E_REL,
+              f"{name}: mesh vs one card {err} > {E2E_REL} rel")
+        check(all(tuple(lane) == c1 for lane in lanes) and len(lanes) == min(cards, MESH_BATCH),
+              f"{name}: per-card launches {lanes}, the one-card run's {c1}")
+        res["serving"][name] = dict(
+            mesh_vs_one_card_rel=err, one_card_s=w1, mesh_s=wm,
+            one_card_frames_per_s=MESH_BATCH * frames / w1, mesh_frames_per_s=MESH_BATCH * frames / wm,
+            launches_one_card=c1, launches_per_card=[list(lane) for lane in lanes],
+            launches_mesh_total=cm)
+        print(f"parallel serving {name} [{card}]: {json.dumps(res['serving'][name])}")
+
+    for name, sampler_kind, steps in (("zeggs_dpmpp5", "dpmpp", 5), ("zeggs_ddpm1000", "ddpm", 1000)):
+        sched = (D.Schedule.create(betas, device=dev) if steps == 1000 else
+                 D.spaced_schedule(betas, D.space_timesteps(1000, f"ddim{steps}"), device=dev))
+        serve(name, lambda: zeggs_sampler(dev, sched, sampler_kind),
+              lambda s, m: s.generate(model, wavlm, audio, style,
+                                      torch.Generator(device=dev).manual_seed(123456),
+                                      mesh=m),
+              3 * 80 - 8)
+    files = {k: os.path.join(tmp, "beat_twh", f"TWH_{k}") for k in ("yml", "mean.npy", "std.npy",
+                                                                    "seed.npy")}
+    tcfg = apply_beat_twh_derivations(load_yaml_config(files["yml"],
+                                                       {"name": "DiffuseStyleGesture+"}))
+    twh = load_reference_mdm_plus(os.path.join(tmp, "beat_twh", "TWH_DiffuseStyleGesture+.pt"),
+                                  beat_cli.mdm_plus_config(tcfg), device=dev)
+    ta = np.load(os.path.join(tmp, "beat_twh", "TWH_textaudio.npy"))
+    tmean, tstd = np.load(files["mean.npy"]), np.load(files["std.npy"])
+    tseed = prepare_seed_gesture(np.load(files["seed.npy"])[:32], tmean, tstd)
+    tstyle = np.eye(tcfg.style_dim, dtype=np.float32)[np.arange(MESH_BATCH) % tcfg.style_dim]
+    serve("twh_dsg+_dpmpp5", lambda: beat_twh_sampler(dev, tcfg, "attention4", "dpmpp", 5),
+          lambda s, m: s.generate(twh, ta, tseed, tstyle,
+                                  torch.Generator(device=dev).manual_seed(123456), tmean, tstd,
+                                  mesh=m),
+          ta.shape[0])
+    del model, wavlm, twh
+    torch.cuda.empty_cache()
+    res["serving_s"] = time.perf_counter() - t_phase
+
+    # (b) and (c): one rank a card
+    work = ctx["work"]
+    degree = min(2, cards)
+    t0 = time.perf_counter()
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        # the world-1 runs the meshed ones are held to: the plain trunk's, and
+        # the pipelined trunk's (its dropout masks are drawn per layer, its own)
+        ref = {"plain": parallel_train_run(dev, work, "world1", [], degree),
+               "pp": parallel_train_run(dev, work, "world1_pp",
+                                        ["--pp", "1", "--pipe_microbatches", "{m}"], 1)}
+        multihost.shutdown()
+    finally:
+        os.chdir(cwd)
+    out_dir = os.path.join(tmp, "parallel_ranks")
+    os.makedirs(out_dir, exist_ok=True)
+    mp.spawn(_parallel_rank, args=(cards, multihost.free_port(), work, mdm_pt, out_dir),
+             nprocs=cards, join=True)
+    ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False)
+             for r in range(cards)]
+    res["train_spawn_s"] = time.perf_counter() - t0
+    res["train"] = {"degree": degree}
+    for key, r in (("world1", ref["plain"]), ("world1_pp", ref["pp"])):
+        res["train"][key] = {k: v for k, v in r.items() if k != "losses"}
+        res["train"][key + "_losses"] = r["losses"]
+    for name, _ in PARALLEL_TRAIN_RUNS:
+        runs = [r["train"][name] for r in ranks]
+        base = ref["pp"] if name == "pp" else ref["plain"]
+        errs = []
+        for r in runs:
+            errs.append(float(np.max(np.abs(np.array(r["losses"]) - np.array(base["losses"]))
+                                     / np.abs(np.array(base["losses"])))))
+            check(bool(np.isfinite(r["losses"]).all()) and errs[-1] <= 1e-5,
+                  f"parallel train {name}: losses {r['losses']} vs world 1 {base['losses']}")
+            check(r["launches"] == (0, 0, 0), f"parallel train {name}: kernels launched "
+                                              f"{r['launches']}")
+        res["train"][name] = dict(
+            losses=runs[0]["losses"], loss_vs_world1_rel=max(errs),
+            launches=[list(r["launches"]) for r in runs],
+            ms_per_step=[r["ms_per_step"] for r in runs],
+            peak_memory_bytes=[r["peak_memory_bytes"] for r in runs],
+            captured=runs[0]["captured"], capture_s=runs[0]["capture_s"],
+            moment_elements=runs[0]["moment_elements"], param_elements=runs[0]["param_elements"])
+    res["inference"] = [r["inference"] for r in ranks]
+    res["phase_s"] = time.perf_counter() - t_phase
+    print(f"parallel train and inference [{card}]: "
+          f"{json.dumps({k: res[k] for k in ('train', 'inference')})}")
+    return res
+
+
 SERVING_PATHS = ("serve", "serve_fast", "server", "stream", "restyle", "edit")
 
 
 def kernel_entries(la_err, la_t, el_err, el_t, e2e, distill, beat_twh, beat_twh_train, serving,
-                   models, t2m_rows, t2m):
+                   models, t2m_rows, t2m, parallel):
     """The `kernels` line's entries: each kernel with its launches on every
     path, its errors and its times at each shape it was timed at."""
     kernels = []
@@ -3084,6 +3353,17 @@ def kernel_entries(la_err, la_t, el_err, el_t, e2e, distill, beat_twh, beat_twh_
             launches_models={path: counts[column] for path, counts in models["launches"].items()},
             # phase 13: text-to-motion generate (float32 trunk; A runs on no t2m path)
             launches_t2m={run: t2m["serve"][run][f"{name}_launches"] for run in T2M_RUNS},
+            # phase 15: per card on the serving mesh, per rank on the sequence-
+            # parallel and pipelined calls and the meshed training runs (none)
+            launches_parallel=dict(
+                {run: [lane[column] for lane in r["launches_per_card"]]
+                 for run, r in parallel["serving"].items()},
+                seq_parallel_call=[r["seq_parallel"][f"{name}_launches"]
+                                   for r in parallel["inference"]],
+                pipelined_call=[r["pipeline"][f"{name}_launches"]
+                                for r in parallel["inference"]],
+                train={run: [counts[column] for counts in parallel["train"][run]["launches"]]
+                       for run, _ in PARALLEL_TRAIN_RUNS}),
             b2=batches[2], b16=batches[SERVER_BATCH], b300=b300, **extra))
     # kernel B's text-to-motion rows (phase 13a), on both of its entries by mode
     for k in kernels[1:]:
@@ -3163,10 +3443,13 @@ def main() -> int:
         export = phase_export(tmp, card)
         t2m["phase_wall_s"] = t2m_s
         print(f"phase 13 {t2m_s:.1f} s, phase 14 {export['cli_wall_s']:.1f} s")
+        # 15
+        parallel = phase_parallel(dev, tmp, card, ctx)
+        print(f"phase 15 {parallel['phase_s']:.1f} s")
 
-    # 15. lines
+    # 16. lines
     kernels = kernel_entries(la_err, la_t, el_err, el_t, e2e, distill, beat_twh, beat_twh_train,
-                             serving, models, t2m_rows, t2m)
+                             serving, models, t2m_rows, t2m, parallel)
     check(all(k["launches"] > 0 for k in kernels), "a kernel was not launched on its path")
     check(all(k["launches_distill"] > 0 for k in kernels[:2]),
           "a kernel was not launched on the distillation path")
@@ -3186,6 +3469,12 @@ def main() -> int:
           "a kernel was not launched on a phase 12 path")
     check(all(kernels[1]["launches_t2m"][run] > 0 for run in T2M_RUNS),
           "kernel B was not launched on the text-to-motion generate path")
+    check(all(min(k["launches_parallel"][run]) > 0 for k in kernels[:2]
+              for run in parallel["serving"])
+          and min(kernels[0]["launches_parallel"]["seq_parallel_call"]) > 0
+          and min(kernels[1]["launches_parallel"]["pipelined_call"]) > 0,
+          "a kernel was not launched on a parallel path (mesh serving, sequence-parallel or "
+          "pipelined inference)")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"e2e": e2e, "build_s": build_s}))
@@ -3198,6 +3487,7 @@ def main() -> int:
     print(json.dumps({"models": models, "card": card}))
     print(json.dumps({"t2m": t2m, "card": card}))
     print(json.dumps({"export": export, "card": card}))
+    print(json.dumps({"parallel": parallel, "card": card}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -14,7 +14,11 @@ its own sampler (`sample_fn`):
   `SpeechGestureDataset.sample` with the reference's exclusive-high start.
 
 Epochs become uniform sampling with replacement, the BEAT loader's own
-`RandomSampler` behaviour (`h5_data_loader.py:71-77`). Every sampler is
+`RandomSampler` behaviour (`h5_data_loader.py:71-77`). Under a mesh every
+rank keeps the whole cache on its own card and gathers its rows of the
+global batch there: the draws are made at the global batch
+(`parallel/draws.py`), so the ranks' rows together are the unsharded run's
+batch. Every sampler is
 device-side tensor work with no host sync, so the step that calls it stays
 one capturable CUDA graph.
 """
@@ -27,6 +31,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..parallel import draws
 
 
 Sampler = Callable[[Dict[str, torch.Tensor], Optional[torch.Generator], int],
@@ -58,8 +63,7 @@ class DeviceWindowCache:
                      batch_size: int) -> Dict[str, torch.Tensor]:
         """Uniform with-replacement row gather."""
         first = next(iter(arrays.values()))
-        idx = torch.randint(0, first.shape[0], (batch_size,), generator=generator,
-                            device=first.device)
+        idx = draws.randint(first.shape[0], (batch_size,), generator, first.device)
         return {k: v.index_select(0, idx) for k, v in arrays.items()}
 
     @classmethod
@@ -85,12 +89,10 @@ class DeviceWindowCache:
         reference's exclusive high: the last crop is never drawn), cropped by
         `crop_clips`."""
         clip_len = arrays["clip_len"]
-        idx = torch.randint(0, clip_len.shape[0], (batch_size,), generator=generator,
-                            device=clip_len.device)
+        idx = draws.randint(clip_len.shape[0], (batch_size,), generator, clip_len.device)
         hi = torch.clamp(clip_len.index_select(0, idx) - n_poses, min=1)
         # torch.randint takes no tensor high: floor(u · hi), u uniform in [0, 1)
-        u = torch.rand(batch_size, generator=generator, device=clip_len.device,
-                       dtype=torch.float64)
+        u = draws.rand((batch_size,), generator, clip_len.device, torch.float64)
         start = torch.minimum((u * hi).floor().long(), hi - 1)
         return DeviceWindowCache.crop_clips(arrays, idx, start, n_poses)
 
@@ -120,7 +122,9 @@ def make_device_data_train_step(sched, train_cfg, cond_builder, batch_size: int,
                                 sample_fn: Optional[Sampler] = None) -> Callable:
     """step(state, generator, arrays) → metrics: the batch is drawn first from
     `generator` by `sample_fn` (default `DeviceWindowCache.sample_batch`; pass
-    the cache's `sample_fn`), then the train step's own draws follow.
+    the cache's `sample_fn`), then the train step's own draws follow. Under a
+    mesh (`state.plan`) `batch_size` is the global batch and this rank draws
+    and gathers its rows.
     `step.device_step` leaves out the host's step count, as the train step's
     does: it is what `cli/train.py --device_cache` captures into a CUDA graph."""
     from ..train.state import make_train_step
@@ -129,7 +133,9 @@ def make_device_data_train_step(sched, train_cfg, cond_builder, batch_size: int,
     sample_fn = sample_fn or DeviceWindowCache.sample_batch
 
     def device_step(state, generator, arrays):
-        return inner.device_step(state, sample_fn(arrays, generator, batch_size), generator)
+        rows = batch_size if state.plan is None else batch_size // state.plan.data_size
+        gen = generator if state.plan is None else state.plan.draws(generator, rows)
+        return inner.device_step(state, sample_fn(arrays, gen, rows), generator)
 
     def step(state, generator, arrays):
         metrics = device_step(state, generator, arrays)

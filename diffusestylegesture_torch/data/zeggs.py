@@ -21,6 +21,7 @@ import glob
 import hashlib
 import math
 import os
+import tempfile
 from typing import Callable, Dict, Iterator, Optional
 
 import numpy as np
@@ -186,7 +187,14 @@ class ZeggsWindowDataset:
         if self.audio is not None:
             save["audio"] = self.audio
         save["wavlm"] = self.wavlm
-        np.savez(cache_path, **save)
+        # written whole and renamed into place: the ranks of a meshed run build
+        # the same cache at once, and a reader must never see a partial file
+        # (nor take it for a shard: the `_cache` prefix keeps it out of the list)
+        with tempfile.NamedTemporaryFile(dir=os.path.dirname(cache_path) or ".",
+                                         prefix="_cache_partial_", suffix=".npz",
+                                         delete=False) as f:
+            np.savez(f, **save)
+        os.replace(f.name, cache_path)
 
     def _require_features(self, where: str) -> None:
         if self.wavlm is None:

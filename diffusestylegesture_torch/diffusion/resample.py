@@ -4,21 +4,25 @@ Port of `diffusestylegesture_tpu/diffusion/resample.py` (reference
 `main/diffusion/resample.py:8-154`). The loss-aware history lives in device
 tensors and is updated without a host sync: the reference's sequential
 per-example ring insertion becomes one gather and one scatter that give the
-same rows. The JAX `axis_name` all-gather across a mesh waits for the
-port's multi-card slice.
+same rows. Across a mesh the train step gathers every data-parallel rank's
+(t, loss) pairs before the update (`train/state.py`), the JAX `axis_name`
+all-gather, so every rank keeps the same history; the samplers draw at the
+global batch through `parallel/draws.py`.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Tuple
 
 import torch
 
+from ..parallel import draws
 
-def uniform_sample_t(generator: Optional[torch.Generator], batch: int, num_timesteps: int,
+
+def uniform_sample_t(generator: draws.Draws, batch: int, num_timesteps: int,
                      device) -> Tuple[torch.Tensor, torch.Tensor]:
     """UniformSampler (ref `:42-58`): t ~ U{0..T-1}, weights 1."""
-    t = torch.randint(0, num_timesteps, (batch,), generator=generator, device=device)
+    t = draws.randint(num_timesteps, (batch,), generator, device)
     return t, torch.ones(batch, device=device)
 
 
@@ -47,11 +51,11 @@ def loss_aware_weights(state: LossAwareState, uniform_prob: float = 0.001) -> to
     return torch.where(warmed, w, torch.full_like(w, 1.0 / T))
 
 
-def loss_aware_sample_t(generator: Optional[torch.Generator], state: LossAwareState,
+def loss_aware_sample_t(generator: draws.Draws, state: LossAwareState,
                         batch: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Importance-sample t; weights 1/(T·p_t) (ref `:42-58`)."""
     p = loss_aware_weights(state)
-    t = torch.multinomial(p, batch, replacement=True, generator=generator)
+    t = draws.multinomial(p, batch, generator)
     return t, 1.0 / (p.shape[0] * p[t])
 
 

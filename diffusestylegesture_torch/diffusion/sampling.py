@@ -26,6 +26,7 @@ from typing import Callable, List, Optional, Tuple
 
 import torch
 
+from ..parallel import draws
 from . import gaussian as G
 from .schedule import Schedule
 
@@ -87,7 +88,7 @@ class SampleProgram:
     """
 
     def __init__(self, sched: Schedule, model_fn: ModelFn, shape,
-                 generator: Optional[torch.Generator] = None, *,
+                 generator: draws.Draws = None, *,
                  cfg: SamplerConfig = SamplerConfig(), skip_timesteps: int = 0,
                  inpaint: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
         if inpaint is not None and cfg.mean_type != G.MeanType.START_X:
@@ -114,8 +115,10 @@ class SampleProgram:
         return (self.idx if idx is None else idx).expand(self.shape[0])
 
     def _randn(self) -> torch.Tensor:
-        return torch.randn(self.shape, generator=self.generator, device=self.sched.device,
-                           dtype=torch.float32)
+        """x_T and the steps' noise. A `GlobalDraws` generator (a card of a
+        serving mesh holding some rows of the batch) draws for the whole batch
+        and keeps its rows, as the unsharded run draws them."""
+        return draws.randn(self.shape, self.generator, self.sched.device)
 
     def _stats(self, x: torch.Tensor, t: torch.Tensor) -> G.PMeanVariance:
         return model_stats(self.sched, self.model_fn, x, t, self.cfg, self.inpaint)

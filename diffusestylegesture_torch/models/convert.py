@@ -92,9 +92,14 @@ def encoder_layer_state_dict_from_flax(lp: Mapping[str, Any], prefix: str = "") 
 
 
 def _attention(sd: StateDict, prefix: str, a: Mapping[str, Any]) -> None:
-    """JAX `TorchMultiheadAttention` (packed in_proj, out_proj) → torch names."""
-    sd[f"{prefix}.in_proj_weight"] = _t(np.asarray(a["in_proj"]["kernel"]).T)
-    sd[f"{prefix}.in_proj_bias"] = _t(a["in_proj"]["bias"])
+    """JAX `TorchMultiheadAttention` (packed in_proj, or the split_qkv layout's
+    q_proj / k_proj / v_proj, and out_proj) → torch names."""
+    if "in_proj" in a:
+        sd[f"{prefix}.in_proj_weight"] = _t(np.asarray(a["in_proj"]["kernel"]).T)
+        sd[f"{prefix}.in_proj_bias"] = _t(a["in_proj"]["bias"])
+    else:
+        for name in ("q_proj", "k_proj", "v_proj"):
+            _dense(sd, f"{prefix}.{name}", a[name])
     _dense(sd, f"{prefix}.out_proj", a["out_proj"])
 
 

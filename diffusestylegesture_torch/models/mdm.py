@@ -32,7 +32,13 @@ The rest of the JAX `MDMConfig` matrix (`mdm.py:152-300`):
 
 The local attention and each dense encoder layer run through the
 hand-written CUDA kernels on a CUDA tensor (`ops/`); ``impl='plain'`` runs
-their plain PyTorch versions instead. The MoE FFN, the decoder and the GRU
+their plain PyTorch versions instead. The parallel slice's fields
+(`parallel/`): `split_qkv` (the trunk's in-projection as q / k / v Linears;
+kernel B reads their concatenation), `trunk_impl='pipeline'` over
+`pipe_mesh` (GPipe; kernel B in each stage) and `remat`, `seq_parallel` over
+`seq_mesh` (the local attention's time axis sharded; kernel A on each shard's
+[halo | shard]); Megatron tensor parallelism is set on the trunk by the
+trainer (`parallel/tp.py::tensor_parallel_trunk`). The MoE FFN, the decoder and the GRU
 have no kernel and run their plain ops on every device.
 
 ``train=True`` is the training forward: per-example Bernoulli(`cond_mask_prob`)
@@ -64,11 +70,12 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from ..parallel import draws
 from . import rotary
 from .embeddings import (InputProcess, OutputProcess, TimestepEmbedder, WavEncoder, mask_cond,
                          sinusoidal_pe)
 from .local_attention import local_attention
-from .transformer import TorchTransformerDecoder, TorchTransformerEncoder
+from .transformer import Pipe, TorchTransformerDecoder, TorchTransformerEncoder
 
 AUDIO_FEAT_DIMS = {"wav encoder": 32, "mfcc": 13, "wavlm": 64}
 ARCHS = ("trans_enc", "mytrans_enc", "trans_dec", "gru")
@@ -97,11 +104,22 @@ class MDMConfig:
     arch: str = "trans_enc"
     moe_experts: int = 0
     moe_capacity_factor: float = 2.0
-    # the JAX package's pipelined trunk, split q/k/v layout and time-sharded
-    # local attention (attn_impl="seq_parallel"): the port's parallel slice
+    # "loop" | "pipeline": the trunk's layers GPipe-pipelined over the
+    # `pipe_axis` group of `pipe_mesh` (a DeviceMesh), `pipe_microbatches`
+    # microbatches (0: the axis size); `remat` recomputes the trunk in the
+    # backward (`parallel/pipeline.py`)
     trunk_impl: str = "loop"
+    pipe_mesh: object = None
+    pipe_axis: str = "pipe"
+    pipe_microbatches: int = 0
+    remat: bool = False
+    # the trunk's in-projection as q / k / v Linears (`parallel/tp.py`)
     split_qkv: bool = False
+    # the local attention's time axis sharded over the `seq_axis` group of
+    # `seq_mesh` (JAX attn_impl="seq_parallel", `parallel/seq_parallel.py`)
     seq_parallel: bool = False
+    seq_mesh: object = None
+    seq_axis: str = "seq"
     # "kernel": the CUDA kernels on CUDA tensors; "plain": the plain
     # PyTorch versions everywhere (the comparison path)
     impl: str = "kernel"
@@ -128,24 +146,17 @@ class MDMConfig:
         return "plain"
 
     def validate(self) -> None:
-        unsupported = []
-        if self.trunk_impl != "loop":
-            unsupported.append(f"trunk_impl={self.trunk_impl!r}")
-        if self.split_qkv:
-            unsupported.append("split_qkv")
-        if self.seq_parallel:
-            unsupported.append("attn_impl='seq_parallel'")
-        if unsupported:
-            raise NotImplementedError(
-                "the PyTorch port's parallel slice brings: " + ", ".join(unsupported))
+        validate_parallel(self)
         if self.audio_feat not in AUDIO_FEAT_DIMS:
             raise ValueError(f"unknown audio_feat {self.audio_feat!r} ({sorted(AUDIO_FEAT_DIMS)})")
         if self.ordering == "plain":
             if self.arch not in ARCHS:
                 raise ValueError(f"unknown arch {self.arch!r} ({ARCHS})")
-            if self.arch in ("trans_dec", "gru") and self.moe_experts:
+            if self.arch in ("trans_dec", "gru") and (
+                    self.split_qkv or self.moe_experts or self.trunk_impl != "loop"):
                 # these arches have no encoder trunk (JAX mdm.py:252-259)
-                raise ValueError(f"arch={self.arch!r} has no encoder trunk for moe_experts")
+                raise ValueError(f"arch={self.arch!r} supports neither split_qkv, "
+                                 "moe_experts nor a pipelined trunk")
         if "style1" in self.cond_mode and self.n_seed == 0 and self.style_dim != self.latent_dim:
             raise ValueError("style1 with n_seed=0 makes the style embedding the token: "
                              "style_dim must equal latent_dim")
@@ -202,7 +213,7 @@ class MDM(nn.Module):
                 and order == "plain":
             self.seqTransEncoder = TorchTransformerEncoder(
                 cfg.num_layers, D, cfg.num_heads, cfg.ff_size, cfg.activation, cfg.dropout,
-                cfg.moe_experts, cfg.moe_capacity_factor)
+                cfg.moe_experts, cfg.moe_capacity_factor, cfg.split_qkv)
         elif order == "plain" and cfg.arch == "trans_dec":
             self.seqTransDecoder = TorchTransformerDecoder(
                 cfg.num_layers, D, cfg.num_heads, cfg.ff_size, cfg.activation, cfg.dropout)
@@ -229,8 +240,7 @@ class MDM(nn.Module):
         elif train and cfg.cond_mask_prob > 0.0:
             # independent draws for style and seed, as the reference's two mask_cond calls
             style_drop, seed_drop = (
-                torch.rand(B, generator=generator, device=x.device) < cfg.cond_mask_prob
-                for _ in range(2))
+                draws.rand((B,), generator, x.device) < cfg.cond_mask_prob for _ in range(2))
 
         emb_t = self.embed_timestep(timesteps)
         seed = None
@@ -251,11 +261,11 @@ class MDM(nn.Module):
             # cat(token, seq, audio) → Linear → RoPE → windowed attention
             cat = torch.cat([token[:, None, :].expand(B, T, D), seq, enc_audio], dim=-1)
             return local_block(self.input_process2(cat), H, cfg.window_size,
-                               cond.get("mask_local"), cfg.impl)
+                               cond.get("mask_local"), cfg.impl, seq_group(cfg))
 
         def encoder(seq):
             return trunk(self.seqTransEncoder, token, seq, H, cfg.impl, mxu_bf16, train,
-                         generator, aux)
+                         generator, aux, trunk_pipe(cfg))
 
         if order == "local_trunk":
             out = encoder(local(self.input_process(x)))
@@ -290,20 +300,65 @@ class MDM(nn.Module):
             seq = torch.cat([token[:, None, :], h], dim=1)
             seq = rotary.rope(seq) if cfg.arch == "mytrans_enc" else seq + self.pe[: T + 1]
             return self.seqTransEncoder(seq, impl=cfg.impl, mxu_bf16=mxu_bf16, train=train,
-                                        generator=generator, aux=aux)[:, 1:]
+                                        generator=generator, aux=aux,
+                                        pipe=trunk_pipe(cfg))[:, 1:]
         seq = h + self.pe[:T]
         if cfg.arch == "trans_dec":
             return self.seqTransDecoder(seq, token[:, None, :], mxu_bf16, train, generator)
         return self.gru(seq)[0]
 
 
+def validate_parallel(cfg) -> None:
+    """The parallel fields every denoiser config shares (MDM, MDMPlus, and
+    TextMDM's trunk ones)."""
+    if cfg.trunk_impl not in ("loop", "pipeline"):
+        raise ValueError(f"unknown trunk_impl {cfg.trunk_impl!r} (loop or pipeline)")
+    if cfg.trunk_impl == "pipeline":
+        if cfg.pipe_mesh is None:
+            raise ValueError("trunk_impl='pipeline' needs pipe_mesh (a DeviceMesh with a "
+                             f"{cfg.pipe_axis!r} axis)")
+    if (cfg.trunk_impl == "pipeline" or cfg.remat) and cfg.moe_experts:
+        # the JAX CLI refuses MoE with --pp too: the pipelined (or recomputed)
+        # trunk does not carry the MoE layers' load-balance loss
+        raise ValueError("moe_experts with a pipelined or remat trunk is unsupported")
+    if getattr(cfg, "seq_parallel", False) and cfg.seq_mesh is None:
+        raise ValueError(f"seq_parallel needs seq_mesh (a DeviceMesh with a {cfg.seq_axis!r} "
+                         "axis)")
+
+
+def seq_group(cfg):
+    """The `seq` process group of a sequence-parallel config, else None."""
+    return cfg.seq_mesh.get_group(cfg.seq_axis) if getattr(cfg, "seq_parallel", False) else None
+
+
+def trunk_pipe(cfg) -> Optional[Pipe]:
+    """How the config's trunk runs pipelined (`Pipe`), or None for the plain loop."""
+    if cfg.trunk_impl == "pipeline":
+        mesh = cfg.pipe_mesh
+        names = mesh.mesh_dim_names
+        data = mesh.size(names.index("data")) if "data" in names else 1
+        return Pipe(mesh.get_group(cfg.pipe_axis), cfg.pipe_microbatches, cfg.remat, data)
+    return Pipe(None, 1, True) if cfg.remat else None
+
+
 def local_block(proj: torch.Tensor, heads: int, window: int, mask: Optional[torch.Tensor],
-                impl: str) -> torch.Tensor:
+                impl: str, seq=None) -> torch.Tensor:
     """(B, T, D) projected tokens → RoPE over `heads` heads → windowed causal
     local attention → (B, T, D). On the kernel route RoPE runs in the
     (B, T, H, hd) layout the Linear wrote, and kernel A reads the heads through
-    strides and writes the merged (B, T, D) layout."""
+    strides and writes the merged (B, T, D) layout. `seq`: a `seq` process
+    group, over which the attention's time axis is sharded
+    (`parallel/seq_parallel.py`; kernel A per shard on the kernel route)."""
     B, T, D = proj.shape
+    if seq is not None:
+        from ..parallel.seq_parallel import sequence_parallel_local_attention
+
+        hh = rotary.rope(rotary.heads_split(proj, heads)).contiguous()
+        if mask is None:
+            mask = torch.ones(B, T, dtype=torch.bool, device=proj.device)
+        hh = sequence_parallel_local_attention(hh, hh, hh, window, seq, mask.bool(),
+                                               heads=heads, impl=impl)
+        return rotary.heads_merge(hh, B, heads)
     if impl == "kernel":
         hh = rotary.rope_heads(proj, heads).transpose(1, 2)
         h = torch.empty(B, T, D, dtype=hh.dtype, device=hh.device)
@@ -317,14 +372,14 @@ def local_block(proj: torch.Tensor, heads: int, window: int, mask: Optional[torc
 
 def trunk(encoder: TorchTransformerEncoder, token: torch.Tensor, h: torch.Tensor, heads: int,
           impl: str, mxu_bf16: bool, train: bool = False,
-          generator: Optional[torch.Generator] = None,
-          aux: Optional[list] = None) -> torch.Tensor:
+          generator=None, aux: Optional[list] = None,
+          pipe: Optional[Pipe] = None) -> torch.Tensor:
     """Prepend the (B, D) token to the (B, T, D) frames, RoPE over `heads`
     heads, run the encoder layers (kernel B on the kernel route for the dense
-    ones), drop the token: (B, T, D). MoE layers append their load-balance
-    loss to `aux`."""
+    ones; pipelined with `pipe`), drop the token: (B, T, D). MoE layers append
+    their load-balance loss to `aux`."""
     B = h.shape[0]
     seq = torch.cat([token[:, None, :], h], dim=1)
     seq = rotary.heads_merge(rotary.rope(rotary.heads_split(seq, heads)), B, heads).contiguous()
     return encoder(seq, impl=impl, mxu_bf16=mxu_bf16, train=train, generator=generator,
-                   aux=aux)[:, 1:]
+                   aux=aux, pipe=pipe)[:, 1:]

@@ -29,7 +29,9 @@ rest float32), as in `MDM`. `train=True` is the training forward (per-example
 drops of the style, and of the seed in variant 3, then dropout in the trunk),
 which needs `impl="plain"`: neither kernel has a backward. Parameter names
 are the reference module's, so a reference BEAT/TWH state_dict loads with
-`load_state_dict` (`models/convert.py::load_reference_mdm_plus`).
+`load_state_dict` (`models/convert.py::load_reference_mdm_plus`). The
+parallel fields (split q/k/v, pipelined trunk, sequence-parallel local
+attention) are `MDMConfig`'s.
 """
 from __future__ import annotations
 
@@ -40,7 +42,8 @@ import torch
 from torch import nn
 
 from .embeddings import InputProcess, OutputProcess, TimestepEmbedder, WavEncoder, mask_cond
-from .mdm import local_block, trunk
+from ..parallel import draws
+from .mdm import local_block, seq_group, trunk, trunk_pipe, validate_parallel
 from .transformer import TorchTransformerEncoder
 
 VARIANTS = ("cross_local_attention3", "cross_local_attention4", "cross_local_attention5")
@@ -68,11 +71,16 @@ class MDMPlusConfig:
     # >0: a Switch-routed MoE FFN in every trunk layer (`models/moe.py`)
     moe_experts: int = 0
     moe_capacity_factor: float = 2.0
-    # the JAX package's pipelined trunk, split q/k/v layout and time-sharded
-    # local attention: the port's parallel slice
+    # the parallel fields of `MDMConfig` (models/mdm.py)
     trunk_impl: str = "loop"
+    pipe_mesh: object = None
+    pipe_axis: str = "pipe"
+    pipe_microbatches: int = 0
+    remat: bool = False
     split_qkv: bool = False
     seq_parallel: bool = False
+    seq_mesh: object = None
+    seq_axis: str = "seq"
     # "kernel": the CUDA kernels on CUDA tensors; "plain": the plain versions
     impl: str = "kernel"
     # torch.float32, or torch.bfloat16: the trunk's matmul operands in bf16
@@ -88,19 +96,10 @@ class MDMPlusConfig:
         return next(v for v in VARIANTS if self.cond_mode.startswith(v))
 
     def validate(self) -> None:
-        unsupported = []
         if not any(self.cond_mode.startswith(v) for v in VARIANTS):
-            unsupported.append(f"cond_mode={self.cond_mode!r}")
-        if self.trunk_impl != "loop":
-            unsupported.append(f"trunk_impl={self.trunk_impl!r}")
-        if self.split_qkv:
-            unsupported.append("split_qkv")
-        if self.seq_parallel:
-            unsupported.append("seq_parallel")
-        if unsupported:
-            raise NotImplementedError(
-                "the PyTorch port's MDMPlus implements the cross_local_attention3/4/5 "
-                "denoiser with the sequential trunk; unsupported: " + ", ".join(unsupported))
+            raise ValueError(f"unknown variant in cond_mode={self.cond_mode!r} "
+                             f"(the MDMPlus denoiser is one of {VARIANTS})")
+        validate_parallel(self)
         if self.impl not in ("kernel", "plain"):
             raise ValueError(f"unknown impl {self.impl!r}")
         if self.dtype not in (torch.float32, torch.bfloat16):
@@ -142,7 +141,7 @@ class MDMPlus(nn.Module):
         self.input_process2 = nn.Linear(2 * D + A, D)
         self.seqTransEncoder = TorchTransformerEncoder(
             cfg.num_layers, D, cfg.num_heads, cfg.ff_size, cfg.activation, cfg.dropout,
-            cfg.moe_experts, cfg.moe_capacity_factor)
+            cfg.moe_experts, cfg.moe_capacity_factor, cfg.split_qkv)
         self.output_process = OutputProcess(cfg.input_feats, D, cfg.njoints, cfg.nfeats)
 
     def forward(self, x: torch.Tensor, timesteps: torch.Tensor, cond: Dict[str, torch.Tensor],
@@ -164,8 +163,7 @@ class MDMPlus(nn.Module):
         elif train and cfg.cond_mask_prob > 0.0:
             # independent draws for style and seed, as the reference's two mask_cond calls
             style_drop, seed_drop = (
-                torch.rand(B, generator=generator, device=x.device) < cfg.cond_mask_prob
-                for _ in range(2))
+                draws.rand((B,), generator, x.device) < cfg.cond_mask_prob for _ in range(2))
 
         emb_t = self.embed_timestep(timesteps)
         style_emb = mask_cond(self.embed_style(cond["style"]), uncond, style_drop)
@@ -188,10 +186,11 @@ class MDMPlus(nn.Module):
 
         cat = torch.cat([token[:, None, :].expand(B, T, D), x_, enc_text], dim=-1)
         h = local_block(self.input_process2(cat), H, cfg.window_size, cond.get("mask_local"),
-                        cfg.impl)
+                        cfg.impl, seq_group(cfg))
         aux = [] if train and cfg.moe_experts else None
         out = self.output_process(trunk(self.seqTransEncoder, token, h, H, cfg.impl,
-                                        cfg.dtype == torch.bfloat16, train, generator, aux))
+                                        cfg.dtype == torch.bfloat16, train, generator, aux,
+                                        trunk_pipe(cfg)))
         return out if aux is None else (out, torch.stack(aux).mean())
 
 

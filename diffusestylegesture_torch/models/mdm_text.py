@@ -24,7 +24,9 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
+from ..parallel import draws
 from .embeddings import InputProcess, OutputProcess, TimestepEmbedder, mask_cond, sinusoidal_pe
+from .mdm import trunk_pipe, validate_parallel
 from .transformer import TorchTransformerEncoder
 
 
@@ -42,9 +44,12 @@ class TextMDMConfig:
     cond_mask_prob: float = 0.1
     moe_experts: int = 0
     moe_capacity_factor: float = 2.0
-    # the JAX package's pipelined trunk and split q/k/v layout: the port's
-    # parallel slice
+    # the trunk's parallel fields of `MDMConfig` (models/mdm.py)
     trunk_impl: str = "loop"
+    pipe_mesh: object = None
+    pipe_axis: str = "pipe"
+    pipe_microbatches: int = 0
+    remat: bool = False
     split_qkv: bool = False
     impl: str = "kernel"
     dtype: torch.dtype = torch.float32
@@ -54,14 +59,7 @@ class TextMDMConfig:
         return self.njoints * self.nfeats
 
     def validate(self) -> None:
-        unsupported = []
-        if self.trunk_impl != "loop":
-            unsupported.append(f"trunk_impl={self.trunk_impl!r}")
-        if self.split_qkv:
-            unsupported.append("split_qkv")
-        if unsupported:
-            raise NotImplementedError(
-                "the PyTorch port's parallel slice brings: " + ", ".join(unsupported))
+        validate_parallel(self)
         if self.impl not in ("kernel", "plain"):
             raise ValueError(f"unknown impl {self.impl!r}")
         if self.dtype not in (torch.float32, torch.bfloat16):
@@ -90,7 +88,7 @@ class TextMDM(nn.Module):
         self.input_process = InputProcess(cfg.input_feats, D)
         self.seqTransEncoder = TorchTransformerEncoder(
             cfg.num_layers, D, cfg.num_heads, cfg.ff_size, cfg.activation, cfg.dropout,
-            cfg.moe_experts, cfg.moe_capacity_factor)
+            cfg.moe_experts, cfg.moe_capacity_factor, cfg.split_qkv)
         self.output_process = OutputProcess(cfg.input_feats, D, cfg.njoints, cfg.nfeats)
         self.register_buffer("pe", torch.from_numpy(sinusoidal_pe(5000, D)), persistent=False)
 
@@ -106,7 +104,7 @@ class TextMDM(nn.Module):
         drop = None
         if train:
             drop = cond_drop if cond_drop is not None else (
-                torch.rand(B, generator=generator, device=x.device) < cfg.cond_mask_prob
+                draws.rand((B,), generator, x.device) < cfg.cond_mask_prob
                 if cfg.cond_mask_prob > 0.0 else None)
         text = mask_cond(cond["text_emb"], uncond, drop)
         token = self.embed_timestep(timesteps) + self.embed_text(text)    # (B, D)
@@ -114,7 +112,8 @@ class TextMDM(nn.Module):
         seq = (seq + self.pe[: T + 1]).contiguous()
         aux = [] if train and cfg.moe_experts else None
         out = self.seqTransEncoder(seq, impl=cfg.impl, mxu_bf16=cfg.dtype == torch.bfloat16,
-                                   train=train, generator=generator, aux=aux)[:, 1:]
+                                   train=train, generator=generator, aux=aux,
+                                   pipe=trunk_pipe(cfg))[:, 1:]
         out = self.output_process(out)
         if aux is not None:
             return out, torch.stack(aux).mean()

@@ -57,9 +57,12 @@ def _library():
 
 
 def layer_weights(layer: TorchEncoderLayer):
-    """The layer's 12 parameter tensors in the kernel's argument order."""
+    """The layer's 12 parameter tensors in the kernel's argument order; a split
+    q / k / v layout gives its packed concatenation, made once
+    (`TorchMultiheadAttention.packed_in_proj`)."""
     a = layer.self_attn
-    return (a.in_proj_weight, a.in_proj_bias, a.out_proj.weight, a.out_proj.bias,
+    in_w, in_b = a.packed_in_proj()
+    return (in_w, in_b, a.out_proj.weight, a.out_proj.bias,
             layer.norm1.weight, layer.norm1.bias, layer.linear1.weight, layer.linear1.bias,
             layer.linear2.weight, layer.linear2.bias, layer.norm2.weight, layer.norm2.bias)
 

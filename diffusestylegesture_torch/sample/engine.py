@@ -31,11 +31,28 @@ into the run's static audio buffer, which the captured steps read. The window ru
 (`_WindowRun`, `_WindowSampler.window`) serve the BEAT/TWH engine
 (`engine_beat.py`), the streams (`streaming.py`) and the server
 (`server.py`) too.
+
+`generate(..., mesh=)` (a `parallel.make_mesh` mesh with a `data` axis) is
+the JAX engine's multi-chip serving, single-process as JAX's is: each card of
+the axis holds a replica of the model (and of the schedule) and its own
+window runs and graphs, and samples its rows of the batch (the first cards one
+row more when the batch does not divide); the loop issues one denoising step
+of every card in turn, so the cards run concurrently, and the rows are
+gathered on the sampler's device at the end. The encoder runs once, on the
+sampler's device, and each card copies its rows of the features. What the
+unsharded run decides from the whole batch stays whole: every card draws the
+noise of the whole batch from the same generator state and keeps its rows
+(`parallel.draws.GlobalDraws`), and the crossfade takes its n from the whole batch
+(the reference quirk), so the output is the unsharded run's up to the cards'
+rounding. `lane_launches` holds each card's kernel launches of the last
+meshed call.
 """
 from __future__ import annotations
 
+import contextlib
+import copy
 import dataclasses
-from typing import Callable, Dict, Optional, Sequence, Union
+from typing import Callable, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -43,7 +60,9 @@ import torch
 from ..device import resolve_device
 from ..diffusion import SamplerConfig, Schedule, make_cfg_model_fn
 from ..diffusion.sampling import PROGRAMS, SampleProgram
-from ..utils.graphs import GraphSet
+from ..parallel.draws import GlobalDraws
+from ..parallel.mesh import row_bounds
+from ..utils.graphs import GraphSet, launch_counts
 
 
 def unnormalize_poses(seq, mean, std):
@@ -119,9 +138,12 @@ class _WindowRun:
     per phase of the program."""
 
     def __init__(self, sampler: "_WindowSampler", params, cond: Dict[str, Optional[torch.Tensor]],
-                 shape: tuple, skip_timesteps: int = 0):
+                 shape: tuple, skip_timesteps: int = 0, rows: Optional[tuple] = None):
         cfg, dev = sampler.cfg, sampler.device
         batch = shape[0]
+        # rows (start, stop, total): this run samples those rows of a batch of
+        # `total` (a card of a serving mesh); draws and crossfade use `total`
+        self.crossfade_batch = batch if rows is None else rows[2]
         self.params = params  # the graphs read these weights where they lie
         self.generator = torch.Generator(device=dev)
         self.cond = cond
@@ -132,7 +154,8 @@ class _WindowRun:
             def model_fn(x, t):
                 return sampler.model_apply(params, x, t, self.cond)
         self.program: SampleProgram = PROGRAMS[cfg.sampler](
-            sampler.schedule, model_fn, shape, self.generator,
+            sampler.schedule, model_fn, shape,
+            self.generator if rows is None else GlobalDraws(self.generator, *rows),
             cfg=sampler.sampler_cfg, skip_timesteps=skip_timesteps)
         self.graph_set = GraphSet(dev, [self.generator]) if sampler.graphs else None
         self.graphs: Optional[list] = None
@@ -157,17 +180,28 @@ class _WindowRun:
                 self.cond[name] = torch.zeros(value.shape, device=value.device)
             self.cond[name].copy_(value)
 
-    def sample(self, noise: Optional[torch.Tensor], **tensors: torch.Tensor) -> torch.Tensor:
-        """One window: refill the buffers, run the loop, return a copy of x_0."""
+    def begin(self, noise: Optional[torch.Tensor], **tensors: torch.Tensor) -> None:
+        """Refill the buffers (capturing the graphs at first use) and set x_T."""
         self.fill(**tensors)
         if self.graph_set is not None and self.graphs is None:
             self.capture()
         self.program.init(noise)
-        if self.graphs is None:
-            self.program.run()
-        else:
-            for phase, graph in zip(self.program.phases, self.graphs):
-                graph.replay(phase.count)
+
+    def steps(self):
+        """The loop's steps, one at each `next` (a replay on the graph path)."""
+        for i, phase in enumerate(self.program.phases):
+            for _ in range(phase.count):
+                if self.graphs is None:
+                    phase.fn()
+                else:
+                    self.graphs[i].replay(1)
+                yield
+
+    def sample(self, noise: Optional[torch.Tensor], **tensors: torch.Tensor) -> torch.Tensor:
+        """One window: refill the buffers, run the loop, return a copy of x_0."""
+        self.begin(noise, **tensors)
+        for _ in self.steps():
+            pass
         return self.program.img.clone()
 
 
@@ -191,6 +225,9 @@ class _WindowSampler:
         self.sampler_cfg = sampler_cfg
         self._runs: Dict[tuple, _WindowRun] = {}
         self._crossfades: Dict[int, tuple] = {}
+        self._replicas: Dict[tuple, "_WindowSampler"] = {}
+        self._params: Dict[tuple, tuple] = {}
+        self.lane_launches: List[List[int]] = []
 
     @property
     def capture_seconds(self) -> float:
@@ -198,15 +235,117 @@ class _WindowSampler:
         return sum(r.graph_set.capture_seconds for r in self._runs.values()
                    if r.graph_set is not None)
 
-    def _new_run(self, params, batch: int) -> _WindowRun:
+    def _new_run(self, params, batch: int, rows: Optional[tuple] = None) -> _WindowRun:
         raise NotImplementedError
 
-    def _run(self, params, batch: int) -> _WindowRun:
-        key = (batch, id(params))
+    def _run(self, params, batch: int, rows: Optional[tuple] = None) -> _WindowRun:
+        key = (batch, id(params), rows)
         run = self._runs.get(key)
         if run is None or run.params is not params:
-            run = self._runs[key] = self._new_run(params, batch)
+            run = self._runs[key] = self._new_run(params, batch, rows)
         return run
+
+    def _replica(self, index: int, dev: torch.device) -> "_WindowSampler":
+        """This sampler on card `dev` of a serving mesh (itself for the first
+        card when it lives there): a copy with the schedule there and runs,
+        graphs and caches of its own, made once."""
+        if index == 0 and dev == self.device:
+            return self
+        key = (index, str(dev))
+        if key not in self._replicas:
+            rep = copy.copy(self)
+            rep.device = dev
+            rep.schedule = dataclasses.replace(self.schedule, **{
+                f.name: getattr(self.schedule, f.name).to(dev)
+                for f in dataclasses.fields(self.schedule)})
+            rep._runs, rep._crossfades, rep._replicas, rep._params = {}, {}, {}, {}
+            if hasattr(rep, "_encoders"):
+                rep._encoders = {}
+            self._replicas[key] = rep
+        return self._replicas[key]
+
+    def _params_on(self, params, dev: torch.device):
+        """`params` (a module) on `dev`: itself where it lies there, else a copy
+        made once per (params, card)."""
+        first = next(params.parameters(), None) if isinstance(params, torch.nn.Module) else None
+        if first is None or first.device == dev:
+            return params
+        key = (id(params), str(dev))
+        if key not in self._params or self._params[key][0] is not params:
+            self._params[key] = (params, copy.deepcopy(params).to(dev))
+        return self._params[key][1]
+
+    def _lanes(self, params, batch: int, mesh) -> List["_Lane"]:
+        """One lane a card of `mesh`'s data axis that gets rows (one lane on
+        this sampler's device without a mesh)."""
+        if mesh is None:
+            return [_Lane(self, params, 0, batch, None)]
+        if "data" not in mesh.axis_names:
+            raise ValueError(f"a serving mesh needs a 'data' axis (axes {mesh.axis_names})")
+        lanes = []
+        for i, (dev, (lo, hi)) in enumerate(zip(mesh.axis_devices("data"),
+                                                row_bounds(batch, mesh.shape["data"]))):
+            if hi > lo:
+                rep = self._replica(i, torch.device(dev))
+                lanes.append(_Lane(rep, self._params_on(params, rep.device), lo, hi,
+                                   (lo, hi, batch)))
+        return lanes
+
+    def _run_lanes(self, lanes: List["_Lane"], num_windows: int, generator,
+                   noise_windows, seed0: Callable, window_cond: Callable[[int], dict],
+                   keep: Callable[[torch.Tensor, int], torch.Tensor]) -> List[torch.Tensor]:
+        """The autoregressive window loop over every lane: per window, each
+        lane's window issued in turn (the cards run concurrently). `seed0(lane)`
+        → the lane's first seed on its card; `window_cond(i)` → window i's
+        conditioning {name: (B, …) tensor}, of which each lane copies its rows;
+        `keep(sample, i)` → what window i contributes. Returns per lane the
+        list of kept pieces, on its card. `generator` advances as if every
+        draw had been made from it. The lanes' loops advance a step each in
+        turn: issued a whole loop at a time, one card's replays would fill the
+        launch queue and hold the host until that card had nearly finished."""
+        state = generator.get_state()
+        for lane in lanes:
+            lane.run.generator.set_state(state)
+        seeds = [seed0(lane) for lane in lanes]
+        pieces: List[List[torch.Tensor]] = [[] for _ in lanes]
+        meshed = len(lanes) > 1 or lanes[0].rows is not None
+        launches = [[0, 0, 0] for _ in lanes]
+
+        def on_lane(j, fn):
+            """fn() on lane j's card, its launches added to the lane's count."""
+            before = launch_counts()
+            with lanes[j].on_card():
+                out = fn()
+            launches[j] = [a + b - c for a, b, c in zip(launches[j], launch_counts(), before)]
+            return out
+
+        for i in range(num_windows):
+            cond = window_cond(i)
+            for j, lane in enumerate(lanes):
+                noise = None
+                if noise_windows is not None:
+                    noise = torch.as_tensor(
+                        np.asarray(noise_windows[i][lane.lo:lane.hi], np.float32),
+                        device=lane.device)
+                cond_l = ({k: v[lane.lo:lane.hi].to(lane.device) for k, v in cond.items()}
+                          if meshed else cond)
+                on_lane(j, lambda: lane.run.begin(noise, seed=seeds[j], **cond_l))
+            # one step of every card's loop in turn: each card's queue stays short
+            # and the cards run at once
+            loops = [lane.run.steps() for lane in lanes]
+            live = list(range(len(lanes)))
+            while live:
+                for j in list(live):
+                    if on_lane(j, lambda: next(loops[j], StopIteration)) is StopIteration:
+                        live.remove(j)
+            for j, lane in enumerate(lanes):
+                sample, seeds[j] = on_lane(j, lambda: lane.sampler.finish_window(
+                    lane.run, lane.run.program.img.clone(), i == 0, seeds[j]))
+                pieces[j].append(keep(sample, i))
+        generator.set_state(lanes[0].run.generator.get_state())
+        if meshed:
+            self.lane_launches = launches
+        return pieces
 
     def _generator(self, generator: Optional[torch.Generator]) -> torch.Generator:
         dev = self.device
@@ -231,13 +370,17 @@ class _WindowSampler:
         `sample.py:269-282`, where the config asks for it) and crossfade its
         first n_seed frames with the seed (`:284-288`). Returns (sample, the
         next window's seed). The batch engines and the streams share it."""
+        return self.finish_window(run, run.sample(noise, seed=seed, **cond), first, seed)
+
+    def finish_window(self, run: _WindowRun, sample: torch.Tensor, first: bool,
+                      seed: torch.Tensor) -> tuple:
+        """`window`'s step after the loop: root delta and crossfade."""
         cfg = self.cfg
-        sample = run.sample(noise, seed=seed, **cond)
         if not first:
             if getattr(cfg, "root_delta_correction", False):
                 delta = (sample[:, 0:3, :, 0] - seed[:, 0:3, :, 0])[..., None]
                 sample = torch.cat([sample[:, 0:3] - delta, sample[:, 3:]], dim=1)
-            wa, wb = self._crossfade(sample.shape[0])
+            wa, wb = self._crossfade(run.crossfade_batch)
             head = seed * wa + sample[..., : cfg.n_seed] * wb
             sample = torch.cat([head, sample[..., cfg.n_seed:]], dim=-1)
         return sample, sample[..., -cfg.n_seed:]
@@ -296,39 +439,39 @@ class ZeggsSampler(_WindowSampler):
         graph.replay()
         return out
 
-    def _new_run(self, params, batch: int) -> _WindowRun:
+    def _new_run(self, params, batch: int, rows: Optional[tuple] = None) -> _WindowRun:
         cfg, dev = self.cfg, self.device
         cond = {"style": torch.zeros((batch, 6), device=dev),
                 "seed": torch.zeros((batch, cfg.njoints, 1, cfg.n_seed), device=dev),
                 "audio": None,  # sized at the first window, from the features' width
                 "mask_local": torch.ones((batch, cfg.n_poses), dtype=torch.bool, device=dev)}
         return _WindowRun(self, params, cond, (batch, cfg.njoints, 1, cfg.n_poses),
-                          cfg.skip_timesteps)
+                          cfg.skip_timesteps, rows)
 
     def sample_windows(self, params, window_feats: Callable[[int], torch.Tensor],
                        num_windows: int, style: torch.Tensor,
                        generator: Optional[torch.Generator] = None,
-                       noise_windows: Optional[np.ndarray] = None) -> torch.Tensor:
+                       noise_windows: Optional[np.ndarray] = None, mesh=None) -> torch.Tensor:
         """The autoregressive window loop: window i's features (B, n_poses, D)
         come from `window_feats(i)`. Returns (B, njoints, 1, T) on the device,
         the warm-up seed frames dropped. `generator` advances as if every
-        draw had been made from it."""
-        cfg, dev = self.cfg, self.device
+        draw had been made from it. `mesh`: the rows spread over its cards
+        (module docstring)."""
+        cfg = self.cfg
         B = style.shape[0]
-        run = self._run(params, B)
-        generator = self._generator(generator)
-        run.generator.set_state(generator.get_state())
-        run.cond["style"].copy_(style)
-        seed = torch.zeros((B, cfg.njoints, 1, cfg.n_seed), device=dev)
-        chunks = []
-        for i in range(num_windows):
-            noise = None
-            if noise_windows is not None:
-                noise = torch.as_tensor(np.asarray(noise_windows[i], np.float32), device=dev)
-            sample, seed = self.window(run, noise, i == 0, seed, audio=window_feats(i))
-            chunks.append(sample[..., : cfg.stride])
-        generator.set_state(run.generator.get_state())
-        return torch.cat(chunks, dim=-1)[..., cfg.n_seed:]  # drop the warm-up seed frames
+        lanes = self._lanes(params, B, mesh)
+        for lane in lanes:
+            with lane.on_card():
+                lane.run = lane.sampler._run(lane.params, lane.hi - lane.lo, lane.rows)
+                lane.run.cond["style"].copy_(style[lane.lo:lane.hi])
+        pieces = self._run_lanes(
+            lanes, num_windows, self._generator(generator), noise_windows,
+            lambda lane: torch.zeros((lane.hi - lane.lo, cfg.njoints, 1, cfg.n_seed),
+                                     device=lane.device),
+            lambda i: {"audio": window_feats(i)}, lambda sample, i: sample[..., : cfg.stride])
+        out = [torch.cat(p, dim=-1).to(self.device) for p in pieces]
+        out = out[0] if len(out) == 1 else torch.cat(out)
+        return out[..., cfg.n_seed:]  # drop the warm-up seed frames
 
     @torch.inference_mode()
     def generate(self, params, wavlm_params, audio: np.ndarray, style: np.ndarray,
@@ -336,10 +479,12 @@ class ZeggsSampler(_WindowSampler):
                  mean: Optional[np.ndarray] = None, std: Optional[np.ndarray] = None,
                  noise_windows: Optional[np.ndarray] = None,
                  window_buckets: Optional[tuple] = None, device_out: bool = False,
-                 transfer_dtype: Optional[torch.dtype] = None):
+                 transfer_dtype: Optional[torch.dtype] = None, mesh=None):
         """audio (1-D 16 kHz, or already-sliced (W, S) windows) →
         (B, T_frames, njoints) un-normalized poses, numpy (a tensor on the
-        device with `device_out=True`).
+        device with `device_out=True`). `mesh` (`parallel.make_mesh`): the
+        batch's rows spread over its data axis's cards (module docstring);
+        `noise_windows` are then cut by rows too.
 
         `noise_windows` (W, B, njoints, 1, n_poses) injects each window's x_T.
         `window_buckets` pads the window count up to the next bucket with
@@ -369,8 +514,25 @@ class ZeggsSampler(_WindowSampler):
         feats = self.encode(wavlm_params, windows)
         out = self.sample_windows(
             params, lambda i: feats[i][None].expand((B,) + tuple(feats.shape[1:])),
-            real_windows, style_t, generator, noise_windows)
+            real_windows, style_t, generator, noise_windows, mesh)
         return _poses_out(out[:, :, 0].transpose(1, 2), mean, std, device_out, transfer_dtype)
+
+
+class _Lane:
+    """A card's share of a call: its sampler, params and rows [lo, hi) of the
+    batch (`rows` = (lo, hi, B) on a mesh, None otherwise), and its run."""
+
+    def __init__(self, sampler: _WindowSampler, params, lo: int, hi: int,
+                 rows: Optional[tuple]):
+        self.sampler, self.params, self.lo, self.hi, self.rows = sampler, params, lo, hi, rows
+        self.device = sampler.device
+        self.run: Optional[_WindowRun] = None
+
+    def on_card(self):
+        """The lane's card as the current device (graph captures and the
+        kernels' launches go to it)."""
+        return torch.cuda.device(self.device) if self.device.type == "cuda" else \
+            contextlib.nullcontext()
 
 
 def _poses_out(seq: torch.Tensor, mean, std, device_out: bool, transfer_dtype):

@@ -108,7 +108,7 @@ class BeatTwhSampler(_WindowSampler):
             return main, num, real_n
         return main[:, : stride - cfg.n_seed], num, real_n
 
-    def _new_run(self, params, batch: int) -> _WindowRun:
+    def _new_run(self, params, batch: int, rows: Optional[tuple] = None) -> _WindowRun:
         cfg, dev = self.cfg, self.device
         seed_shape = (batch, cfg.njoints, 1, cfg.n_seed)
         cond = {"style": None,  # sized by the first call's speaker vectors
@@ -117,7 +117,7 @@ class BeatTwhSampler(_WindowSampler):
                 "mask_local": torch.ones((batch, cfg.n_poses), dtype=torch.bool, device=dev)}
         if cfg.variant == "attention5":
             cond["seed_last"] = torch.zeros(seed_shape, device=dev)
-        return _WindowRun(self, params, cond, (batch, cfg.njoints, 1, cfg.n_poses))
+        return _WindowRun(self, params, cond, (batch, cfg.njoints, 1, cfg.n_poses), rows=rows)
 
     @torch.inference_mode()
     def generate(self, params, textaudio: np.ndarray, seed_gesture: np.ndarray,
@@ -132,17 +132,15 @@ class BeatTwhSampler(_WindowSampler):
         attention5 (the CLI passes the seed itself). `noise_windows`
         (W, B, njoints, 1, n_poses) injects each window's x_T. `generator`
         advances as if every draw had been made from it (the default generator
-        of the device when None). `mesh=` (multi-GPU serving) belongs to the
-        port's parallelism slice and raises. `window_buckets` is taken for the
+        of the device when None). `mesh` (`parallel.make_mesh`): the batch's
+        rows spread over the cards of its data axis, as in
+        `ZeggsSampler.generate` (`engine.py`'s module docstring). `window_buckets` is taken for the
         JAX signature: there it pads the window count to reuse a compiled
         program, and the padded windows never reach the output; the graphs here
         do not depend on the window count, so no padded window is sampled and
         the output is the unpadded run's.
         """
         cfg, dev = self.cfg, self.device
-        if mesh is not None:
-            raise NotImplementedError("mesh=: multi-GPU serving belongs to the port's "
-                                      "parallelism slice, not ported yet")
         if cfg.variant == "attention5" and seed_last is None:
             raise ValueError("attention5 needs seed_last")
         if max_len:
@@ -150,24 +148,21 @@ class BeatTwhSampler(_WindowSampler):
         windows, num, real_n = self.slice_windows(np.asarray(textaudio, np.float32))
         style_t = torch.as_tensor(np.atleast_2d(np.asarray(style, np.float32)), device=dev)
         B = style_t.shape[0]
-        run = self._run(params, B)
-        generator = self._generator(generator)
-        run.generator.set_state(generator.get_state())
-
-        run.fill(style=style_t)
-        if cfg.variant == "attention5":
-            run.fill(seed_last=self.seed_tensor(seed_last, B))
+        lanes = self._lanes(params, B, mesh)
+        for lane in lanes:
+            with lane.on_card():
+                rows = lane.hi - lane.lo
+                lane.run = lane.sampler._run(lane.params, rows, lane.rows)
+                lane.run.fill(style=style_t[lane.lo:lane.hi].to(lane.device))
+                if cfg.variant == "attention5":
+                    lane.run.fill(seed_last=lane.sampler.seed_tensor(seed_last, rows))
         feats = torch.as_tensor(windows, device=dev)
-        seed = self.seed_tensor(seed_gesture, B)
-        samples = []
-        for i in range(num):
-            noise = None
-            if noise_windows is not None:
-                noise = torch.as_tensor(np.asarray(noise_windows[i], np.float32), device=dev)
-            sample, seed = self.window(run, noise, i == 0, seed,
-                                       audio=feats[i][None].expand((B,) + feats.shape[1:]))
-            samples.append(sample)
-        generator.set_state(run.generator.get_state())
+        pieces = self._run_lanes(
+            lanes, num, self._generator(generator), noise_windows,
+            lambda lane: lane.sampler.seed_tensor(seed_gesture, lane.hi - lane.lo),
+            lambda i: {"audio": feats[i][None].expand((B,) + feats.shape[1:])},
+            lambda sample, i: sample)
+        samples = [torch.cat([p[i].to(dev) for p in pieces]) for i in range(num)]
 
         keep = cfg.njoints // cfg.motion_feature_division
         parts = [s[:, :keep, 0, : cfg.stride] for s in samples[:-1]] + [samples[-1][:, :keep, 0]]

@@ -9,8 +9,11 @@ files here). `<directory>/<step>/` holds
 * `train_state.pt`: step, optimizer (moments by parameter name, count), the
   loss-aware sampler's history and the train generator's state.
 
-A step is written to a temporary directory and renamed into place, so a
-crash leaves either the whole step or none of it; the oldest steps beyond
+The weights, the EMA and the moments are written whole and in the
+reference's packed `in_proj` layout whatever the run's layout (split q/k/v,
+ZeRO slices), and converted to the run's layout on restore (JAX
+`train/loop.py:226-248`). A step is written to a temporary directory and
+renamed into place, so a crash leaves either the whole step or none of it; the oldest steps beyond
 `max_to_keep` are removed. Loads use `weights_only=True`.
 """
 from __future__ import annotations
@@ -23,6 +26,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from ..parallel.tp import merge_qkv_params, split_qkv_params
 from .state import TrainState
 
 
@@ -42,15 +46,21 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def save(self, step: int, state: TrainState,
-             generator: Optional[torch.Generator] = None) -> str:
+             generator: Optional[torch.Generator] = None, write: bool = True) -> str:
+        """Write `<directory>/<step>/`. The dicts are gathered on every rank of a
+        ZeRO run (a collective); only the rank with `write` writes them. A split
+        q/k/v model is saved in the reference's packed layout."""
         final = os.path.join(self.directory, str(step))
+        model = merge_qkv_params(state.params.to_dict(state.params.data))
+        ema = merge_qkv_params(state.ema_state_dict())
+        ts = merge_qkv_params(state.state_dict())
+        if not write:
+            return final
         tmp = tempfile.mkdtemp(prefix=f".tmp-{step}-", dir=self.directory)
         try:
-            torch.save(state.params.to_dict(state.params.data), os.path.join(tmp, "model.pt"))
-            ema = state.ema_state_dict()
+            torch.save(model, os.path.join(tmp, "model.pt"))
             if ema is not None:
                 torch.save(ema, os.path.join(tmp, "model_ema.pt"))
-            ts = state.state_dict()
             ts["generator"] = None if generator is None else generator.get_state()
             torch.save(ts, os.path.join(tmp, "train_state.pt"))
             if os.path.exists(final):
@@ -75,7 +85,11 @@ class CheckpointManager:
                                        weights_only=True)
         ts = load("train_state.pt")
         ema = load("model_ema.pt") if os.path.exists(os.path.join(d, "model_ema.pt")) else None
-        state.load_state_dict(ts, load("model.pt"), ema)
+        model = load("model.pt")
+        if any(n.endswith("q_proj.weight") and "seqTransEncoder" in n
+               for n in state.params.names):  # into the split q/k/v layout
+            ts, model, ema = (split_qkv_params(x) for x in (ts, model, ema))
+        state.load_state_dict(ts, model, ema)
         return ts
 
 

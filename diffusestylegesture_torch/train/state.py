@@ -14,6 +14,17 @@ The trainable parameters live in one flat float32 buffer (`FlatParams`),
 their gradients in another, so the optimizer, EMA and norms are a few
 elementwise kernels over the whole model, with no host sync: a non-finite
 step is rejected on the device (`optax.apply_if_finite` semantics).
+
+Across a `DeviceMesh` (`MeshPlan`, one process per card) the collectives act
+on those flat buffers: the gradients of the groups whose ranks each hold
+part of them (`model` under tensor parallelism, `pipe` under pipeline
+parallelism) are summed over the group; then the `data` group averages them
+(one all-reduce), or with `fsdp` reduce-scatters them so that AdamW and the
+EMA run on this rank's 1/N slice and the updated slices are all-gathered
+(`parallel/fsdp.py`). The per-example metrics, the loss and the loss-aware
+sampler's (t, loss) pairs are gathered over `data`, so every rank logs and
+samples the global batch. Each draw is made at the global batch
+(`parallel/draws.py`): a sharded run draws what the unsharded run draws.
 """
 from __future__ import annotations
 
@@ -26,6 +37,8 @@ from torch import nn
 from ..diffusion import gaussian as G
 from ..diffusion import resample
 from ..diffusion.schedule import Schedule
+from ..parallel import comm, draws
+from ..parallel.fsdp import FlatShard
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,17 +68,22 @@ class FlatParams:
     """A module's trainable parameters as views into one flat float32 buffer,
     and their gradients as views into another: autograd accumulates into the
     existing `.grad` views, so a backward fills `grad` in place. The module
-    must stay on its device afterwards (moving it would detach the views)."""
+    must stay on its device afterwards (moving it would detach the views).
+    `pad_multiple`: the buffers are zero-padded to a multiple of it (a ZeRO
+    shard count); `numel` counts the parameters' elements."""
 
-    def __init__(self, module: nn.Module):
+    def __init__(self, module: nn.Module, pad_multiple: int = 1):
         named = [(n, p) for n, p in module.named_parameters() if p.requires_grad]
         if any(p.dtype != torch.float32 for _, p in named):
             raise ValueError("FlatParams: the parameters must be float32")
         self.names: List[str] = [n for n, _ in named]
         self.shapes = [p.shape for _, p in named]
         self.numels = [p.numel() for _, p in named]
+        self.numel = sum(self.numels)
+        pad = -self.numel % pad_multiple
         with torch.no_grad():
-            self.data = torch.cat([p.detach().reshape(-1) for _, p in named])
+            self.data = torch.cat([p.detach().reshape(-1) for _, p in named]
+                                  + [named[0][1].new_zeros(pad)])
         self.grad = torch.zeros_like(self.data)
         for (_, p), d, g in zip(named, self.views(self.data), self.views(self.grad)):
             p.data = d
@@ -73,7 +91,8 @@ class FlatParams:
 
     def views(self, flat: torch.Tensor) -> List[torch.Tensor]:
         """`flat` split into tensors of the parameters' shapes (views)."""
-        return [t.view(s) for t, s in zip(torch.split(flat, self.numels), self.shapes)]
+        return [t.view(s) for t, s in zip(torch.split(flat[:self.numel], self.numels),
+                                          self.shapes)]
 
     def to_dict(self, flat: torch.Tensor) -> Dict[str, torch.Tensor]:
         """{parameter name: copy of its part of `flat`}."""
@@ -87,6 +106,14 @@ class FlatParams:
         with torch.no_grad():
             for n, t in zip(self.names, self.views(flat)):
                 t.copy_(tensors[n])
+
+    def mask(self, select: Callable[[str], bool], device=None) -> torch.Tensor:
+        """A flat bool buffer, True over the parameters whose name `select` takes."""
+        out = torch.zeros(self.data.shape, dtype=torch.bool, device=device or self.data.device)
+        for n, v in zip(self.names, self.views(out)):
+            if select(n):
+                v.fill_(True)
+        return out
 
 
 class AdamW:
@@ -102,13 +129,22 @@ class AdamW:
 
     def __init__(self, params: FlatParams, lr: float, weight_decay: float = 0.0,
                  lr_anneal_steps: int = 0, skip_nonfinite: int = 0, b1: float = 0.9,
-                 b2: float = 0.999, eps: float = 1e-8):
+                 b2: float = 0.999, eps: float = 1e-8, shard: Optional[FlatShard] = None):
         self.params = params
         self.lr, self.weight_decay, self.lr_anneal_steps = lr, weight_decay, lr_anneal_steps
         self.skip_nonfinite, self.b1, self.b2, self.eps = skip_nonfinite, b1, b2, eps
         dev = params.data.device
-        self.mu = torch.zeros_like(params.data)
-        self.nu = torch.zeros_like(params.data)
+        # ZeRO (`shard`): the update reads this rank's slice of the weights and
+        # the reduce-scattered gradient of that slice, and the moments are
+        # that slice's only
+        self.shard = shard
+        if shard is None:
+            self.p, self.g = params.data, params.grad
+        else:
+            self.p = params.data[shard.lo:shard.hi]
+            self.g = torch.zeros(shard.size, device=dev)
+        self.mu = torch.zeros_like(self.p)
+        self.nu = torch.zeros_like(self.p)
         self.count = torch.zeros((), dtype=torch.int32, device=dev)
         self.notfinite_count = torch.zeros((), dtype=torch.int32, device=dev)
         self.total_notfinite = torch.zeros((), dtype=torch.int32, device=dev)
@@ -125,7 +161,7 @@ class AdamW:
     def step(self) -> None:
         """One update, written into the existing buffers (`copy_`), so that a
         CUDA graph captured over a step keeps reading and writing them."""
-        p, g = self.params.data, self.params.grad
+        p, g = self.p, self.g
         b1, b2 = self.b1, self.b2
         count_inc = self.count + 1
         mu = (1 - b1) * g + b1 * self.mu
@@ -142,6 +178,10 @@ class AdamW:
             self.count.copy_(count_inc)
             return
         finite = torch.isfinite(g).all()
+        if self.shard is not None and self.shard.group is not None:  # every slice finite
+            flag = finite.float().reshape(1)
+            comm.all_reduce_(flag, self.shard.group, torch.distributed.ReduceOp.MIN)
+            finite = flag[0] > 0
         self.notfinite_count.copy_(torch.where(finite, 0, self.notfinite_count + 1))
         self.total_notfinite.copy_(torch.where(finite, self.total_notfinite,
                                                self.total_notfinite + 1))
@@ -151,39 +191,152 @@ class AdamW:
         self.nu.copy_(torch.where(ok, nu, self.nu))
         self.count.copy_(torch.where(ok, count_inc, self.count))
 
+    def full(self, t: torch.Tensor) -> torch.Tensor:
+        """A moment (or any slice-sized buffer) over the whole flat buffer:
+        gathered from every rank's slice under ZeRO (a collective)."""
+        return t if self.shard is None else self.shard.full(t)
+
     def state_dict(self) -> Dict:
-        """Moments per parameter name, the count and the non-finite counters."""
-        return {"count": self.count.clone(), "mu": self.params.to_dict(self.mu),
-                "nu": self.params.to_dict(self.nu),
+        """Moments per parameter name (whole, also under ZeRO: every rank of the
+        data group must call it), the count and the non-finite counters."""
+        return {"count": self.count.clone(), "mu": self.params.to_dict(self.full(self.mu)),
+                "nu": self.params.to_dict(self.full(self.nu)),
                 "notfinite_count": self.notfinite_count.clone(),
                 "total_notfinite": self.total_notfinite.clone()}
 
+    def load_slice(self, dst: torch.Tensor, tensors: Dict[str, torch.Tensor]) -> None:
+        """Copy {name: tensor} into a flat buffer, or into this rank's slice of one."""
+        if self.shard is None:
+            self.params.from_dict(dst, tensors)
+            return
+        full = torch.zeros_like(self.params.data)
+        self.params.from_dict(full, tensors)
+        dst.copy_(full[self.shard.lo:self.shard.hi])
+
     def load_state_dict(self, sd: Dict) -> None:
-        self.params.from_dict(self.mu, sd["mu"])
-        self.params.from_dict(self.nu, sd["nu"])
+        self.load_slice(self.mu, sd["mu"])
+        self.load_slice(self.nu, sd["nu"])
         for name in ("count", "notfinite_count", "total_notfinite"):
             if name in sd:
                 getattr(self, name).copy_(torch.as_tensor(sd[name]).reshape(()))
 
 
+class MeshPlan:
+    """How the train step spreads over a `DeviceMesh` (`parallel/multihost.py`):
+    the `data` group averages the gradients (`fsdp`: ZeRO over it, see
+    `parallel/fsdp.py`), and under `partial` each named axis's group sums the
+    gradients of the parameters its ranks hold a part of: `model` (tensor
+    parallelism: the trunk's column- and row-parallel weights) and `pipe`
+    (pipeline parallelism: the trunk's layers). The other parameters' gradients
+    are whole on every rank of those groups and are taken from their rank 0."""
+
+    def __init__(self, mesh, fsdp: bool = False, partial: Tuple[str, ...] = ()):
+        self.mesh = mesh
+        names = mesh.mesh_dim_names
+        self.fsdp = fsdp
+        self.data = mesh.get_group("data") if "data" in names else None
+        self.data_size, self.data_rank = comm.size(self.data), comm.rank(self.data)
+        self.partial = tuple(a for a in partial if a in names)
+
+    def keep_masks(self, model: nn.Module,
+                   params: FlatParams) -> List[Tuple[object, Optional[torch.Tensor]]]:
+        """[(group, mask)] for the partial axes: before the group's sum, the
+        gradient is multiplied by the mask, which keeps every element on the
+        group's rank 0 and, on the other ranks, the elements of the parameters
+        the axis holds in parts (None: keep all). The `pipe` axis holds the
+        layers of the model's `TorchTransformerEncoder`, the trunk that
+        `pipeline_apply` runs."""
+        from ..models.transformer import TorchTransformerEncoder
+        from ..parallel.tp import mdm_param_specs
+
+        out = []
+        for axis in self.partial:
+            group = self.mesh.get_group(axis)
+            if comm.rank(group) == 0:
+                out.append((group, None))
+                continue
+            if axis == "model":
+                specs = mdm_param_specs(dict(zip(params.names, params.shapes)))
+                mask = params.mask(lambda n: "model" in specs[n])
+            else:
+                staged = {id(p) for m in model.modules()
+                          if isinstance(m, TorchTransformerEncoder)
+                          for p in m.layers.parameters()}
+                if not staged:
+                    raise ValueError("a pipe axis over a model without a TorchTransformerEncoder "
+                                     "trunk: no layer is pipelined")
+                named = dict(model.named_parameters())
+                mask = params.mask(lambda n: id(named[n]) in staged)
+            out.append((group, mask.float()))
+        return out
+
+    def draws(self, generator, batch: int):
+        """The step's draws for `batch` local rows: at the global batch when the
+        data group shards it."""
+        if self.data_size == 1:
+            return generator
+        return draws.GlobalDraws(generator, self.data_rank * batch, (self.data_rank + 1) * batch,
+                                 self.data_size * batch)
+
+
 class TrainState:
     """The model (float32 master weights in a `FlatParams`), its AdamW, the EMA
     weights (flat, or None), the loss-aware sampler's state (or None) and the
-    number of step calls made (`step`, a host int: a rejected step counts)."""
+    number of step calls made (`step`, a host int: a rejected step counts).
+    `plan` (a `MeshPlan`): the step's collectives; under ZeRO the moments and
+    the EMA hold this rank's slice of the flat buffer only."""
 
-    def __init__(self, model: nn.Module, cfg: TrainConfig, num_timesteps: int = 1000):
+    def __init__(self, model: nn.Module, cfg: TrainConfig, num_timesteps: int = 1000,
+                 plan: Optional[MeshPlan] = None):
         self.model = model
-        self.params = FlatParams(model)
+        self.plan = plan
+        zero = plan is not None and plan.fsdp
+        self.params = FlatParams(model, plan.data_size if zero else 1)
+        shard = FlatShard(self.params.data.numel(), plan.data) if zero else None
         self.optimizer = AdamW(self.params, cfg.lr, cfg.weight_decay, cfg.lr_anneal_steps,
-                               cfg.skip_nonfinite_updates)
-        self.ema = self.params.data.clone() if cfg.ema_rate else None
+                               cfg.skip_nonfinite_updates, shard=shard)
+        self.ema = self.optimizer.p.clone() if cfg.ema_rate else None
         self.loss_aware = (resample.LossAwareState.create(num_timesteps,
                                                           device=self.params.data.device)
                            if cfg.schedule_sampler == "loss-second-moment" else None)
+        self.keep_masks = plan.keep_masks(model, self.params) if plan is not None else []
+        self._send = torch.empty_like(self.optimizer.p) if zero else None
         self.step = 0
 
+    def reduce_grads(self) -> None:
+        """The mesh's gradient collectives (`MeshPlan`), after the backward:
+        the partial axes' sums, then the data group's mean (or its ZeRO
+        reduce-scatter into the optimizer's slice)."""
+        plan, grad = self.plan, self.params.grad
+        if plan is None:
+            return
+        with torch.no_grad():
+            for group, mask in self.keep_masks:
+                if mask is not None:
+                    grad.mul_(mask)
+                comm.all_reduce_(grad, group)
+            if plan.fsdp:
+                self.optimizer.shard.reduce_scatter_mean(grad, self.optimizer.g)
+            elif plan.data is not None:
+                comm.all_reduce_(grad, plan.data)
+                grad.div_(plan.data_size)
+
+    def grad_norm(self) -> torch.Tensor:
+        """The global norm of the (reduced) gradient."""
+        if self.plan is None or not self.plan.fsdp:
+            return torch.linalg.vector_norm(self.params.grad)
+        sq = (torch.linalg.vector_norm(self.optimizer.g) ** 2).reshape(1)
+        return torch.sqrt(comm.all_reduce_(sq, self.plan.data))[0]
+
+    def gather_params(self) -> None:
+        """Under ZeRO: every rank's updated slice into the flat weights."""
+        if self._send is not None:
+            self._send.copy_(self.optimizer.p)
+            self.optimizer.shard.all_gather(self._send, self.params.data)
+
     def ema_state_dict(self) -> Optional[Dict[str, torch.Tensor]]:
-        return None if self.ema is None else self.params.to_dict(self.ema)
+        """The EMA per parameter name (whole: under ZeRO a collective)."""
+        return None if self.ema is None else self.params.to_dict(self.optimizer.full(self.ema))
 
     def state_dict(self) -> Dict:
         """Everything but the weights: step, optimizer, loss-aware history."""
@@ -197,7 +350,7 @@ class TrainState:
         self.params.from_dict(self.params.data, model_sd)
         self.optimizer.load_state_dict(sd["optimizer"])
         if self.ema is not None:
-            self.params.from_dict(self.ema, ema_sd if ema_sd is not None else model_sd)
+            self.optimizer.load_slice(self.ema, ema_sd if ema_sd is not None else model_sd)
         if self.loss_aware is not None and sd.get("loss_aware") is not None:
             self.loss_aware.history.copy_(sd["loss_aware"]["history"])
             self.loss_aware.counts.copy_(sd["loss_aware"]["counts"])
@@ -240,6 +393,9 @@ def make_train_step(sched: Schedule, cfg: TrainConfig,
         x_start, cond, mask = cond_builder(batch)
         B, dev = x_start.shape[0], x_start.device
         T = sched.num_timesteps
+        plan = state.plan
+        if plan is not None:
+            generator = plan.draws(generator, B)
         if t is None:
             t, weights = (resample.loss_aware_sample_t(generator, state.loss_aware, B)
                           if loss_aware else resample.uniform_sample_t(generator, B, T, dev))
@@ -247,7 +403,7 @@ def make_train_step(sched: Schedule, cfg: TrainConfig,
             weights = (1.0 / (T * resample.loss_aware_weights(state.loss_aware)[t])
                        if loss_aware else torch.ones(B, device=dev))
         if noise is None:
-            noise = torch.randn(x_start.shape, generator=generator, device=dev)
+            noise = draws.randn(x_start.shape, generator, dev)
 
         aux_acc = []
 
@@ -273,21 +429,30 @@ def make_train_step(sched: Schedule, cfg: TrainConfig,
             loss = loss + cfg.moe_aux_weight * aux_mean
             terms["moe_aux"] = aux_mean
         loss.backward()
+        state.reduce_grads()
+        data = plan.data if plan is not None else None
+        # the global batch's per-example terms and t (in rank order), its mean loss
+        terms = {k: comm.all_gather_cat(v.detach(), data) if v.dim() == 1 else v.detach()
+                 for k, v in terms.items()}
+        t = comm.all_gather_cat(t, data)
+        if data is not None:
+            loss = comm.all_reduce_(loss.detach().reshape(1), data)[0] / comm.size(data)
         if loss_aware:
             # the unweighted per-example losses (ref `training_loop.py:256-259`)
             new = resample.update_with_losses(state.loss_aware, t, terms["loss"])
             state.loss_aware.history.copy_(new.history)
             state.loss_aware.counts.copy_(new.counts)
-        grad_norm = torch.linalg.vector_norm(state.params.grad)
+        grad_norm = state.grad_norm()
         state.optimizer.step()
         with torch.no_grad():
             if state.ema is not None:
                 r = cfg.ema_rate
-                state.ema.copy_(state.ema * r + state.params.data * (1 - r))
+                state.ema.copy_(state.ema * r + state.optimizer.p * (1 - r))
+            state.gather_params()
             param_norm = torch.linalg.vector_norm(state.params.data)
-        metrics = {k: v.detach() for k, v in terms.items()}
+        metrics = dict(terms)
         metrics.update(loss=loss.detach(), grad_norm=grad_norm, param_norm=param_norm, t=t,
-                       loss_per_example=terms["loss"].detach())
+                       loss_per_example=terms["loss"])
         return metrics
 
     def step(state: TrainState, *args, **kwargs) -> Dict[str, torch.Tensor]:

@@ -16,7 +16,9 @@ stage dir (`cli/distill.py`: `params/` beside `schedule.json`), of the ZEGGS
 scopes the params hold: `embed_text_last` of a cross_local_attention5 MDMPlus,
 the other MDM variants' `input_process_plain`, `seqTransDecoder` or `gru`,
 and a MoE trunk's per-layer `moe` router and expert stacks (the port's serving
-CLIs read the expert count from `model.pt`). `--out`
+CLIs read the expert count from `model.pt`). A save dir in the split q/k/v
+layout (a JAX run with `--tp` or `--split_qkv`) is merged back to the
+reference's packed `in_proj` (`parallel/tp.py::merge_qkv_params`). `--out`
 receives `model.pt` (the model in reference checkpoint layout), `model_ema.pt`
 when the TrainState holds EMA params, and the stage dir's `schedule.json`.
 Pass the directory to `python -m diffusestylegesture_torch.cli.sample
@@ -100,6 +102,7 @@ def convert_t2m(save_dir: str, out_dir: str) -> list:
     from diffusestylegesture_tpu.models.clip_text import ClipTextConfig, ClipTextEncoder
     from diffusestylegesture_tpu.train.checkpoint import save_params_npz
     from diffusestylegesture_torch.models.convert import text_mdm_state_dict_from_flax
+    from diffusestylegesture_torch.parallel.tp import merge_qkv_params
 
     with open(os.path.join(save_dir, "t2m_config.json")) as f:
         cfg = json.load(f)
@@ -110,7 +113,7 @@ def convert_t2m(save_dir: str, out_dir: str) -> list:
     def save(tree, name):
         tree = jax.tree_util.tree_map(np.asarray, tree)
         path = os.path.join(step_dir, name)
-        torch.save(text_mdm_state_dict_from_flax(tree), path)
+        torch.save(merge_qkv_params(text_mdm_state_dict_from_flax(tree)), path)
         return path
 
     written = [save(load_orbax_params(save_dir), "model.pt")]
@@ -148,11 +151,12 @@ def convert(model_path: str, out_dir: str) -> list:
 
     from diffusestylegesture_tpu.cli.sample import load_orbax_params
     from diffusestylegesture_torch.models.convert import mdm_plus_state_dict_from_flax
+    from diffusestylegesture_torch.parallel.tp import merge_qkv_params
 
     def save(tree, name):
         tree = jax.tree_util.tree_map(np.asarray, tree)
         path = os.path.join(out_dir, name)
-        torch.save(mdm_plus_state_dict_from_flax(tree), path)
+        torch.save(merge_qkv_params(mdm_plus_state_dict_from_flax(tree)), path)
         return path
 
     os.makedirs(out_dir, exist_ok=True)

@@ -198,9 +198,14 @@ def test_prepare_seed_gesture_exact():
 
 
 def test_mesh_raises_and_unknown_variant():
+    """A serving mesh without a `data` axis raises (`mesh=` serving itself:
+    `test_torch_parallel_serving.py`), as does an unknown variant."""
+    from diffusestylegesture_torch.parallel import make_mesh
+
     sampler = _torch_sampler("attention4", "ddim")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        sampler.generate(None, np.zeros((10, AUDIO), np.float32), np.zeros((N_SEED, NJ)),
-                         np.eye(STYLE)[:1], None, 0.0, 1.0, mesh=object())
+    with pytest.raises(ValueError, match="data"):
+        sampler.generate(_shared("attention4")["model"], np.zeros((10, AUDIO), np.float32),
+                         np.zeros((N_SEED, NJ)), np.eye(STYLE)[:1], None, 0.0, 1.0,
+                         mesh=make_mesh(("model",), devices=[torch.device("cpu")]))
     with pytest.raises(ValueError, match="variant"):
         _torch_sampler("attention6", "ddim")

@@ -82,9 +82,11 @@ def test_package_imports_no_jax_in_a_fresh_interpreter():
         "'utils.rotations', 'motion.humanml', 'models.clip_text', 'models.mdm_text', "
         "'cli.generate', 'data.humanml', 'cli.train_t2m', 'eval.t2m', 'eval.t2m_evaluator', "
         "'models.smpl', 'eval.stgcn', 'eval.action2motion', 'motion.gltf_export', "
-        "'motion.viz', 'motion.mocap_player', 'cli.export_gltf')}\n"
+        "'motion.viz', 'motion.mocap_player', 'cli.export_gltf', 'parallel', "
+        "'parallel.comm', 'parallel.draws', 'parallel.fsdp', 'parallel.mesh', "
+        "'parallel.multihost', 'parallel.pipeline', 'parallel.seq_parallel', 'parallel.tp')}\n"
         "print(len(mods), bad, sorted(new - set(mods)), 'h5py' in sys.modules)\n"
-        "sys.exit(1 if bad or len(mods) < 99 or not new <= set(mods) or 'h5py' in sys.modules "
+        "sys.exit(1 if bad or len(mods) < 108 or not new <= set(mods) or 'h5py' in sys.modules "
         "else 0)\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
                          timeout=120)
@@ -124,9 +126,21 @@ def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
     from diffusestylegesture_torch.models.smpl import SmplModel
     from diffusestylegesture_torch.models.unet1d import make_generator_diff_schedule
 
+    from diffusestylegesture_torch.cli import train as train_cli
+    from diffusestylegesture_torch.parallel import make_mesh, multihost
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         Schedule.create(named_beta_schedule("cosine", 10))
+    # the parallel slice: the process group, the serving mesh and a meshed
+    # cli.train take the card unless the CPU is asked for (no group is made)
+    with pytest.raises(RuntimeError, match="cuda"):
+        multihost.initialize()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_mesh()
+    with pytest.raises(RuntimeError, match="cuda"):
+        train_cli.main(["--config", "c.yml", "--use_mesh", "--fsdp"])
+    assert not torch.distributed.is_initialized()
     # the server, the streams, restyle_window and edit_motion run where their
     # sampler, schedule and model lie, which default to the card (above)
     for call in (lambda: edit.in_between_mask((1, 4, 1, 8), 2),

@@ -73,11 +73,16 @@ def test_weight_bridge_round_trip():
 
 
 def test_unsupported_modes_raise():
-    """Only the parallel slice's options raise; the other modes of the JAX
-    MDM build (`test_torch_mdm_variants.py` holds them against it)."""
-    for bad in (dict(split_qkv=True), dict(trunk_impl="pipeline"), dict(seq_parallel=True)):
-        with pytest.raises(NotImplementedError):
+    """The parallel slice's fields build: split q/k/v (holding the packed
+    model's weights for a seed) and remat; a pipelined trunk or a
+    sequence-parallel local attention without its mesh, an unknown trunk and
+    MoE with a recomputed trunk raise (the parallel paths themselves:
+    `test_torch_parallel_*.py`)."""
+    for bad in (dict(trunk_impl="pipeline"), dict(seq_parallel=True),
+                dict(trunk_impl="ring"), dict(moe_experts=2, remat=True)):
+        with pytest.raises(ValueError):
             MDM(MDMConfig(**{**KW, **bad}))
     for ok in (dict(cond_mode="cross_local_attention5_style1"),
-               dict(cond_mode="style1", arch="trans_dec"), dict(moe_experts=2)):
+               dict(cond_mode="style1", arch="trans_dec"), dict(moe_experts=2),
+               dict(split_qkv=True), dict(remat=True)):
         MDM(MDMConfig(**{**KW, **ok}))

@@ -183,12 +183,20 @@ def test_gradients_match_flax(name):
 
 
 def test_validate_raises_only_for_the_parallel_slice():
-    for bad in (dict(trunk_impl="pipeline"), dict(split_qkv=True), dict(seq_parallel=True)):
-        with pytest.raises(NotImplementedError, match="parallel slice"):
+    """The parallel fields validate (their meshes given); without the mesh
+    they raise, and the JAX refusals stay: no encoder trunk (gru,
+    trans_dec) for split q/k/v, MoE or a pipelined trunk."""
+    for bad in (dict(trunk_impl="pipeline"), dict(seq_parallel=True)):
+        with pytest.raises(ValueError, match="mesh"):
             MDMConfig(**dict(BASE, **bad)).validate()
+    for ok in (dict(split_qkv=True), dict(trunk_impl="pipeline", pipe_mesh=object()),
+               dict(seq_parallel=True, seq_mesh=object())):
+        MDMConfig(**dict(BASE, **ok)).validate()
     for kw in VARIANTS.values():
         MDMConfig(**dict(BASE, **kw)).validate()
     for bad in (dict(cond_mode="style1", arch="gru", moe_experts=2),
+                dict(cond_mode="style1", arch="trans_dec", split_qkv=True),
+                dict(cond_mode="style1", arch="gru", trunk_impl="pipeline", pipe_mesh=object()),
                 dict(cond_mode="style1", arch="lstm"), dict(audio_feat="mel")):
         with pytest.raises(ValueError):
             MDMConfig(**dict(BASE, **bad)).validate()

@@ -183,6 +183,31 @@ def test_default_cache_is_fingerprinted(built, tmp_path):
     assert ds.wavlm is not None and len(ds) == 12
 
 
+def test_a_cache_being_written_is_not_read_as_a_shard(built, tmp_path, monkeypatch):
+    """The ranks of a meshed run build the cache at once: one rank's file in
+    the making must not enter another rank's list of shards."""
+    import shutil
+
+    from diffusestylegesture_torch.data import zeggs
+
+    shards = tmp_path / "train"
+    shutil.copytree(built[0] / "torch" / "train", shards)
+    savez, seen = np.savez, []
+
+    def savez_while_another_rank_reads(f, **arrays):
+        savez(f, **arrays)
+        if not seen:  # the file is there, not yet renamed into place
+            seen.append(sorted(os.listdir(shards)))
+            other = ZeggsWindowDataset(str(shards), fake_wavlm,
+                                       cache_path=str(tmp_path / "other.npz"))
+            seen.append(len(other))
+
+    monkeypatch.setattr(zeggs.np, "savez", savez_while_another_rank_reads)
+    ds = ZeggsWindowDataset(str(shards), fake_wavlm)
+    assert any(n.startswith("_cache_partial_") for n in seen[0])
+    assert seen[1] == len(ds) == 12
+
+
 def test_prepare_data_cli(clips, tmp_path):
     stats = prepare_data.main(["--dataset", "ZEGGS", "--source", str(clips), "--target",
                                str(tmp_path / "out"), "--normalize_loudness"])

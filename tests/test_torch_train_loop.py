@@ -183,8 +183,15 @@ def test_device_cache_loop_runs_and_resumes(tmp_path):
 @pytest.mark.parametrize("field", [dict(use_mesh=True), dict(tensor_parallel=2),
                                    dict(fsdp=True)])
 def test_mesh_fields_wait_for_a_later_slice(field):
-    with pytest.raises(NotImplementedError, match="slice 9"):
+    """The mesh fields are taken; tensor parallelism and ZeRO need a mesh
+    (as in JAX), and with use_mesh they are valid (the meshed loop itself:
+    `test_torch_parallel_train.py`, `test_torch_parallel_cli.py`)."""
+    if "use_mesh" in field:
         LoopConfig(**field)
+        return
+    with pytest.raises(ValueError, match="mesh"):
+        LoopConfig(**field)
+    LoopConfig(use_mesh=True, **field)
 
 
 def test_params_npz_round_trip(tmp_path):
@@ -259,12 +266,16 @@ def test_cli_train_then_sample_serves_the_checkpoint(prepared, tmp_path, mode):
 
 
 def test_cli_train_refuses_what_later_slices_bring(prepared):
+    """The parallel flags' refusals, before any process group is made: a
+    degree that does not divide the ranks (one here), a degree below 1, MoE
+    with a pipelined trunk (the meshed CLI itself: `test_torch_parallel_cli.py`)."""
     from diffusestylegesture_torch.cli import train as train_cli
 
     cfg = str(prepared / "zeggs.yml")
-    for flags, slice_no in ((["--tp", "2"], 9), (["--use_mesh"], 9), (["--fsdp"], 9),
-                            (["--pp", "2"], 9), (["--sp", "2"], 9), (["--split_qkv"], 9)):
-        with pytest.raises(NotImplementedError, match=f"slice {slice_no}"):
+    for flags, msg in ((["--tp", "2"], "does not divide"), (["--pp", "2"], "does not divide"),
+                       (["--sp", "3"], "does not divide"), (["--sp", "-1"], "at least 1"),
+                       (["--moe_experts", "2", "--pp", "1"], "moe_experts")):
+        with pytest.raises(SystemExit, match=msg):
             train_cli.main(["--config", cfg, "--device", "cpu"] + flags)
 
 
