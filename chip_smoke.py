@@ -24,7 +24,9 @@ Phases (any failure exits non-zero before the result line):
      the main path) at atol 1e-4 per layer, `mxu_bf16` against the plain bf16
      layer at atol 1e-2 per layer; two calls on the same input bitwise equal;
      kernel, plain and nn.TransformerEncoderLayer times (under bf16 autocast
-     for the bf16 mode), each mode with the bound of its tensor-core work;
+     for the bf16 mode), each mode with the bound of its tensor-core work,
+     and the plan of each row (row tile, n-tile, K-split cluster, stages and
+     blocks of each of the layer's five steps' GEMM and attention grids);
   5. end to end at full width through `cli.sample.main`: a seeded random MDM
      (1141 / 256 / 8 layers / 4 heads / ff 1024) and WavLM-Large (24 layers,
      d 1024) in reference checkpoint layout, a seeded 12.5 s wav (3 windows);
@@ -149,13 +151,13 @@ Phases (any failure exits non-zero before the result line):
      shaped, no diffusion kernel launched;
   13. text-to-motion at the HumanML3D widths with seeded weights: (a) kernel B
      at the trunk's shapes, x (B, T, 512), H 4, F 1024, T 121 / 177 / 197
-     (6 s, the first T past the whole-row attention grid's 176, 9.8 s) at
+     (6 s, 8.8 s, 9.8 s: key tiles of 32, the last one ragged) at
      B 2 / 6 / 64 (one prompt, 3 repetitions and 32 prompts under CFG), and
      (2, 400, 256): 8 seeded layers in both operand modes against the plain
      layer (1e-4 / 1e-2 per layer), two calls bitwise equal, times beside
      the plain layer, nn.TransformerEncoderLayer (bf16 autocast for bf16) and
-     the bound, and the attention grid each shape takes (whole rows or key
-     tiles); (b) a seeded HumanML3D-format corpus (160 clips of 263-d joint
+     the bound, and the plan each shape takes (tiles, clusters, stages and
+     key tile of each of the five steps); (b) a seeded HumanML3D-format corpus (160 clips of 263-d joint
      vecs, 40-196 frames at 20 fps, `caption#tokens#0.0#0.0` texts, a split,
      Mean / Std, a 300-d GloVe table) → `cli.train_t2m` at the published
      widths (512 / 8 layers / ff 1024, 196 frames, batch 64, cosine-1000, a
@@ -445,7 +447,8 @@ def phase_encoder_layer(dev):
                         ms=device_ms(lambda: el.encoder_layer(x, layer, mxu_bf16=bf16)),
                         plain_ms=device_ms(lambda: layer(x, mxu_bf16=bf16), iters=iters),
                         library_ms=device_ms(library, iters=iters),
-                        bound=bound(nbytes, products * flops, rate), max_abs_err=worst)
+                        bound=bound(nbytes, products * flops, rate), max_abs_err=worst,
+                        plan=el.describe_plan(B, T, D, H, F, bf16))
                     print(f"encoder_layer {mode} {shape} B={B} timings: "
                           f"{json.dumps(timings[mode][shape][B])}")
     return max_err, timings
@@ -1069,7 +1072,8 @@ def teacher_at_distillation_batch(dev, card, ckpt, cache):
             max_abs_err=b_err, ms=device_ms(lambda: el.encoder_layer(h, layer), iters=10),
             plain_ms=device_ms(lambda: layer(h), iters=10),
             library_ms=device_ms(lambda: ref(h), iters=10),
-            bound=bound(nbytes, 3 * flops, TF32_FLOPS_PER_S))
+            bound=bound(nbytes, 3 * flops, TF32_FLOPS_PER_S),
+            plan=el.describe_plan(B, T, D, heads, F_))
     print(f"teacher at B={B} [{card}]: {json.dumps(res)}")
     return res
 
@@ -2649,20 +2653,19 @@ def phase_baselines(dev, card):
 
 # ---- phase 13 -------------------------------------------------------------------
 
-# kernel B at the text-to-motion trunk's shapes: T (6 s, the first T past the
-# whole-row attention grid's 176 at head dim 128, 9.8 s = 196 frames + the
-# token) at D 512, and batches (one prompt under CFG, `generate`'s 3
+# kernel B at the text-to-motion trunk's shapes: T (6 s, 8.8 s, 9.8 s = 196
+# frames + the token; 32-key tiles at head dim 128) at D 512, and batches (one prompt under CFG, `generate`'s 3
 # repetitions under CFG, the reference evaluation's 32 prompts under CFG)
 T2M_SHAPES = (121, 177, 197)
 T2M_BATCHES = (2, 6, 64)
-T2M_WIDE = (400, 256)  # past the whole-row grid's T 336 at head dim 64
+T2M_WIDE = (400, 256)  # a long T at head dim 64 (64-key tiles)
 T2M_CLIPS = 160
 T2M_BATCH = 64           # cli.train_t2m's default
 T2M_TRAIN_STEPS = 20
 T2M_DIFFUSION_STEPS = 1000
 T2M_RESPACE = 50
-# cli.generate's runs: DDPM at 9.8 s (T 197, key tiles) and at its default 6 s
-# (T 121, whole rows), DDIM 50 at 9.8 s
+# cli.generate's runs: DDPM at 9.8 s (T 197) and at its default 6 s (T 121),
+# DDIM 50 at 9.8 s
 T2M_RUNS = ("ddpm_9.8s", "ddpm_6.0s", "ddim50_9.8s")
 T2M_PROMPT = "a person walks forward slowly"
 T2M_TOKENS = "a/DET person/NOUN walk/VERB forward/ADV slowly/ADV"
@@ -2742,8 +2745,8 @@ def phase_t2m_kernel(dev):
         ref = nn.TransformerEncoderLayer(D, H, F, dropout=0.0, activation="gelu",
                                          batch_first=True, norm_first=False).to(dev).eval()
         ref.load_state_dict(layer.state_dict())
-        tile = el.key_tile(T, D, H)
-        check(tile >= 0, f"kernel B takes no attention grid at T={T}, D={D}")
+        tile = el.key_tile(D, H)
+        check(tile >= 0, f"kernel B takes no attention grid at D={D}, H={H}")
         nbytes, flops = encoder_layer_cost(B, T, D, H, F)
         with torch.no_grad():
             x = torch.randn(B, T, D, device=dev)
@@ -2765,7 +2768,7 @@ def phase_t2m_kernel(dev):
                         return ref(x)
 
                 row = dict(B=B, T=T, D=D, H=H, F=F, mode=mode, key_tile=tile,
-                           attention="key tiles" if tile else "whole row", max_abs_err=worst,
+                           plan=el.describe_plan(B, T, D, H, F, bf16), max_abs_err=worst,
                            ms=device_ms(lambda: el.encoder_layer(x, layer, mxu_bf16=bf16)),
                            plain_ms=device_ms(lambda: layer(x, mxu_bf16=bf16), iters=10),
                            library_ms=device_ms(library, iters=10))
@@ -2895,7 +2898,7 @@ def phase_t2m(dev, tmp, card):
                             encoder_layer_bf16_launches=counts[2], frames=frames, motion_shape=list(results["motion"].shape),
                             generate_s=generate.LAST_RUN["seconds"],
                             capture_s=generate.LAST_RUN["capture_seconds"], cli_wall_s=wall,
-                            key_tile=el.key_tile(frames + 1, 512, 4))
+                            key_tile=el.key_tile(512, 4))
         print(f"t2m generate {name} [{card}]: {json.dumps(served[name])}")
     # the same 9.8 s DDPM run through the eager loop (`sample_t2m(graphs=False)`,
     # the CLI's seed): its features bitwise equal to the CLI's on graphs
@@ -3116,7 +3119,9 @@ def parallel_inference(dev, mdm_pt, mesh_size):
             res[name] = dict(kernel_vs_plain_rel=err, local_attention_launches=counts[0],
                              encoder_layer_launches=counts[1],
                              encoder_layer_bf16_launches=counts[2],
-                             ms=device_ms(lambda: model(x, t, cond), iters=4, warmup=2))
+                             # two calls: the pipelined one launches ~300 kernels (kernel B
+                             # seven grids a layer), and more would fill the launch queue
+                             ms=device_ms(lambda: model(x, t, cond), iters=2, warmup=2))
         res["unsharded_kernel_ms"] = device_ms(lambda: kernel(x, t, cond), iters=4, warmup=2)
     per = 8 // mesh_size
     check(res["seq_parallel"]["local_attention_launches"] == 1

@@ -1,5 +1,6 @@
 // One post-norm transformer encoder layer (torch 1.9 nn.TransformerEncoderLayer,
-// inference) for Hopper (sm_90a), on tensor cores, in four grids.
+// inference) for Hopper (sm_90a): every product on wgmma, every operand tile
+// brought into shared memory by TMA on mbarriers, seven grids a layer.
 //
 // Replaces the Pallas TPU kernel
 // `diffusestylegesture_tpu/ops/encoder_layer_pallas.py::encoder_layer_pallas`
@@ -11,96 +12,114 @@
 //   out = LN2(y + act(y W1^T + b1) W2^T + b2)
 // with act chosen at run time (erf GELU, tanh GELU or ReLU); the Pallas kernel
 // hard-codes erf GELU whatever the config says, this one does not. Weights are
-// taken as torch stores them, nn.Linear (out, in), f32, with no per-call copy.
+// taken as torch stores them, nn.Linear (out, in), f32, with no per-call copy
+// and no cached copy. Head dims up to 256.
 //
-// Operand modes. f32 (the main path): every product is 3xTF32 on mma.sync
-// m16n8k8. Each operand is split into big (its top 19 bits, a tf32 value) and
-// small = a - big (exact in f32; the tensor core reads its top 19 bits), and
-// big*big, big*small and small*big go to three separate f32 sums, which keeps
-// the layer within 1e-4 of a float32 layer (plain TF32 keeps ~3 digits). bf16
-// (`mxu_bf16`, the Pallas kernel's `mxu_bf16=True`): mma.sync m16n8k16 with
-// exactly the operands the Pallas kernel rounds rounded to bf16 (x, Win, q, k,
-// the softmax probabilities, v, the attention output, Wout, y, W1, the
-// activated hidden rows, W2) and f32 sums; the score scale is applied after
-// the QK^T product. Operands stay f32 in memory and shared memory and are
-// rounded when the fragments are built.
+// Operand modes. f32 (the main path): 3xTF32 on wgmma.mma_async m64nNk8.tf32.
+// Each operand tile lands in shared memory as f32; the consumer warpgroups
+// split it there into big (its top 19 bits, a tf32 value, written in place)
+// and small = v - big (exact in f32, written beside it), and issue
+// small*big, big*small, then big*big into one f32 accumulator, as CUTLASS's
+// 3xTF32 does; this keeps the layer within 1e-4 of a float32 layer. bf16
+// (`mxu_bf16`, the Pallas kernel's `mxu_bf16=True`): m64nNk16.bf16 with exactly
+// the operands the Pallas kernel rounds rounded to bf16 (x, Win, q, k, the
+// softmax probabilities, v, the attention output, Wout, y, W1, the activated
+// hidden rows, W2) and f32 sums; the tiles are rounded in shared memory after
+// they land.
 //
-// What bounds it on an H100: at the denoiser's shapes (B*T = 89..178 rows,
-// D = 256, H = 4, F = 1024) one layer is 148 MFLOP at batch 1 against 3.3 MB
-// of f32 weights and activations: 1.0 us of HBM traffic at 3.35 TB/s against
-// 0.9 us for the three TF32 products at 495 TFLOP/s (0.15 us in bf16), so
-// ~1.0 us at B=1 (bytes) and 1.8 us at B=2 (operations). The 8 layers'
-// weights stay in the 50 MB L2 across a sampling loop. What bounds it in
-// practice (phase marks of scripts/encoder_layer_timing.py): each grid waits
-// ~1.3 us after its predecessor ends before griddepcontrol.wait returns, its
-// first activation load takes ~1 us, mma.sync runs 3xTF32 at ~1,300 cycles
-// per 16 x 128 x 64 product on one SM (a quarter of wgmma's rate), and a
-// block that streams weights through shared memory during its products
-// stalls on them.
+// What bounds it on an H100 (SXM, 132 SMs; 495 TFLOP/s TF32, 989 bf16, 3.35
+// TB/s): one layer at the ZEGGS shape (B*T = 89 rows, D = 256, H = 4, F = 1024)
+// is 148 MFLOP against 3.3 MB of f32 weights and activations: at B = 1 the
+// bytes bound it (1.0 us against 0.9 us for the three TF32 products); at
+// B >= 16 the operations do (14.4 us at B = 16, 0.27 ms at B = 300, 3xTF32).
+// What the design does about each:
+//   * B >= 16, operations: wgmma at the tensor cores' own rate (the earlier
+//     mma.sync 3xTF32 design ran at a quarter of it); row tiles of 64 or 128
+//     rows that span batch elements, so each weight tile is read from L2 once
+//     per 64-128 rows (the earlier design read the layer's whole 3.15 MB
+//     weight set once per 16 rows: 5.3 GB of L2 traffic a layer at B = 300);
+//     a ring of TMA stages fed by one producer warp while the consumer
+//     warpgroups convert one stage and the tensor cores run the previous one;
+//     and tiles, K splits and stages chosen so that a grid's blocks sit on the
+//     SMs at once (two or three a SM) rather than in a second wave. What bounds
+//     it there now is shared-memory traffic, not the tensor cores: the in-place
+//     split (or rounding) of every tile and the three products' operand reads
+//     move ~0.6-0.85 bytes of shared memory a multiply-add (64 x 128 and
+//     64 x 64 tiles), against the 128 bytes a cycle an SM reads.
+//   * B = 1, bytes and latency: 89 rows are two 64-row tiles, so every GEMM
+//     grid splits K over a cluster (4 blocks, 8 for FF2's K = 1024 and the
+//     out-proj at D >= 512) to spread over 32-128 SMs; the two LayerNorms run
+//     in grids of their own (a cluster that holds whole rows for the norm has
+//     at most 8 blocks a row tile: 16 SMs at B = 1, where FF2 took 15.5 us
+//     against 8.3 us now for its GEMM and LayerNorm grids); each grid issues
+//     its weight tiles, and splits or rounds them, before griddepcontrol.wait,
+//     so under programmatic dependent launch that work overlaps the previous
+//     grid; split partials are pushed into their owner's shared memory (no
+//     round trip through device memory).
 //
-// Design:
-//   * four grids, each launched with cudaLaunchKernelEx and Programmatic
-//     Dependent Launch. A grid issues all its weight loads (cp.async, each
-//     64-column chunk of a panel in a place of its own, or a ring of up to 8
-//     stages when they do not fit) and its bias and norm vectors before
-//     griddepcontrol.wait, so they land while the previous grid runs, and
-//     reads activations only after the wait. This chains across layers on a
-//     stream. At the denoiser's shapes every grid's weights fit, so no grid
-//     loads weights after its wait.
-//       1. QKV      qkv = x Win^T + bin; one block per 16 rows x 64 columns
-//       2. attn     one block per (batch, head, 16 queries): S = Q K^T,
-//                   softmax, O = P V on tensor cores; Q, K, V, P in shared
-//                   memory; each warp owns its tiles. Where one head's
-//                   keys and values do not fit in shared memory whole
-//                   (T > 176 at head dim 128, T > 336 at head dim 64),
-//                   the key-tiled grid streams them in tiles of 64 keys
-//                   with an online softmax instead; the host picks the
-//                   grid from the shape (dsg_encoder_layer_key_tile)
-//       3. out+FF1  one 8-block cluster per 16 rows: block r computes the
-//                   pre-norm columns [r D/8, (r+1) D/8) of x + a Wout^T + bout;
-//                   after one cluster barrier every block reads all 16 rows
-//                   through distributed shared memory, normalises them (LN1)
-//                   into its A operand and computes its F/8 hidden columns
-//                   h = act(y W1^T + b1); block r writes y's rows 2r, 2r+1
-//                   and its columns of h
-//       4. FF2+LN2  one 8-block cluster per 16 rows: block r multiplies its
-//                   F/8 columns of h by the same columns of W2; after one
-//                   cluster barrier it sums its 2 rows' partials over the
-//                   cluster in rank order, adds b2 + y and normalises (LN2)
-//     h and y go through device memory as activations; no split-K partial
-//     does.
-//   * a warp's products: up to 4 n-tiles at once, k16 steps shared by up to 4
-//     warps (k-groups, summed in a fixed order), no predicated mma and no
-//     division in the loop.
-//   * no atomics: every sum runs in a fixed order, so two calls on the same
-//     input give bitwise-equal output.
-//   * 16-row m-tiles (mma.sync granularity) waste 7% on 89 rows where wgmma's
-//     64-row tiles would waste up to 30%.
-//   * the LayerNorms are two-pass (mean, then squared deviations), one warp
-//     per row.
+// Design (seven grids in five steps, each grid launched with cudaLaunchKernelEx
+// and programmatic dependent launch; the host picks each step's tiles from the
+// shape and the card's SM count, see ops/encoder_layer.py::plan, and grid_smem
+// below checks the plan):
+//   1. QKV      qkv = x Win^T + bin: BM x BN tiles of (M, 3D), BM = 64 or 128
+//               rows (1 or 2 consumer warpgroups), BN = 64 or 128 columns (one
+//               wgmma n64 / n128 a k-step), K split over a cluster of 1-4.
+//   2. attn     one block per (batch, head, 64 queries): Q (64 x hd) stays in
+//               shared memory; K and V stream in tiles of 64 / 32 / 16 keys
+//               (head dim <= 64 / 128 / 256) through TMA buffers that are
+//               released as soon as a tile is converted (K split, V transposed
+//               to the K-major layout wgmma's .tf32 needs), so the next tile
+//               loads while this one's products run. Where the grid fills at
+//               most half the SMs (B = 1), two consumer warpgroups take
+//               alternate tiles, each with its own buffers, running max, sum
+//               and O, merged at the end. S = Q K^T on wgmma (both
+//               operands in shared memory), an online softmax in registers,
+//               O += P V on wgmma with P taken from registers (in tf32 the keys
+//               of V^T are permuted within each group of 8 so that the score
+//               accumulator's layout is the A fragment's).
+//   3. out, LN1 s = a Wout^T + bout as grid 1 (N = D, K split over 1-8), into
+//               qkv's place in the workspace; then y = LN1(x + s), one warp a
+//               row (encoder_layer_norm).
+//   4. FF1      h = act(y W1^T + b1), as grid 1.
+//   5. FF2, LN2 s = h W2^T + b2 as step 3 (K = F), then out = LN2(y + s).
+//   Operand tiles: rows of 32 f32 (128 bytes) in TMA's 128-byte swizzle, the
+//   layout wgmma reads K-major; bf16 copies in the 64-byte swizzle. TMA
+//   descriptors come from cuTensorMapEncodeTiled (reached through
+//   cudaGetDriverEntryPoint, no link against libcuda), cached by their fields
+//   and passed as __grid_constant__ parameters, so graph capture records them.
+//   No atomics and no split-K partial through device memory: every sum runs
+//   in a fixed order, so two calls on the same input give bitwise-equal
+//   output. Nothing is allocated here: the wrapper's workspace holds qkv (and
+//   later the pre-norm sums), a, y and h. A failed launch returns its error;
+//   the wrapper raises.
 //
-// Times per layer at B=1 on an H100 80GB HBM3 at 700 W. chip_smoke.py: the
-// seven-grid SIMT design that came before (split-K partials through an L2
-// workspace read back by two LayerNorm grids, scalar attention loops) took
-// 223, then 93.5, then 45.4 us; the first four-grid tensor-core version
-// (3xTF32 splits of 9 instructions a value, per-chunk integer divisions, four
-// cluster barriers per LayerNorm, W2 streamed after W1 in one MLP grid) 53.9
-// us. scripts/encoder_layer_timing.py, in one process: this one 38.1 us (46.3
-// at B=2; bf16 mode 31.6 and 39.2), the seven-grid one beside it 47.0 (54.0).
-// The key-tiled attention grid (chip_smoke.py phase 13, same card): a layer at
-// (6, 197, 512), H=4 takes 0.472 ms against 0.281 ms for the plain layer and
-// 4.62 ms against 1.70 at B=64; it reloads each K/V tile per 16-query block
-// and does not overlap the copies with the products.
-#include <cfloat>
+// Two Hopper features the design does without. setmaxnreg: a block holds at
+// most 288 threads, so every thread may use 224 registers; the GEMM grids use
+// 128 and the attention grid 160-184 (ptxas, as scripts/encoder_layer_timing.py
+// prints them), with no spills, so there is nothing for the producer warp to
+// hand over. TMA multicast: a cluster splits K, so its blocks read different
+// weight tiles and different A tiles (the same rows, other k); no two blocks
+// of a cluster load the same tile.
+//
+// Times a layer on an NVIDIA H100 80GB HBM3 at 700 W (scripts/encoder_layer_timing.py
+// against the mma.sync source of commit bcab30f in one process; PERF.md's
+// kernel table), f32 / bf16: (1, 89, 256) 0.0336 / 0.0291 ms (mma.sync 0.0386 /
+// 0.0312); (1, 151, 384) 0.0481 / 0.0414 (0.0698 / 0.0574); (1, 151, 512)
+// 0.0587 / 0.0456 (0.0889 / 0.0729); (16, 89, 256) 0.0851 / 0.0655 (0.2290 /
+// 0.1942); (300, 89, 256) 1.013 / 0.796 (4.149 / 3.550).
 #include <cooperative_groups.h>
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include <algorithm>
+#include <array>
 #include <atomic>
+#include <map>
 #include <mutex>
+#include <utility>
 
 namespace cg = cooperative_groups;
 
@@ -108,34 +127,18 @@ namespace {
 
 enum Activation { kNone = 0, kGeluErf = 1, kGeluTanh = 2, kRelu = 3 };
 
-constexpr int kThreads = 256;  // 8 warps in every grid
-constexpr int kWarps = kThreads / 32;
-constexpr int kRows = 16;        // rows per block: one mma m-tile
-constexpr int kCluster = 8;      // blocks per cluster in grids 3 and 4 (portable size)
-constexpr int kRowsPerBlock = kRows / kCluster;  // rows each block normalises
-constexpr int kKc = 64;          // k-width of one weight stage: 4 k16 steps
-constexpr int kMaxStages = 8;    // weight ring depth, as shared memory allows
-constexpr int kNtMax = 4;        // n-tiles (of 8 columns) per warp
-constexpr int kPanelRows = 128;  // weight rows per panel: 16 n-tiles
-constexpr int kQkvCols = 64;     // output columns per block of grid 1
-constexpr int kRedFloats = kWarps * kNtMax * 4 * 32;  // k-group partials of a block, 16 KB
-constexpr int kMaxWidth = 1024;  // D
-constexpr int kMaxVec = kMaxWidth / 128;  // float4 of a row per lane
+constexpr int kSteps = 5;           // QKV, attention, out-proj + LN1, FF1, FF2 + LN2
+constexpr int kKc = 32;             // k values of one stage: one 128-byte row of f32
+constexpr int kMaxCluster = 8;      // portable cluster size
+constexpr int kMaxWidth = 1024;     // D
+constexpr int kMaxHeadDim = 256;
+constexpr int kQueries = 64;        // query rows of an attention block (one wgmma m-tile)
 constexpr size_t kSmemLimit = 227 * 1024;
+constexpr size_t kReserve = 1024 + 256;  // alignment slack and the mbarriers
+constexpr int kPlanInts = 6;        // per step: nc, nb, ck, stages, key tile, overlay
+constexpr int kMaxStages = 10;      // three mbarriers a stage in the 256 reserved bytes
 
-__host__ __device__ constexpr int round_up(int a, int b) { return (a + b - 1) / b * b; }
-
-// Row stride (floats) of a k-contiguous shared tile of n columns: it covers
-// round_up(n, kKc) and is 16 mod 32, so the float4 fragment loads of a quarter
-// warp (2 rows x 4 lanes) fall on 32 distinct banks.
-__host__ __device__ constexpr int kstride(int n) { return round_up(n, kKc) + 16; }
-constexpr int kStageStride = kstride(kKc);  // 80
-// Row stride of V, read k-major (rows = keys): 4 mod 32 keeps the 16-byte row
-// alignment of the copies and limits the fragment loads to 2-way conflicts.
-__host__ __device__ constexpr int vstride(int n) { return round_up(n, 32) + 4; }
-
-// Columns of a slice when n columns are split over the cluster (multiple of 8).
-__host__ __device__ constexpr int slice(int n) { return round_up((n + kCluster - 1) / kCluster, 8); }
+__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
 
 __device__ __forceinline__ float activate(float x, int act) {
   switch (act) {
@@ -150,11 +153,6 @@ __device__ __forceinline__ float activate(float x, int act) {
   }
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
@@ -162,44 +160,119 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 __device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
 
-// ---- PTX: asynchronous copies, dependent launch, tensor-core products ----------
+// ---- PTX: barriers, TMA, dependent launch --------------------------------------------
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(valid ? 16 : 0)
-               : "memory");  // src-size 0 zero-fills the 16 bytes
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
+// The dynamic shared memory from its first 1024-byte boundary (the swizzle atoms
+// of TMA and wgmma repeat every 1024 bytes of address).
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return p + ((1024u - (smem_u32(p) & 1023u)) & 1023u);
 }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
 }
-// Waits until at most n (0..kMaxStages-2) of this thread's copy groups are
-// still in flight.
-static_assert(kMaxStages <= 8, "cp_async_wait_pending covers up to 6 pending groups");
-__device__ __forceinline__ void cp_async_wait_pending(int n) {
-  switch (n) {
-    case 0: cp_async_wait<0>(); break;
-    case 1: cp_async_wait<1>(); break;
-    case 2: cp_async_wait<2>(); break;
-    case 3: cp_async_wait<3>(); break;
-    case 4: cp_async_wait<4>(); break;
-    case 5: cp_async_wait<5>(); break;
-    default: cp_async_wait<6>(); break;
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+// One arrival, and `bytes` more to land by TMA before the phase completes.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+// Waits until the phase of the given parity has completed. Every wait follows
+// griddepcontrol.wait, so it waits on this block's own copies and products
+// only; one that lasts seconds is a fault, and traps (the launch then fails
+// with an error the wrapper raises) instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done;
+  unsigned long long start = 0;
+  for (uint32_t n = 1;; ++n) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if ((n & 0xffff) == 0) {  // the clock is read only once a wait is long
+      const unsigned long long now = global_ns();
+      if (start == 0) start = now;
+      else if (now - start > 4000000000ull) __trap();
+    }
   }
 }
-// Waits for all of this block's copies.
-__device__ __forceinline__ void cp_async_wait_all() {
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
+// Fetches a TMA descriptor ahead of its first use.
+__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+// A contiguous copy of `bytes` (a multiple of 16) bytes into shared memory, on a barrier.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+// Generic-proxy writes to shared memory become visible to wgmma and TMA.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// Barrier 1 among the consumer warpgroups only.
+__device__ __forceinline__ void consumer_sync(int threads) {
+  asm volatile("bar.sync 1, %0;\n" ::"r"(threads) : "memory");
+}
+// Named barrier `id` among `threads` threads (whole warps).
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 // Wait until the grids this one depends on have completed and their writes are visible.
 __device__ __forceinline__ void grid_dependency_wait() {
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+// Let the next grid on the stream launch (its pre-wait prologue) now.
+__device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+// The shared::cluster address of shared-memory address `addr` in cluster block `rank`.
+__device__ __forceinline__ uint32_t map_rank(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+// Two floats into another block's shared memory (distributed shared memory).
+__device__ __forceinline__ void st_cluster2(uint32_t addr, float a, float b) {
+  asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};\n" ::"r"(addr), "f"(a), "f"(b)
+               : "memory");
 }
 // The two halves of a cluster barrier: arrive (releasing this block's shared
 // memory writes and reads) and wait (acquiring the other blocks').
@@ -209,23 +282,17 @@ __device__ __forceinline__ void cluster_arrive() {
 __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
-// Let the next grid on the stream launch (its pre-wait prologue) now.
-__device__ __forceinline__ void launch_dependents() {
-  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
-}
 
 // Phase marks, compiled in only with -DDSG_PHASES (scripts/encoder_layer_timing.py
 // --phases): thread 0 of each block records the global timer and its SM's
 // cycle counter at mark i of grid g; dsg_encoder_layer_phases copies them out.
 #ifdef DSG_PHASES
-constexpr int kPhaseGrids = 4, kPhaseBlocks = 256, kPhaseMarks = 8;
-__device__ unsigned long long g_phases[kPhaseGrids][kPhaseBlocks][kPhaseMarks][2];
+constexpr int kPhaseBlocks = 256, kPhaseMarks = 8;
+__device__ unsigned long long g_phases[kSteps][kPhaseBlocks][kPhaseMarks][2];
 __device__ __forceinline__ void mark(int g, int i) {
   const int b = blockIdx.x + gridDim.x * blockIdx.y;
   if (threadIdx.x == 0 && b < kPhaseBlocks) {
-    unsigned long long t;
-    asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
-    g_phases[g][b][i][0] = t;
+    g_phases[g][b][i][0] = global_ns();
     g_phases[g][b][i][1] = clock64();
   }
 }
@@ -233,786 +300,1002 @@ __device__ __forceinline__ void mark(int g, int i) {
 __device__ __forceinline__ void mark(int, int) {}
 #endif
 
+// ---- wgmma --------------------------------------------------------------------------
+// A and B K-major in shared memory (ss) or A in registers (rs); D += A B^T in f32.
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keeps the compiler from moving reads or writes of accumulator registers across
+// the asynchronous products.
+// Pinning them before wgmma.fence and after wgmma.wait_group also keeps ptxas
+// from finding other instructions writing them inside a batch, which makes it
+// serialise the products (C7515).
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// Descriptor of a K-major operand tile in shared memory: rows of W bytes (128,
+// 64 or 32) in the swizzle of that width, atoms of 8 rows (8 W bytes) stacked
+// along M / N. `addr` is the tile's row 0 plus the k-step's byte offset in the row.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, int W) {
+  const uint64_t layout = W == 128 ? 1 : W == 64 ? 2 : 3;
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>((8 * W) >> 4) << 32) | (layout << 62);
+}
+// Byte offset of byte `byte` of row `row` in a tile of W-byte swizzled rows
+// (16-byte chunk c of row r sits at chunk c ^ (address bits 7.. of the row)).
+__device__ __forceinline__ int swz(int W, int row, int byte) {
+  return row * W + ((((byte >> 4) ^ ((row * W) >> 7)) & (W / 16 - 1)) << 4) + (byte & 15);
+}
+__device__ __forceinline__ void wgmma_ss_tf32_n16(float (&d)[8], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_ss_tf32_n32(float (&d)[16], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_ss_tf32_n64(float (&d)[32], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_ss_tf32_n128(float (&d)[64], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_tf32_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_ss_bf16_n16(float (&d)[8], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_ss_bf16_n32(float (&d)[16], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_ss_bf16_n64(float (&d)[32], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_ss_bf16_n128(float (&d)[64], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_bf16_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <bool BF16, int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b) {
+  if constexpr (BF16) {
+    if constexpr (N == 16) wgmma_ss_bf16_n16(d, a, b);
+    else if constexpr (N == 32) wgmma_ss_bf16_n32(d, a, b);
+    else if constexpr (N == 64) wgmma_ss_bf16_n64(d, a, b);
+    else wgmma_ss_bf16_n128(d, a, b);
+  } else {
+    if constexpr (N == 16) wgmma_ss_tf32_n16(d, a, b);
+    else if constexpr (N == 32) wgmma_ss_tf32_n32(d, a, b);
+    else if constexpr (N == 64) wgmma_ss_tf32_n64(d, a, b);
+    else wgmma_ss_tf32_n128(d, a, b);
+  }
+}
+
+// ---- conversions in shared memory -------------------------------------------------------
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (lo) in the low half
   return *reinterpret_cast<const uint32_t*>(&v);
 }
-// 3xTF32 split: big keeps the top 19 bits (a tf32 value), small = v - big is
-// exact; the tensor core reads the top 19 bits of small (2 instructions per
-// value, where cvt.rna.tf32 alone takes 4).
-__device__ __forceinline__ void split_tf32(float v, uint32_t& big, uint32_t& small) {
-  big = __float_as_uint(v) & 0xffffe000u;
-  small = __float_as_uint(v - __uint_as_float(big));
+// 3xTF32 split: big keeps the top 19 bits (a tf32 value); small = v - big is exact.
+__device__ __forceinline__ float tf32_big(float v) {
+  return __uint_as_float(__float_as_uint(v) & 0xffffe000u);
 }
-// Not volatile: the products have no side effects, so the compiler may
-// interleave independent ones.
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+__device__ __forceinline__ float4 big4(float4 v) {
+  return make_float4(tf32_big(v.x), tf32_big(v.y), tf32_big(v.z), tf32_big(v.w));
 }
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+__device__ __forceinline__ float4 sub4(float4 a, float4 b) {
+  return make_float4(a.x - b.x, a.y - b.y, a.z - b.z, a.w - b.w);
 }
-
-// ---- a warp's 16 x 8 tiles ------------------------------------------------------
-// Lane (g = lane / 4, t = lane % 4) holds A at rows g and g + 8, columns
-// 4t..4t+3 (one float4 each), and the same four k of B column n = 8 tile + g.
-// The sum over k does not depend on which k each fragment slot holds, as long
-// as A and B agree, so the fragments take these columns in place of the PTX
-// layout's: tf32 k8 slots (t, t+4) <- columns (4t, 4t+1), then (4t+2, 4t+3);
-// bf16 k16 slot pairs (2t, 2t+1) <- (4t, 4t+1) and (2t+8, 2t+9) <- (4t+2, 4t+3).
-
-// How a block's warps share a 16 x (8 ntiles) product: ng n-groups (a power of
-// two) of up to kNtMax tiles each (tile n = ngi + ng j) times kg = kWarps / ng
-// k-groups, each taking every kg-th k16 step; kg is at most max_kg. nt is this
-// warp's number of tiles. Callers split products of more than kWarps * kNtMax
-// tiles.
-struct Split {
-  int ng, kg, ngi, kgi, nt;
-  __device__ Split(int ntiles, int max_kg) {
-    int lg = 0;
-    while ((kWarps >> lg) > max_kg) ++lg;
-    while ((kNtMax << lg) < ntiles && (1 << lg) < kWarps) ++lg;
-    ng = 1 << lg;
-    kg = kWarps >> lg;
-    const int warp = threadIdx.x >> 5;
-    ngi = warp & (ng - 1);
-    kgi = warp >> lg;
-    nt = 0;
-#pragma unroll
-    for (int j = 0; j < kNtMax; ++j) nt += ngi + ng * j < ntiles;
+// float4 i in [begin, end) (step `step`) of `src`: big to `hi`, small to `lo`,
+// at the same offsets (hi may be src: the split in place).
+__device__ __forceinline__ void split_tf32(const float4* src, float4* hi, float4* lo, int begin,
+                                           int end, int step) {
+  for (int i = begin; i < end; i += step) {
+    const float4 v = src[i], b = big4(v);
+    hi[i] = b;
+    lo[i] = sub4(v, b);
   }
+}
+// 16-byte chunk i in [begin, end) of a tile of 128-byte rows of f32 (TMA's
+// 128-byte swizzle; row i / 8) to bf16 at the same row of a tile of 64-byte rows
+// (64-byte swizzle). Any row count that is a multiple of 8 keeps the swizzle
+// phases of both, so a run of tiles converts as one.
+__device__ __forceinline__ void to_bf16(const uint8_t* src, uint8_t* dst, int begin, int end,
+                                        int step) {
+  for (int i = begin; i < end; i += step) {
+    const int r = i >> 3, c = (i & 7) ^ (r & 7);  // c: the chunk's place in the row (4 values)
+    const float4 v = *reinterpret_cast<const float4*>(src + 16 * i);
+    *reinterpret_cast<uint2*>(dst + swz(64, r, 8 * c)) =
+        make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
+  }
+}
+
+// ---- the GEMM grids (1, 3, 4 and 5) ---------------------------------------------------
+// A block of NC consumer warpgroups (BM = 64 NC rows) and one producer warp
+// computes BM x BN (BN = 64 NB) of A W^T over a range of K, 32 k a stage.
+// Stage layout: raw A [BM][32] f32, raw W [BN][32] f32 (TMA, 128-byte swizzle),
+// then the converted operands: f32 mode small A, small W (big is written over
+// the raw tile), bf16 mode A, W in bf16 (64-byte swizzle).
+template <bool BF16, int NC, int NB>
+struct Gemm {
+  static constexpr int BM = 64 * NC, BN = 64 * NB;
+  static constexpr int kConsumers = 128 * NC, kThreads = kConsumers + 32;
+  static constexpr int kRawA = BM * 128, kRawB = BN * 128;
+  static constexpr int kOpA = BF16 ? BM * 64 : kRawA, kOpB = BF16 ? BN * 64 : kRawB;
+  static constexpr int kStage = kRawA + kRawB + kOpA + kOpB;
 };
 
-// acc[j] += A[16 x kc] . B[8 n .. 8 n + 8][kc]^T for this warp's NT tiles, over
-// its k-group's k16 steps (kgi, kgi + kg, ...; kc is a multiple of 16 kg or the
-// steps past it are zero). A is k-contiguous (stride sa); B is n-major
-// k-contiguous rows (stride sb), or, with KMajorB, k-major rows of n (stride
-// sb). In f32 mode the 3xTF32 products go to three sums, big*big to acc and the
-// two small terms to s1 and s2, so that no product waits on another of its
-// step; s1 + s2 are added to acc at the end.
-template <bool BF16, bool KMajorB, int NT>
-__device__ __forceinline__ void warp_mma_n(float (&acc)[kNtMax][4], const Split& sp,
-                                           const float* A, int sa, const float* B, int sb,
-                                           int kc) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const float* a0 = A + g * sa + 4 * t;
-  const float* a1 = a0 + 8 * sa;
-  const float* bp[NT];
-#pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    const int n = sp.ngi + sp.ng * j;
-    bp[j] = KMajorB ? B + 4 * t * sb + n * 8 + g : B + (n * 8 + g) * sb + 4 * t;
+// The consumer threads (tid < kConsumers) convert the W tile of stage `st`
+// (all of them) or its A tile (each warpgroup its own 64 rows).
+template <bool BF16, int NC, int NB>
+__device__ __forceinline__ void convert_w(uint8_t* st, int tid) {
+  using G = Gemm<BF16, NC, NB>;
+  uint8_t* raw = st + G::kRawA;
+  uint8_t* op = st + G::kRawA + G::kRawB + G::kOpA;
+  if constexpr (BF16) {
+    to_bf16(raw, op, tid, 8 * G::BN, G::kConsumers);
+  } else {
+    split_tf32(reinterpret_cast<float4*>(raw), reinterpret_cast<float4*>(raw),
+               reinterpret_cast<float4*>(op), tid, 8 * G::BN, G::kConsumers);
   }
-  float s1[NT][4] = {}, s2[NT][4] = {};
-  for (int k = 16 * sp.kgi; k < kc; k += 16 * sp.kg) {
-    const float4 lo = ld4(a0 + k), hi = ld4(a1 + k);
-    float4 b[NT];
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      if constexpr (KMajorB) {
-        const float* p = bp[j] + k * sb;
-        b[j] = make_float4(p[0], p[sb], p[2 * sb], p[3 * sb]);
-      } else {
-        b[j] = ld4(bp[j] + k);
-      }
-    }
-    if constexpr (BF16) {
-      const uint32_t a[4] = {pack_bf16(lo.x, lo.y), pack_bf16(hi.x, hi.y), pack_bf16(lo.z, lo.w),
-                             pack_bf16(hi.z, hi.w)};
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        mma_bf16(acc[j], a, pack_bf16(b[j].x, b[j].y), pack_bf16(b[j].z, b[j].w));
-      }
-    } else {
-      const float av[2][4] = {{lo.x, hi.x, lo.y, hi.y}, {lo.z, hi.z, lo.w, hi.w}};
-#pragma unroll
-      for (int s = 0; s < 2; ++s) {
-        uint32_t abig[4], asmall[4], bb[NT][2], bs[NT][2];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) split_tf32(av[s][i], abig[i], asmall[i]);
-#pragma unroll
-        for (int j = 0; j < NT; ++j) {
-          split_tf32(s ? b[j].z : b[j].x, bb[j][0], bs[j][0]);
-          split_tf32(s ? b[j].w : b[j].y, bb[j][1], bs[j][1]);
-        }
-#pragma unroll
-        for (int j = 0; j < NT; ++j) mma_tf32(s1[j], asmall, bb[j][0], bb[j][1]);
-#pragma unroll
-        for (int j = 0; j < NT; ++j) mma_tf32(s2[j], abig, bs[j][0], bs[j][1]);
-#pragma unroll
-        for (int j = 0; j < NT; ++j) mma_tf32(acc[j], abig, bb[j][0], bb[j][1]);
-      }
-    }
-  }
-  if constexpr (!BF16) {
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[j][i] += s1[j][i] + s2[j][i];
+}
+template <bool BF16, int NC, int NB>
+__device__ __forceinline__ void convert_a(uint8_t* st, int tid) {
+  using G = Gemm<BF16, NC, NB>;
+  const int wg = tid >> 7, lt = tid & 127;
+  uint8_t* op = st + G::kRawA + G::kRawB;
+  if constexpr (BF16) {
+    to_bf16(st, op, wg * 512 + lt, wg * 512 + 512, 128);
+  } else {
+    float4* raw = reinterpret_cast<float4*>(st);
+    split_tf32(raw, raw, reinterpret_cast<float4*>(op), wg * 512 + lt, wg * 512 + 512, 128);
   }
 }
 
-// warp_mma_n for this warp's tile count; A and B are zero past the data.
-template <bool BF16, bool KMajorB>
-__device__ __forceinline__ void warp_mma(float (&acc)[kNtMax][4], const Split& sp, const float* A,
-                                         int sa, const float* B, int sb, int kc) {
-  switch (sp.nt) {
-    case 4: warp_mma_n<BF16, KMajorB, 4>(acc, sp, A, sa, B, sb, kc); break;
-    case 3: warp_mma_n<BF16, KMajorB, 3>(acc, sp, A, sa, B, sb, kc); break;
-    case 2: warp_mma_n<BF16, KMajorB, 2>(acc, sp, A, sa, B, sb, kc); break;
-    case 1: warp_mma_n<BF16, KMajorB, 1>(acc, sp, A, sa, B, sb, kc); break;
-    default: break;
+// Warpgroup wg's products of one stage into acc (64 x BN).
+template <bool BF16, int NC, int NB>
+__device__ __forceinline__ void stage_products(float (&acc)[NB * 32], uint32_t st, int wg) {
+  using G = Gemm<BF16, NC, NB>;
+  const uint32_t op = st + G::kRawA + G::kRawB;
+  if constexpr (BF16) {
+    const uint32_t a = op + wg * 4096, b = op + G::kOpA;
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      wgmma_ss<true, G::BN>(acc, smem_desc(a + 32 * kk, 64), smem_desc(b + 32 * kk, 64));
+    }
+  } else {
+    const uint32_t ahi = st + wg * 8192, bhi = st + G::kRawA;
+    const uint32_t alo = op + wg * 8192, blo = op + G::kOpA;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint32_t o = 32 * kk;
+      wgmma_ss<false, G::BN>(acc, smem_desc(alo + o, 128), smem_desc(bhi + o, 128));
+      wgmma_ss<false, G::BN>(acc, smem_desc(ahi + o, 128), smem_desc(blo + o, 128));
+      wgmma_ss<false, G::BN>(acc, smem_desc(ahi + o, 128), smem_desc(bhi + o, 128));
+    }
   }
 }
 
-// Adds the other k-groups' accumulators to k-group 0's, in k-group order (so
-// the result does not depend on timing). Every thread calls it; returns true
-// in the warps that then hold the result.
-__device__ bool reduce_k(float (&acc)[kNtMax][4], const Split& sp, float* red) {
-  if (sp.kg == 1) return true;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (sp.kgi > 0) {
-#pragma unroll
-    for (int j = 0; j < kNtMax; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) red[((warp * kNtMax + j) * 4 + i) * 32 + lane] = acc[j][i];
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+
+// ---- the GEMM grids: out = act(A W^T + bias) ----------------------------------------------
+// QKV and FF1 (act: none, or the layer's), and the products of out-proj and FF2
+// (none), whose LayerNorm runs in the next grid. A cluster of ck blocks per
+// BM-row tile (grid x) and BN-column tile (grid y): block `rank` computes the
+// tile over K in [rank kl, rank kl + kl). With one block a cluster the epilogue
+// works from the accumulators. Otherwise block `rank` owns rows [rank per,
+// rank per + per) of the tile: every block stores its partial of those rows
+// straight into the owner's receive buffer (distributed shared memory,
+// [ck][per][BN + 4]; beside the stage ring, or over it behind one more cluster
+// barrier where that lets more blocks share an SM, as the plan says); after
+// one cluster barrier each owner sums the ck partials of its rows in rank order
+// from its own shared memory and adds bias and activation.
+//
+// Pipeline: the producer warp's first thread issues the W (weight) tiles of
+// the first `stages` stages, then waits for the grids before
+// (griddepcontrol.wait) and issues the A tiles, then refills each stage as the
+// consumers release it. The consumers split or round the weight tiles of
+// those stages before they wait for the grids before (so at B = 1 that work
+// overlaps the previous grid), then for each stage convert its A tile (and its
+// W tile, past the first `stages`) and run its products while the previous
+// stage's are still in flight (wgmma.wait_group 1); a stage is released once
+// its products are done.
+template <bool BF16, int NC, int NB>
+__global__ void __launch_bounds__(Gemm<BF16, NC, NB>::kThreads, 1)
+encoder_layer_gemm(const __grid_constant__ CUtensorMap amap, const __grid_constant__ CUtensorMap wmap,
+                   const float* __restrict__ bias, float* __restrict__ out, int M, int N, int K,
+                   int kl, int act, int stages, int overlay, int grid) {
+  using G = Gemm<BF16, NC, NB>;
+  extern __shared__ uint8_t smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int csize = static_cast<int>(cluster.num_blocks());
+  const int tid = threadIdx.x;
+  const int m0 = (blockIdx.x / csize) * G::BM;
+  const int n0 = blockIdx.y * G::BN, k0 = rank * kl;
+  const int nk = max(0, cdiv(min(K, k0 + kl) - k0, kKc)), pre = min(stages, nk);
+  // the rows a block owns, and the row stride of its receive buffer (floats)
+  const int per = cdiv(G::BM, csize), rs = G::BN + 4;
+  uint8_t* ring = align1024(smem);
+  // the receive buffer (split blocks) beside the ring or over it
+  const size_t ring_bytes = static_cast<size_t>(stages) * G::kStage;
+  const size_t recv_bytes = csize > 1 ? 4 * static_cast<size_t>(csize) * per * rs : 0;
+  float* recv = reinterpret_cast<float*>(overlay ? ring : ring + ring_bytes);
+  uint64_t* full_a = reinterpret_cast<uint64_t*>(
+      ring + (overlay ? (ring_bytes > recv_bytes ? ring_bytes : recv_bytes)
+                      : ring_bytes + recv_bytes));
+  uint64_t* full_w = full_a + stages;
+  uint64_t* empty = full_w + stages;
+  mark(grid, 0);
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full_a[s], 1);
+      mbar_init(&full_w[s], 1);
+      mbar_init(&empty[s], NC);
+    }
+    mbar_init_fence();
   }
   __syncthreads();
-  if (sp.kgi == 0) {
-    for (int q = 1; q < sp.kg; ++q) {
-      const int w = warp + q * sp.ng;
+
+  float acc[NB * 32];
 #pragma unroll
-      for (int j = 0; j < kNtMax; ++j)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[j][i] += red[((w * kNtMax + j) * 4 + i) * 32 + lane];
-    }
-  }
-  __syncthreads();
-  return sp.kgi == 0;
-}
-
-// Calls f(row, col, value) for each accumulator value of this warp's tiles (row < 16).
-template <typename Fn>
-__device__ __forceinline__ void for_each_acc(const float (&acc)[kNtMax][4], const Split& sp,
-                                             Fn f) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int j = 0; j < kNtMax; ++j) {
-    if (j < sp.nt) {
-      const int n = sp.ngi + sp.ng * j;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) f(g + 8 * (i >> 1), n * 8 + 2 * t + (i & 1), acc[j][i]);
-    }
-  }
-}
-
-// ---- copies into shared memory ------------------------------------------------------
-
-// Rows [r0, r0 + nrows) of src (row stride ld) into dst (stride sd), columns
-// [0, kfill): zero past `rows` rows and past K columns. Issues the copies only.
-__device__ void issue_rows(float* dst, int sd, const float* src, size_t ld, int r0, int rows,
-                           int nrows, int K, int kfill) {
-  const int q = kfill / 4;
-  for (int i = threadIdx.x; i < nrows * q; i += kThreads) {
-    const int r = i / q, k = (i % q) * 4;
-    const bool ok = r0 + r < rows && k < K;
-    cp_async16(dst + r * sd + k, ok ? src + (r0 + r) * ld + k : src, ok);
-  }
-}
-
-// n (a multiple of 4) floats of src into dst. Issues the copies only.
-__device__ void issue_vec(float* dst, const float* src, int n) {
-  for (int i = 4 * threadIdx.x; i < n; i += 4 * kThreads) cp_async16(dst + i, src + i, true);
-}
-
-// ---- weight panels: packed in shared memory, or streamed through a ring ---------
-// A panel is `rows` (<= kPanelRows) weight rows of `k` k-contiguous values;
-// its chunk c is k-columns [64c, 64c + 64) of all its rows.
-struct Panel {
-  const float* w;  // row 0, column 0
-  int ld;          // row stride of w, floats
-  int rows;
-  int k;
-  __device__ int ntiles() const { return (rows + 7) / 8; }
-  __device__ int chunks() const { return (k + kKc - 1) / kKc; }
-};
-
-// `rows` weight rows (row stride ld) of k values, cut into panels of kPanelRows.
-struct Series {
-  const float* w;
-  int ld, rows, k;
-  __device__ int panels() const { return (rows + kPanelRows - 1) / kPanelRows; }
-  __device__ int chunks() const { return panels() * ((k + kKc - 1) / kKc); }
-  // floats of shared memory one chunk takes
-  __device__ int chunk_floats() const { return round_up(min(rows, kPanelRows), 8) * kStageStride; }
-  __device__ Panel panel(int i) const {
-    return Panel{w + static_cast<size_t>(i) * kPanelRows * ld, ld,
-                 min(kPanelRows, rows - i * kPanelRows), k};
-  }
-};
-
-// The weight chunks of a grid, in the order its products use them (the panels
-// of one or two series; chunk g). With stages == 0 every chunk has a place of
-// its own in shared memory and all are issued before griddepcontrol.wait;
-// otherwise they stream through a ring of `stages` stages (chunk g in stage
-// g % stages), stages - 1 ahead. Every chunk is one commit group, issued in
-// order.
-struct Stream {
-  Series s[2];
-  int ns, n0, total, stages;
-  float* base;
-  bool landed;  // every chunk has been issued and has landed (block-uniform)
-
-  __device__ Stream(Series a, Series b, int ns_, float* base_, int stages_)
-      : s{a, b}, ns(ns_), n0(a.chunks()), stages(stages_), base(base_), landed(false) {
-    total = n0 + (ns > 1 ? b.chunks() : 0);
-  }
-  // chunks issued before the products start
-  __device__ int ahead() const { return stages ? stages - 1 : total; }
-  __device__ float* place(int g) const {
-    if (stages) return base + (g % stages) * max(s[0].chunk_floats(), s[1].chunk_floats());
-    return base + (g < n0 ? g * s[0].chunk_floats()
-                          : n0 * s[0].chunk_floats() + (g - n0) * s[1].chunk_floats());
-  }
-  // Issues chunk g (one commit group, empty past the last chunk).
-  __device__ void issue(int g) const {
-    if (g < total) {
-      const bool first = g < n0;
-      const Series& se = first ? s[0] : s[1];
-      const int gi = first ? g : g - n0;
-      const int per = (se.k + kKc - 1) / kKc;
-      const Panel p = se.panel(gi / per);
-      const int k0 = (gi % per) * kKc, nrows = p.ntiles() * 8;
-      float* st = place(g);
-      for (int i = threadIdx.x; i < nrows * (kKc / 4); i += kThreads) {
-        const int r = i / (kKc / 4), kk = (i % (kKc / 4)) * 4;
-        const bool ok = r < p.rows && k0 + kk < p.k;
-        cp_async16(st + r * kStageStride + kk,
-                   ok ? p.w + static_cast<size_t>(r) * p.ld + k0 + kk : p.w, ok);
+  for (int i = 0; i < NB * 32; ++i) acc[i] = 0.0f;
+  fence_regs(acc);
+  if (tid >= G::kConsumers) {  // the producer warp
+    if (tid == G::kConsumers) {
+      prefetch_map(&amap);
+      for (int c = 0; c < pre; ++c) {
+        mbar_expect_tx(&full_w[c], G::kRawB);
+        tma_load_2d(ring + c * G::kStage + G::kRawA, &wmap, &full_w[c], k0 + kKc * c, n0);
+      }
+      grid_dependency_wait();
+      for (int c = 0; c < pre; ++c) {
+        mbar_expect_tx(&full_a[c], G::kRawA);
+        tma_load_2d(ring + c * G::kStage, &amap, &full_a[c], k0 + kKc * c, m0);
+      }
+      for (int c = pre; c < nk; ++c) {
+        const int s = c % stages;
+        uint8_t* st = ring + s * G::kStage;
+        mbar_wait(&empty[s], (c / stages - 1) & 1);
+        mbar_expect_tx(&full_w[s], G::kRawB);
+        tma_load_2d(st + G::kRawA, &wmap, &full_w[s], k0 + kKc * c, n0);
+        mbar_expect_tx(&full_a[s], G::kRawA);
+        tma_load_2d(st, &amap, &full_a[s], k0 + kKc * c, m0);
       }
     }
-    cp_async_commit();
+    __syncwarp();
+  } else {
+    for (int c = 0; c < pre; ++c) {  // weights only: before the wait
+      mbar_wait(&full_w[c], 0);
+      convert_w<BF16, NC, NB>(ring + c * G::kStage, tid);
+    }
+    grid_dependency_wait();  // nothing this grid writes may be read by the grids before
+    launch_dependents();
+    mark(grid, 1);
+    const int wg = tid >> 7, lt = tid & 127;
+    for (int c = 0; c < nk; ++c) {
+      const int s = c % stages;
+      uint8_t* st = ring + s * G::kStage;
+      if (c >= pre) {
+        mbar_wait(&full_w[s], (c / stages) & 1);
+        convert_w<BF16, NC, NB>(st, tid);
+      }
+      mbar_wait(&full_a[s], (c / stages) & 1);
+      __syncwarp();
+      if (c == 0) mark(grid, 2);
+      convert_a<BF16, NC, NB>(st, tid);
+      fence_proxy_async();
+      consumer_sync(G::kConsumers);
+      fence_regs(acc);
+      wgmma_fence();
+      stage_products<BF16, NC, NB>(acc, smem_u32(st), wg);
+      wgmma_commit();
+      wgmma_wait<1>();  // the previous stage's products are done
+      fence_regs(acc);
+      if (c > 0 && lt == 0) mbar_arrive(&empty[(c - 1) % stages]);
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
   }
-  // Issued before griddepcontrol.wait: the weights do not depend on the previous grid.
-  __device__ void prefetch() const {
-    for (int g = 0; g < ahead(); ++g) issue(g);
-  }
-};
-
-// acc += A[16 x p.k] . p^T for panel p, whose first chunk is chunk g0 of the
-// stream; A in shared memory (stride sa, zero past p.k up to the chunk edge).
-// While chunks remain to be issued, each chunk waits for its copies and a
-// block barrier, which also frees the stage the next issue refills; once the
-// last chunk has been issued, one wait for all and one barrier serve the rest.
-template <bool BF16>
-__device__ void panel_mma(float (&acc)[kNtMax][4], const Split& sp, const float* A, int sa,
-                          Stream& st, int g0, const Panel& p) {
-  const int nk = p.chunks();
-  for (int c = 0; c < nk; ++c) {
-    const int g = g0 + c;
-    if (!st.landed) {
-      if (g + st.ahead() >= st.total) {
-        cp_async_wait<0>();
-        __syncthreads();
-        st.landed = true;
-      } else {
-        cp_async_wait_pending(st.ahead() - 1);  // chunk g has landed (this thread's copies)
-        __syncthreads();                        // ... everyone's; stage (g-1) % stages is free
-        st.issue(g + st.ahead());
+  // accumulator i of a warpgroup: row 16 warp + g + 8 ((i >> 1) & 1), column 8 (i >> 2) + 2 q + (i & 1)
+  const int lane = tid & 31, g = lane >> 2, q = lane & 3;
+  const int rbase = 64 * (tid >> 7) + 16 * ((tid >> 5) & 3) + g;
+  if (csize == 1) {
+    if (tid >= G::kConsumers) return;
+    mark(grid, 3);
+#pragma unroll
+    for (int i = 0; i < NB * 32; i += 2) {
+      const int row = m0 + rbase + 8 * ((i >> 1) & 1), col = n0 + 8 * (i >> 2) + 2 * q;
+      if (row < M && col < N) {
+        const float2 v = make_float2(activate(acc[i] + bias[col], act),
+                                     activate(acc[i + 1] + bias[col + 1], act));
+        *reinterpret_cast<float2*>(out + static_cast<size_t>(row) * N + col) = v;
       }
     }
-    warp_mma<BF16, false>(acc, sp, A + c * kKc, sa, st.place(g), kStageStride, kKc);
+    mark(grid, 4);
+    return;
   }
+  if (overlay) {  // every block of the cluster is done with its ring
+    __syncwarp();
+    cluster_arrive();
+    cluster_wait();
+  }
+  if (tid < G::kConsumers) {  // this block's partial into its rows' owners
+    const uint32_t dst = smem_u32(recv) + 4 * rank * per * rs;
+#pragma unroll
+    for (int i = 0; i < NB * 32; i += 2) {
+      const int row = rbase + 8 * ((i >> 1) & 1), col = 8 * (i >> 2) + 2 * q;
+      const int owner = row / per;
+      st_cluster2(map_rank(dst + 4 * ((row - owner * per) * rs + col), owner), acc[i],
+                  acc[i + 1]);
+    }
+  }
+  __syncwarp();
+  cluster_arrive();
+  cluster_wait();  // every block's partials have landed
+  mark(grid, 3);
+  if (tid < G::kConsumers) {
+    const int r0 = rank * per, r1 = min(G::BM, r0 + per);
+    constexpr int q4 = G::BN / 4;
+#pragma unroll 4
+    for (int i = tid; i < (r1 - r0) * q4; i += G::kConsumers) {
+      const int r = r0 + i / q4, cc = 4 * (i % q4), m = m0 + r, col = n0 + cc;
+      if (m >= M || col >= N) continue;
+      const float* in = recv + (r - r0) * rs + cc;
+      float4 s = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+      for (int k = 0; k < kMaxCluster; ++k) {
+        if (k < csize) s = add4(s, ld4(in + k * per * rs));
+      }
+      const float4 b = ld4(bias + col);
+      *reinterpret_cast<float4*>(out + static_cast<size_t>(m) * N + col) =
+          make_float4(activate(s.x + b.x, act), activate(s.y + b.y, act),
+                      activate(s.z + b.z, act), activate(s.w + b.w, act));
+    }
+  }
+  mark(grid, 4);
 }
 
-// LayerNorm of one row of D values, by one warp: fetch(c) gives the pre-norm
-// float4 at column c (c % 4 == 0), emit(c, v) takes the normalised one. Two
-// passes over the row in registers (the mean, then the squared deviations).
-template <typename Fetch, typename Emit>
-__device__ __forceinline__ void warp_layernorm(Fetch fetch, Emit emit, const float* gamma,
-                                               const float* beta, int D, float eps) {
-  const int lane = threadIdx.x & 31;
-  float4 v[kMaxVec];
+// ---- the LayerNorm grids: out = LN(resid + s) ----------------------------------------------
+// After the out-proj and FF2 GEMM grids (s = A W^T + bias), one warp a row adds
+// the residual and normalises, two passes over the row in registers (the mean,
+// then the squared deviations); D <= 128 V. A grid of its own rather than the
+// epilogue of a GEMM cluster that holds whole rows: at a few dozen rows such
+// clusters (at most 8 blocks a row tile) leave most SMs idle, and at every
+// shape timed this grid plus a plain GEMM grid took less.
+template <int V>
+__global__ void __launch_bounds__(128)
+encoder_layer_norm(const float* __restrict__ s, const float* __restrict__ resid,
+                   const float* __restrict__ gamma, const float* __restrict__ beta,
+                   float* __restrict__ out, int M, int D, float eps) {
+  const int r = blockIdx.x * 4 + (threadIdx.x >> 5), lane = threadIdx.x & 31;
+  grid_dependency_wait();
+  launch_dependents();
+  if (r >= M) return;  // a whole warp
+  const size_t base = static_cast<size_t>(r) * D;
+  float4 v[V];
+  float sum = 0.0f;
 #pragma unroll
-  for (int i = 0; i < kMaxVec; ++i) {
+  for (int i = 0; i < V; ++i) {
     const int c = 4 * lane + 128 * i;
-    if (c < D) v[i] = fetch(c);
+    if (c < D) v[i] = add4(ld4(s + base + c), ld4(resid + base + c));
   }
-  float s = 0.0f;
 #pragma unroll
-  for (int i = 0; i < kMaxVec; ++i) {
-    if (4 * lane + 128 * i < D) s += (v[i].x + v[i].y) + (v[i].z + v[i].w);
+  for (int i = 0; i < V; ++i) {
+    if (4 * lane + 128 * i < D) sum += (v[i].x + v[i].y) + (v[i].z + v[i].w);
   }
-  const float mean = warp_sum(s) / D;
-  float q = 0.0f;
+  const float mean = warp_sum(sum) / D;
+  float sq = 0.0f;
 #pragma unroll
-  for (int i = 0; i < kMaxVec; ++i) {
+  for (int i = 0; i < V; ++i) {
     if (4 * lane + 128 * i < D) {
       const float a = v[i].x - mean, b = v[i].y - mean, c = v[i].z - mean, d = v[i].w - mean;
-      q += (a * a + b * b) + (c * c + d * d);
+      sq += (a * a + b * b) + (c * c + d * d);
     }
   }
-  const float inv = 1.0f / sqrtf(warp_sum(q) / D + eps);
+  const float inv = 1.0f / sqrtf(warp_sum(sq) / D + eps);
 #pragma unroll
-  for (int i = 0; i < kMaxVec; ++i) {
+  for (int i = 0; i < V; ++i) {
     const int c = 4 * lane + 128 * i;
     if (c < D) {
       const float4 ga = ld4(gamma + c), be = ld4(beta + c);
-      emit(c, make_float4((v[i].x - mean) * inv * ga.x + be.x, (v[i].y - mean) * inv * ga.y + be.y,
-                          (v[i].z - mean) * inv * ga.z + be.z, (v[i].w - mean) * inv * ga.w + be.w));
+      *reinterpret_cast<float4*>(out + base + c) =
+          make_float4((v[i].x - mean) * inv * ga.x + be.x, (v[i].y - mean) * inv * ga.y + be.y,
+                      (v[i].z - mean) * inv * ga.z + be.z, (v[i].w - mean) * inv * ga.w + be.w);
     }
   }
 }
 
-// ---- grid 1: qkv = x Win^T + bin -------------------------------------------------
-template <bool BF16>
-__global__ void __launch_bounds__(kThreads)
-encoder_layer_qkv(const float* __restrict__ x, const float* __restrict__ w_in,
-                  const float* __restrict__ b_in, float* __restrict__ qkv, int M, int D,
-                  int stages) {
-  extern __shared__ __align__(16) float smem[];
-  const int N = 3 * D, n0 = blockIdx.x * kQkvCols, m0 = blockIdx.y * kRows;
-  const int ncols = min(kQkvCols, N - n0), sa = kstride(D);
-  float* xs = smem;                // [16][sa]  x rows
-  float* bias = xs + kRows * sa;   // [64]
-  float* red = bias + kQkvCols;    // k-group partials
-  float* ring = red + kRedFloats;  // the weight chunks
-  const Series w{w_in + static_cast<size_t>(n0) * D, D, ncols, D};
-  Stream st(w, w, 1, ring, stages);
-  mark(0, 0);
-  issue_vec(bias, b_in + n0, ncols);
-  st.prefetch();
-  grid_dependency_wait();
-  mark(0, 1);
-  launch_dependents();
-  issue_rows(xs, sa, x, D, m0, M, kRows, D, round_up(D, kKc));
-  cp_async_wait_all();
-  mark(0, 2);
-  const Panel p = w.panel(0);
-  const Split sp(p.ntiles(), kKc / 16);
-  float acc[kNtMax][4] = {};
-  panel_mma<BF16>(acc, sp, xs, sa, st, 0, p);
-  mark(0, 3);
-  if (reduce_k(acc, sp, red)) {
-    for_each_acc(acc, sp, [&](int r, int c, float v) {
-      if (m0 + r < M && c < ncols) qkv[static_cast<size_t>(m0 + r) * N + n0 + c] = v + bias[c];
-    });
-  }
-  mark(0, 4);
+// ---- grid 2: attention of one (batch, head, 64 queries) --------------------------------
+// NB = ceil(head dim / 64) n64 blocks of O; keys stream in tiles of KT, tile i
+// to consumer warpgroup i % NW (NW = 2 where the grid leaves most SMs idle:
+// each warpgroup keeps its own running max, sum and O over half the tiles, and
+// the two are merged at the end, in a fixed order). Shared memory (hc =
+// ceil(hd / 32) chunks of 32 head columns): Q raw / big [hc][64][128 B] and Q
+// small or bf16; then for each warpgroup nraw (1 or 2) TMA buffers of a K tile
+// and a V tile [hc][KT][128 B] each, the converted K (big and small, or bf16)
+// and V^T (rows = head columns, 64 NB of them; big and small, or bf16).
+template <bool BF16, int NB>
+struct Attn {
+  static constexpr int KT = NB == 1 ? 64 : NB == 2 ? 32 : 16;  // keys a tile
+  static constexpr int kElem = BF16 ? 2 : 4;
+  static constexpr int kVRows = 64 * NB;
+  static constexpr int kVW = KT * kElem < 128 ? KT * kElem : 128;  // bytes a V^T swizzle row
+  static constexpr int kVChunk = kVRows * kVW;                     // bytes of one such column of atoms
+  static constexpr int kVBytes = kVRows * KT * kElem;              // one V^T operand
+};
+
+// The k place of key j (of a tile) in the tf32 V^T: within each group of 8
+// keys, key 2u at place u and key 2u + 1 at place u + 4, so that the score
+// accumulator (a thread's columns 2q, 2q + 1 of each 8) is the A fragment of
+// P V as it stands (a thread's k columns q and q + 4). The bf16 V^T keeps the
+// keys in order: the accumulator of two n8 tiles is already the k16 A fragment.
+__device__ __forceinline__ int key_place_tf32(int j) {
+  return (j & ~7) | ((j & 1) << 2) | ((j & 7) >> 1);
 }
 
-// ---- grid 2: attention of one (batch, head, 16-query tile) -----------------------
-template <bool BF16>
-__global__ void __launch_bounds__(kThreads)
-encoder_layer_attention(const float* __restrict__ qkv, float* __restrict__ out, int T, int D,
-                        int H, float scale) {
-  extern __shared__ __align__(16) float smem[];
-  const int hd = D / H, b = blockIdx.x / H, h = blockIdx.x % H, q0 = blockIdx.y * kRows;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int tk = round_up(T, 16);   // keys, padded to the P V k-step
-  const int hk = round_up(hd, 16);  // head columns, padded to the Q K^T k-step
-  const int hn = round_up(hd, 8);   // head columns as P V n-tiles
-  const int sq = kstride(hd), sv = vstride(hd), sp_ = kstride(T);
-  float* qs = smem;             // [16][sq]  Q tile
-  float* ks = qs + kRows * sq;  // [tk][sq]  K
-  float* vs = ks + tk * sq;     // [tk][sv]  V
-  float* ps = vs + tk * sv;     // [16][sp_] scores, then probabilities
-  mark(1, 0);
-  grid_dependency_wait();
-  mark(1, 1);
-  launch_dependents();
-  const size_t ld = 3 * static_cast<size_t>(D);
-  const float* base = qkv + static_cast<size_t>(b) * T * ld + h * hd;
-  issue_rows(qs, sq, base, ld, q0, T, kRows, hd, hk);
-  issue_rows(ks, sq, base + D, ld, 0, T, tk, hd, hk);
-  issue_rows(vs, sv, base + 2 * D, ld, 0, T, tk, hd, hn);
-  cp_async_wait_all();
-  mark(1, 2);
-
-  // S = (Q K^T) * scale over the padded keys; each warp owns its tiles
-  for (int n0 = 0; n0 < tk / 8; n0 += kWarps * kNtMax) {
-    const Split sp(min(tk / 8 - n0, kWarps * kNtMax), 1);
-    float acc[kNtMax][4] = {};
-    warp_mma<BF16, false>(acc, sp, qs, sq, ks + n0 * 8 * sq, sq, hk);
-    for_each_acc(acc, sp, [&](int r, int c, float v) { ps[r * sp_ + n0 * 8 + c] = v * scale; });
-  }
-  __syncthreads();
-  mark(1, 3);
-
-  // softmax over the T valid keys; the padded keys get probability 0
-  for (int r = warp; r < kRows; r += kWarps) {
-    float* row = ps + r * sp_;
-    float m = -FLT_MAX;
-    for (int j = lane; j < T; j += 32) m = fmaxf(m, row[j]);
-    m = warp_max(m);
-    float sum = 0.0f;
-    for (int j = lane; j < T; j += 32) {
-      const float e = expf(row[j] - m);
-      row[j] = e;
-      sum += e;
-    }
-    const float inv = 1.0f / warp_sum(sum);
-    for (int j = lane; j < T; j += 32) row[j] *= inv;
-    for (int j = T + lane; j < tk; j += 32) row[j] = 0.0f;
-  }
-  __syncthreads();
-  mark(1, 4);
-
-  // O = P V, V read k-major
-  for (int n0 = 0; n0 < hn / 8; n0 += kWarps * kNtMax) {
-    const Split sp(min(hn / 8 - n0, kWarps * kNtMax), 1);
-    float acc[kNtMax][4] = {};
-    warp_mma<BF16, true>(acc, sp, ps, sp_, vs + n0 * 8, sv, tk);
-    for_each_acc(acc, sp, [&](int r, int c, float v) {
-      c += n0 * 8;
-      if (q0 + r < T && c < hd) out[(static_cast<size_t>(b) * T + q0 + r) * D + h * hd + c] = v;
-    });
-  }
-  mark(1, 5);
-}
-
-// ---- grid 2, key tiles: the same attention with keys and values in tiles ---------
-// For rows of keys that do not fit in shared memory whole (T = 197 at head dim
-// 128, T > 336 at head dim 64): one block per (batch, head, 16 queries), as
-// above, streams K and V through shared memory `kt` keys at a time (kt = 64,
-// or 32 / 16 at head dims whose 64-key tiles do not fit) and keeps a running
-// maximum m and sum l per query row (online softmax). Per tile: S = (Q K^T) *
-// scale; m' = max(m, max S); p = exp(S - m'), 0 on the padded keys; l = l
-// exp(m - m') + sum p; O = O exp(m - m') + p V, O in f32 shared memory (each
-// value owned by one thread). At the end out = O / l. The probabilities enter
-// P V unnormalised (rounded to bf16 in the mxu_bf16 mode), so the result
-// differs from the whole-row grid by rounding only. Shared memory depends on
-// kt and the head dim, not on T. Every sum runs in a fixed order: no atomics,
-// bitwise-equal repeats.
-template <bool BF16>
-__global__ void __launch_bounds__(kThreads)
-encoder_layer_attention_tiled(const float* __restrict__ qkv, float* __restrict__ out, int T,
-                              int D, int H, float scale, int kt) {
-  extern __shared__ __align__(16) float smem[];
-  const int hd = D / H, b = blockIdx.x / H, h = blockIdx.x % H, q0 = blockIdx.y * kRows;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int hk = round_up(hd, 16), hn = round_up(hd, 8);
-  const int sq = kstride(hd), sv = vstride(hd), sp_ = kstride(kt);
-  float* qs = smem;             // [16][sq]  Q tile
-  float* ks = qs + kRows * sq;  // [kt][sq]  K tile
-  float* vs = ks + kt * sq;     // [kt][sv]  V tile
-  float* ps = vs + kt * sv;     // [16][sp_] scores, then unnormalised probabilities
-  float* os = ps + kRows * sp_; // [16][hn]  O, the running P V
-  float* ms = os + kRows * hn;  // [16]      running maximum
-  float* ls = ms + kRows;       // [16]      running sum
-  float* cs = ls + kRows;       // [16]      this tile's correction exp(m - m')
-  mark(1, 0);
-  grid_dependency_wait();
-  mark(1, 1);
-  launch_dependents();
-  const size_t ld = 3 * static_cast<size_t>(D);
-  const float* base = qkv + static_cast<size_t>(b) * T * ld + h * hd;
-  issue_rows(qs, sq, base, ld, q0, T, kRows, hd, hk);
-  for (int i = threadIdx.x; i < kRows * hn; i += kThreads) os[i] = 0.0f;
-  if (threadIdx.x < kRows) {
-    ms[threadIdx.x] = -FLT_MAX;
-    ls[threadIdx.x] = 0.0f;
-  }
-  for (int k0 = 0; k0 < T; k0 += kt) {
-    const int nk = min(kt, T - k0);  // valid keys of this tile
-    issue_rows(ks, sq, base + D, ld, k0, T, kt, hd, hk);
-    issue_rows(vs, sv, base + 2 * D, ld, k0, T, kt, hd, hn);
-    cp_async_wait_all();
-    // S = (Q K^T) * scale over the tile's kt keys
-    {
-      const Split sp(kt / 8, 1);
-      float acc[kNtMax][4] = {};
-      warp_mma<BF16, false>(acc, sp, qs, sq, ks, sq, hk);
-      for_each_acc(acc, sp, [&](int r, int c, float v) { ps[r * sp_ + c] = v * scale; });
-    }
-    __syncthreads();
-    // running maximum and sum; the padded keys get probability 0
-    for (int r = warp; r < kRows; r += kWarps) {
-      float* row = ps + r * sp_;
-      float mt = -FLT_MAX;
-      for (int j = lane; j < nk; j += 32) mt = fmaxf(mt, row[j]);
-      const float m_old = ms[r], m_new = fmaxf(m_old, warp_max(mt));
-      float sum = 0.0f;
-      for (int j = lane; j < kt; j += 32) {
-        const float e = j < nk ? expf(row[j] - m_new) : 0.0f;
-        row[j] = e;
-        sum += e;
-      }
-      sum = warp_sum(sum);
-      __syncwarp();
-      if (lane == 0) {
-        const float corr = expf(m_old - m_new);
-        cs[r] = corr;
-        ls[r] = ls[r] * corr + sum;
-        ms[r] = m_new;
-      }
-    }
-    __syncthreads();
-    // O = O * corr + P V, V read k-major; each O value has one owner
-    for (int n0 = 0; n0 < hn / 8; n0 += kWarps * kNtMax) {
-      const Split sp(min(hn / 8 - n0, kWarps * kNtMax), 1);
-      float acc[kNtMax][4] = {};
-      warp_mma<BF16, true>(acc, sp, ps, sp_, vs + n0 * 8, sv, kt);
-      for_each_acc(acc, sp, [&](int r, int c, float v) {
-        float* o = os + r * hn + n0 * 8 + c;
-        *o = *o * cs[r] + v;
-      });
-    }
-    __syncthreads();  // K, V and P are free for the next tile
-  }
-  mark(1, 2);
-  for (int i = threadIdx.x; i < kRows * hd; i += kThreads) {
-    const int r = i / hd, c = i % hd;
-    if (q0 + r < T) out[(static_cast<size_t>(b) * T + q0 + r) * D + h * hd + c] = os[r * hn + c] / ls[r];
-  }
-  mark(1, 5);
-}
-
-// ---- grid 3: y = LN1(x + a Wout^T + bout), h = act(y W1^T + b1) -----------------
-// One cluster per 16 rows. Block `rank` computes columns [rank db, rank db + db)
-// of the pre-norm rows; after one cluster barrier every block normalises all
-// 16 rows, read from the cluster through distributed shared memory, into the
-// A operand of its slice of linear1: hidden columns [rank fb, rank fb + fb).
-// Block `rank` writes y's rows 2 rank, 2 rank + 1 (grid 4's residual) and its
-// hidden columns of h.
-template <bool BF16>
-__global__ void __launch_bounds__(kThreads)
-encoder_layer_out_ff1(const float* __restrict__ attn, const float* __restrict__ w_out,
-                      const float* __restrict__ b_out, const float* __restrict__ x,
-                      const float* __restrict__ gamma, const float* __restrict__ beta,
-                      const float* __restrict__ w1, const float* __restrict__ b1,
-                      float* __restrict__ y, float* __restrict__ hid, int M, int D, int F,
-                      int act, float eps, int stages) {
-  extern __shared__ __align__(16) float smem[];
-  cg::cluster_group cluster = cg::this_cluster();
-  const int rank = static_cast<int>(cluster.block_rank());
-  const int warp = threadIdx.x >> 5;
-  const int m0 = (blockIdx.x / kCluster) * kRows;
-  const int db = slice(D), c0 = rank * db, nc = max(0, min(db, D - c0));
-  const int fb = slice(F), f0 = rank * fb, nf = max(0, min(fb, F - f0));
-  const int sa = kstride(D);
-  float* as = smem;             // [16][sa]  attention rows, then y rows (linear1's A)
-  float* vs = as + kRows * sa;  // [16][db]  x, then the pre-norm rows (this block's columns)
-  float* bo = vs + kRows * db;  // [db]      bout (this block's columns)
-  float* gb = bo + db;          // [2][D]    gamma, beta
-  float* b1s = gb + 2 * D;      // [fb]      b1 (this block's hidden columns)
-  float* wbuf = b1s + fb;       // the weight chunks
-  const Series wo{w_out + static_cast<size_t>(c0) * D, D, nc, D};  // this block's Wout rows
-  const Series wf{w1 + static_cast<size_t>(f0) * D, D, nf, D};     // its W1 rows
-  Stream st(wo, wf, 2, wbuf, stages);
-  mark(2, 0);
-  issue_vec(bo, b_out + c0, nc);
-  issue_vec(gb, gamma, D);
-  issue_vec(gb + D, beta, D);
-  issue_vec(b1s, b1 + f0, nf);
-  st.prefetch();
-  grid_dependency_wait();
-  mark(2, 1);
-  launch_dependents();
-  issue_rows(as, sa, attn, D, m0, M, kRows, D, round_up(D, kKc));
-  issue_rows(vs, db, x + c0, D, m0, M, kRows, nc, nc);
-  cp_async_wait_all();
-  mark(2, 2);
-  if (nc > 0) {
-    const Panel p = wo.panel(0);
-    const Split sp(p.ntiles(), 1);
-    float acc[kNtMax][4] = {};
-    panel_mma<BF16>(acc, sp, as, sa, st, 0, p);
-    for_each_acc(acc, sp, [&](int r, int c, float v) {
-      if (c < nc) vs[r * db + c] += v + bo[c];
-    });
-  }
-  cluster.sync();  // every block's columns are complete (and `as` is read)
-  mark(2, 3);
-  for (int r = warp; r < kRows; r += kWarps) {
-    const bool own = r / kRowsPerBlock == rank && m0 + r < M;
-    warp_layernorm(
-        [&](int c) {
-          const int q = c / db;
-          return ld4(cluster.map_shared_rank(vs, q) + r * db + c - q * db);
-        },
-        [&](int c, float4 v) {
-          *reinterpret_cast<float4*>(as + r * sa + c) = v;
-          if (own) *reinterpret_cast<float4*>(y + static_cast<size_t>(m0 + r) * D + c) = v;
-        },
-        gb, gb + D, D, eps);
-  }
-  cluster_arrive();  // done with the other blocks' shared memory
-  __syncthreads();   // the y rows are complete
-  mark(2, 4);
-  int g = wo.chunks();
-  for (int i = 0; i < wf.panels(); ++i) {
-    const Panel p = wf.panel(i);
-    const Split sp(p.ntiles(), 1);
-    float acc[kNtMax][4] = {};
-    panel_mma<BF16>(acc, sp, as, sa, st, g, p);
-    g += p.chunks();
-    const int h0 = i * kPanelRows;
-    for_each_acc(acc, sp, [&](int r, int c, float v) {
-      if (m0 + r < M && c < p.rows) {
-        hid[static_cast<size_t>(m0 + r) * F + f0 + h0 + c] = activate(v + b1s[h0 + c], act);
-      }
-    });
-  }
-  mark(2, 5);
-  cluster_wait();  // no block leaves while another still reads its shared memory
-}
-
-// ---- grid 4: out = LN2(y + h W2^T + b2), one cluster per 16 rows -----------------
-// Block `rank` multiplies its hidden columns of h by the same columns of W2
-// (all D rows); the partials are summed over the cluster in rank order for
-// the rows it normalises, 2 rank and 2 rank + 1.
-template <bool BF16>
-__global__ void __launch_bounds__(kThreads)
-encoder_layer_ff2_ln2(const float* __restrict__ hid, const float* __restrict__ y,
-                      const float* __restrict__ w2, const float* __restrict__ b2,
-                      const float* __restrict__ gamma, const float* __restrict__ beta,
-                      float* __restrict__ out, int M, int D, int F, float eps, int stages) {
-  extern __shared__ __align__(16) float smem[];
-  cg::cluster_group cluster = cg::this_cluster();
-  const int rank = static_cast<int>(cluster.block_rank());
-  const int warp = threadIdx.x >> 5;
-  const int m0 = (blockIdx.x / kCluster) * kRows;
-  const int fb = slice(F), f0 = rank * fb, nf = max(0, min(fb, F - f0));
-  const int sy = kstride(D), sh = kstride(fb);
-  float* hs = smem;                   // [16][sh]  h, this block's hidden columns
-  float* ps = hs + kRows * sh;        // [16][sy]  this block's partial h W2^T
-  float* yr = ps + kRows * sy;        // [2][D]    y, the rows this block normalises
-  float* pv = yr + kRowsPerBlock * D; // [3][D]    b2, gamma, beta
-  float* red = pv + 3 * D;            // k-group partials
-  float* wbuf = red + kRedFloats;     // the weight chunks
-  const Series w{w2 + f0, F, D, nf};  // this block's W2 columns, all rows
-  Stream st(w, w, 1, wbuf, stages);
-  mark(3, 0);
-  issue_vec(pv, b2, D);
-  issue_vec(pv + D, gamma, D);
-  issue_vec(pv + 2 * D, beta, D);
-  st.prefetch();
-  grid_dependency_wait();
-  mark(3, 1);
-  launch_dependents();
-  issue_rows(hs, sh, hid + f0, F, m0, M, kRows, nf, round_up(nf, kKc));
-  issue_rows(yr, D, y, D, m0 + rank * kRowsPerBlock, M, kRowsPerBlock, D, D);
-  cp_async_wait_all();
-  mark(3, 2);
-  int g = 0;
-  for (int i = 0; i < w.panels(); ++i) {
-    const Panel p = w.panel(i);
-    const Split sp(p.ntiles(), kKc / 16);
-    float acc[kNtMax][4] = {};
-    panel_mma<BF16>(acc, sp, hs, sh, st, g, p);
-    g += p.chunks();
-    if (reduce_k(acc, sp, red)) {
-      const int n0 = i * kPanelRows;
-      for_each_acc(acc, sp, [&](int r, int c, float v) {
-        if (c < p.rows) ps[r * sy + n0 + c] = v;
-      });
-    }
-  }
-  cluster.sync();  // every block's partial is complete
-  mark(3, 3);
-  if (warp < kRowsPerBlock && m0 + rank * kRowsPerBlock + warp < M) {
-    const int r = rank * kRowsPerBlock + warp;
-    warp_layernorm(
-        [&](int c) {
-          float4 s = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+// V tile (KT keys x hd, raw TMA layout) -> V^T operand(s). Each thread takes
+// keys j, j + 1 and head columns d .. d + 3; neighbouring lanes take
+// neighbouring keys, so a warp's stores into a row of V^T spread over the banks.
+template <bool BF16, int NB>
+__device__ __forceinline__ void convert_vt(const uint8_t* vraw, uint8_t* vop, int hd, int tid) {
+  using A = Attn<BF16, NB>;
+  constexpr int KT = A::KT, W = A::kVW;
+  for (int i = tid; i < (KT / 2) * (hd >> 2); i += 128) {
+    const int j = 2 * (i % (KT / 2)), d = 4 * (i / (KT / 2));
+    const uint8_t* chunk = vraw + (d >> 5) * KT * 128;
+    const int rb = (d & 31) * 4;
+    const float4 v0 = *reinterpret_cast<const float4*>(chunk + swz(128, j, rb));
+    const float4 v1 = *reinterpret_cast<const float4*>(chunk + swz(128, j + 1, rb));
+    const float a[4] = {v0.x, v0.y, v0.z, v0.w}, b[4] = {v1.x, v1.y, v1.z, v1.w};
+    if constexpr (BF16) {
+      const int byte = 2 * j;  // keys j and j + 1: one bf16 pair
+      uint8_t* col = vop + (byte / W) * A::kVChunk;
 #pragma unroll
-          for (int q = 0; q < kCluster; ++q) {
-            const float4 part = ld4(cluster.map_shared_rank(ps, q) + r * sy + c);
-            s.x += part.x;
-            s.y += part.y;
-            s.z += part.z;
-            s.w += part.w;
-          }
-          const float4 bias = ld4(pv + c), res = ld4(yr + warp * D + c);
-          return make_float4(s.x + bias.x + res.x, s.y + bias.y + res.y, s.z + bias.z + res.z,
-                             s.w + bias.w + res.w);
-        },
-        [&](int c, float4 v) {
-          *reinterpret_cast<float4*>(out + static_cast<size_t>(m0 + r) * D + c) = v;
-        },
-        pv + D, pv + 2 * D, D, eps);
+      for (int e = 0; e < 4; ++e) {
+        *reinterpret_cast<uint32_t*>(col + swz(W, d + e, byte % W)) = pack_bf16(a[e], b[e]);
+      }
+    } else {
+      const int p0 = 4 * key_place_tf32(j), p1 = 4 * key_place_tf32(j + 1);
+      uint8_t* c0 = vop + (p0 / W) * A::kVChunk;
+      uint8_t* c1 = vop + (p1 / W) * A::kVChunk;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float ba = tf32_big(a[e]), bb = tf32_big(b[e]);
+        float* h0 = reinterpret_cast<float*>(c0 + swz(W, d + e, p0 % W));
+        float* h1 = reinterpret_cast<float*>(c1 + swz(W, d + e, p1 % W));
+        h0[0] = ba;
+        h1[0] = bb;
+        h0[A::kVBytes / 4] = a[e] - ba;  // the small operand, kVBytes further on
+        h1[A::kVBytes / 4] = b[e] - bb;
+      }
+    }
   }
-  cluster_arrive();  // done with the other blocks' shared memory
-  mark(3, 4);
-  cluster_wait();    // no block leaves while another still reads its shared memory
+}
+
+// O's n64 blocks and the key tile of the attention grid at head dim hd.
+__host__ __device__ constexpr int attention_nb(int hd) { return hd <= 64 ? 1 : hd <= 128 ? 2 : 4; }
+__host__ __device__ constexpr int attention_kt(int hd) {
+  return attention_nb(hd) == 1 ? 64 : attention_nb(hd) == 2 ? 32 : 16;
+}
+// Shared-memory bytes of one consumer warpgroup's part of the attention grid:
+// nraw TMA buffers of a K and a V tile, the converted K and V^T.
+__host__ __device__ constexpr size_t attention_region(bool bf16, int hd, int nraw) {
+  return static_cast<size_t>(nraw) * 2 * cdiv(hd, 32) * attention_kt(hd) * 128 +
+         (bf16 ? static_cast<size_t>(cdiv(hd, 32)) * attention_kt(hd) * 64 +
+                     64 * attention_nb(hd) * attention_kt(hd) * 2
+               : static_cast<size_t>(cdiv(hd, 32)) * attention_kt(hd) * 256 +
+                     64 * attention_nb(hd) * attention_kt(hd) * 8);
+}
+// Bytes warpgroup 1 hands to warpgroup 0 in its own part (a thread's O, max, sum).
+__host__ __device__ constexpr size_t attention_handoff(int hd) {
+  return static_cast<size_t>(128) * (attention_nb(hd) * 32 + 4) * 4;
+}
+// Shared-memory bytes of the attention grid past the alignment (as
+// ops/encoder_layer.py::plan): Q, then nw warpgroups' parts.
+__host__ __device__ constexpr size_t attention_bytes(bool bf16, int hd, int nraw, int nw) {
+  return static_cast<size_t>(cdiv(hd, 32)) * 8192 * (bf16 ? 3 : 4) / 2 +
+         static_cast<size_t>(nw) * attention_region(bf16, hd, nraw);
+}
+
+template <bool BF16, int NB, int NW>
+__global__ void __launch_bounds__(128 * NW + 32, 1)
+encoder_layer_attention(const __grid_constant__ CUtensorMap qmap,
+                        const __grid_constant__ CUtensorMap kvmap, float* __restrict__ out, int T,
+                        int D, int H, float scale, int nraw) {
+  using A = Attn<BF16, NB>;
+  constexpr int KT = A::KT;
+  extern __shared__ uint8_t smem[];
+  uint8_t* qraw = align1024(smem);
+  const int hd = D / H, hc = cdiv(hd, 32);
+  const int b = blockIdx.x / H, h = blockIdx.x % H, q0 = blockIdx.y * kQueries;
+  const int tid = threadIdx.x, wg = tid >> 7, lt = tid & 127;
+  uint8_t* qop = qraw + hc * 8192;
+  uint8_t* wg0 = qop + hc * (BF16 ? 4096 : 8192);  // warpgroup 0's buffers
+  const int rawsz = 2 * hc * KT * 128;               // a K tile, then a V tile
+  const int kopsz = BF16 ? hc * KT * 64 : 2 * hc * KT * 128;
+  const int wgsz = nraw * rawsz + kopsz + (BF16 ? 1 : 2) * A::kVBytes;
+  uint8_t* raw0 = wg0 + wg * wgsz;  // this warpgroup's (the producer: unused)
+  uint8_t* kop = raw0 + nraw * rawsz;
+  uint8_t* vop = kop + kopsz;
+  // at the same offset as the host's attention_bytes
+  uint64_t* bars = reinterpret_cast<uint64_t*>(qraw + attention_bytes(BF16, hd, nraw, NW));
+  uint64_t *qbar = bars, *full = bars + 1, *empty = bars + 1 + 2 * NW;  // [warpgroup][buffer]
+  const int ntiles = cdiv(T, KT);
+  mark(1, 0);
+  if (tid == 0) {
+    mbar_init(qbar, 1);
+    for (int s = 0; s < 2 * NW; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 1);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid >= 128 * NW) {  // the producer warp
+    if (tid == 128 * NW) {
+      prefetch_map(&qmap);
+      prefetch_map(&kvmap);
+      grid_dependency_wait();
+      mbar_expect_tx(qbar, hc * 8192);
+      for (int c = 0; c < hc; ++c) tma_load_4d(qraw + c * 8192, &qmap, qbar, 32 * c, h, q0, b);
+      for (int i = 0; i < ntiles; ++i) {  // tile i: warpgroup i % NW, its tile j
+        const int w = i % NW, j = i / NW, s = j % nraw;
+        if (j >= nraw) mbar_wait(&empty[2 * w + s], (j / nraw - 1) & 1);
+        uint8_t* r = wg0 + w * wgsz + s * rawsz;
+        mbar_expect_tx(&full[2 * w + s], rawsz);
+        for (int c = 0; c < hc; ++c) {
+          tma_load_4d(r + c * KT * 128, &kvmap, &full[2 * w + s], 32 * c, H + h, i * KT, b);
+          tma_load_4d(r + (hc + c) * KT * 128, &kvmap, &full[2 * w + s], 32 * c, 2 * H + h,
+                      i * KT, b);
+        }
+      }
+    }
+    __syncwarp();
+    return;
+  }
+  grid_dependency_wait();
+  launch_dependents();
+  mark(1, 1);
+  const int lane = tid & 31, warp = (tid >> 5) & 3, g = lane >> 2, q = lane & 3;
+  mbar_wait(qbar, 0);
+  __syncwarp();
+  if constexpr (BF16) {
+    to_bf16(qraw, qop, tid, hc * 512, 128 * NW);
+  } else {
+    float4* qr = reinterpret_cast<float4*>(qraw);
+    split_tf32(qr, qr, reinterpret_cast<float4*>(qop), tid, hc * 512, 128 * NW);
+  }
+  if constexpr (NW > 1) {  // each warpgroup reads Q converted by both
+    fence_proxy_async();
+    named_sync(1, 128 * NW);
+  }
+  float o[NB][32];
+#pragma unroll
+  for (int j = 0; j < NB; ++j)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[j][i] = 0.0f;
+  float mrow[2] = {-INFINITY, -INFINITY}, lrow[2] = {0.0f, 0.0f};  // rows g, g + 8 of the warp
+  for (int jt = 0, i = wg; i < ntiles; ++jt, i += NW) {
+    const int s = jt % nraw;
+    uint8_t* r = raw0 + s * rawsz;
+    mbar_wait(&full[2 * wg + s], (jt / nraw) & 1);
+    __syncwarp();
+    if (i == 0) mark(1, 2);
+    if constexpr (BF16) {
+      to_bf16(r, kop, lt, hc * KT * 8, 128);
+    } else {
+      split_tf32(reinterpret_cast<const float4*>(r), reinterpret_cast<float4*>(kop),
+                 reinterpret_cast<float4*>(kop + hc * KT * 128), lt, hc * KT * 8, 128);
+    }
+    convert_vt<BF16, NB>(r + hc * KT * 128, vop, hd, lt);
+    fence_proxy_async();
+    named_sync(2 + wg, 128);
+    if (lt == 0) mbar_arrive(&empty[2 * wg + s]);  // the TMA buffer may take the next tile
+
+    // S = Q K^T
+    float sc[KT / 2];
+#pragma unroll
+    for (int k = 0; k < KT / 2; ++k) sc[k] = 0.0f;
+    fence_regs(sc);
+    wgmma_fence();
+    for (int c = 0; c < hc; ++c) {
+      if constexpr (BF16) {
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk) {
+          wgmma_ss<true, KT>(sc, smem_desc(smem_u32(qop + c * 4096) + 32 * kk, 64),
+                             smem_desc(smem_u32(kop + c * KT * 64) + 32 * kk, 64));
+        }
+      } else {
+        const uint32_t qh = smem_u32(qraw + c * 8192), ql = smem_u32(qop + c * 8192);
+        const uint32_t kh = smem_u32(kop + c * KT * 128), kl = kh + hc * KT * 128;
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const uint32_t off = 32 * kk;
+          wgmma_ss<false, KT>(sc, smem_desc(ql + off, 128), smem_desc(kh + off, 128));
+          wgmma_ss<false, KT>(sc, smem_desc(qh + off, 128), smem_desc(kl + off, 128));
+          wgmma_ss<false, KT>(sc, smem_desc(qh + off, 128), smem_desc(kh + off, 128));
+        }
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+
+    // online softmax over the tile's keys; keys past T get probability 0
+    // sc[4 jj + e]: row g + 8 (e >> 1), key i KT + 8 jj + 2 q + (e & 1)
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int k = 0; k < KT / 2; ++k) {
+      const int key = i * KT + 8 * (k >> 2) + 2 * q + (k & 1);
+      const float v = key < T ? sc[k] * scale : -INFINITY;
+      sc[k] = v;
+      mx[(k >> 1) & 1] = fmaxf(mx[(k >> 1) & 1], v);
+    }
+    float corr[2];
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 1));
+      mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 2));
+      const float mnew = fmaxf(mrow[rr], mx[rr]);  // finite: every tile has a key below T
+      corr[rr] = expf(mrow[rr] - mnew);
+      mrow[rr] = mnew;
+      lrow[rr] *= corr[rr];
+    }
+#pragma unroll
+    for (int k = 0; k < KT / 2; ++k) {
+      const float p = expf(sc[k] - mrow[(k >> 1) & 1]);
+      sc[k] = p;
+      lrow[(k >> 1) & 1] += p;
+    }
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int k = 0; k < 32; ++k) o[j][k] *= corr[(k >> 1) & 1];
+
+    // O += P V: P from registers (its A fragments built before the batch), V^T
+    // in shared memory
+#pragma unroll
+    for (int j = 0; j < NB; ++j) fence_regs(o[j]);
+    if constexpr (BF16) {
+      uint32_t a[KT / 16][4];
+#pragma unroll
+      for (int t = 0; t < KT / 16; ++t) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) a[t][e] = pack_bf16(sc[8 * t + 2 * e], sc[8 * t + 2 * e + 1]);
+        fence_regs(a[t]);
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int t = 0; t < KT / 16; ++t) {
+        const uint32_t byte = 32 * t;
+        const uint32_t v = smem_u32(vop) + (byte / A::kVW) * A::kVChunk + byte % A::kVW;
+#pragma unroll
+        for (int j = 0; j < NB; ++j) {
+          wgmma_rs_bf16_n64(o[j], a[t], smem_desc(v + j * 64 * A::kVW, A::kVW));
+        }
+      }
+    } else {
+      // A fragment of step t: (g, q), (g + 8, q), (g, q + 4), (g + 8, q + 4) =
+      // scores of keys 2q, 2q, 2q + 1, 2q + 1 of the step's 8
+      uint32_t hi[KT / 8][4], lo[KT / 8][4];
+#pragma unroll
+      for (int t = 0; t < KT / 8; ++t) {
+        const float pv[4] = {sc[4 * t], sc[4 * t + 2], sc[4 * t + 1], sc[4 * t + 3]};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float bg = tf32_big(pv[e]);
+          hi[t][e] = __float_as_uint(bg);
+          lo[t][e] = __float_as_uint(pv[e] - bg);
+        }
+        fence_regs(hi[t]);
+        fence_regs(lo[t]);
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int t = 0; t < KT / 8; ++t) {
+        const uint32_t byte = 32 * t;
+        const uint32_t vh = smem_u32(vop) + (byte / A::kVW) * A::kVChunk + byte % A::kVW;
+        const uint32_t vl = vh + A::kVBytes;
+#pragma unroll
+        for (int j = 0; j < NB; ++j) {
+          const uint32_t jo = j * 64 * A::kVW;
+          wgmma_rs_tf32_n64(o[j], lo[t], smem_desc(vh + jo, A::kVW));
+          wgmma_rs_tf32_n64(o[j], hi[t], smem_desc(vl + jo, A::kVW));
+          wgmma_rs_tf32_n64(o[j], hi[t], smem_desc(vh + jo, A::kVW));
+        }
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int j = 0; j < NB; ++j) fence_regs(o[j]);
+  }
+  mark(1, 3);
+  if constexpr (NW > 1) {
+    // warpgroup 1 hands its max, sum and O (thread by thread: the same rows and
+    // columns as warpgroup 0's thread) over in its own buffers, now unused;
+    // warpgroup 0 rescales both to the larger max and adds them
+    constexpr int kStride = NB * 32 + 4;
+    float* hand = reinterpret_cast<float*>(wg0 + wgsz) + lt * kStride;
+    if (wg == 1) {
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+#pragma unroll
+        for (int k = 0; k < 32; ++k) hand[32 * j + k] = o[j][k];
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        hand[NB * 32 + rr] = mrow[rr];
+        hand[NB * 32 + 2 + rr] = lrow[rr];
+      }
+    }
+    named_sync(1, 128 * NW);
+    if (wg == 1) return;
+    float c0[2], c1[2];
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const float m1 = hand[NB * 32 + rr], m = fmaxf(mrow[rr], m1);
+      c0[rr] = expf(mrow[rr] - m);
+      c1[rr] = expf(m1 - m);  // 0 where warpgroup 1 had no tile
+      lrow[rr] = lrow[rr] * c0[rr] + hand[NB * 32 + 2 + rr] * c1[rr];
+    }
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int k = 0; k < 32; ++k) {
+        o[j][k] = o[j][k] * c0[(k >> 1) & 1] + hand[32 * j + k] * c1[(k >> 1) & 1];
+      }
+  }
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    lrow[rr] += __shfl_xor_sync(0xffffffffu, lrow[rr], 1);
+    lrow[rr] += __shfl_xor_sync(0xffffffffu, lrow[rr], 2);
+  }
+  const float inv_l[2] = {1.0f / lrow[0], 1.0f / lrow[1]};
+  const int row0 = q0 + 16 * warp + g;
+#pragma unroll
+  for (int j = 0; j < NB; ++j)
+#pragma unroll
+    for (int k = 0; k < 32; k += 2) {
+      const int t = row0 + 8 * ((k >> 1) & 1), d = 64 * j + 8 * (k >> 2) + 2 * q;
+      if (t < T && d < hd) {
+        const float inv = inv_l[(k >> 1) & 1];
+        *reinterpret_cast<float2*>(out + (static_cast<size_t>(b) * T + t) * D + h * hd + d) =
+            make_float2(o[j][k] * inv, o[j][k + 1] * inv);
+      }
+    }
+  mark(1, 4);
 }
 
 // ---- host side ----------------------------------------------------------------------
 
-// Floats of one chunk of a series of `rows` weight rows (as Series::chunk_floats).
-int chunk_floats(int rows) { return round_up(std::min(rows, kPanelRows), 8) * kStageStride; }
-int series_chunks(int rows, int k) {
-  return (rows + kPanelRows - 1) / kPanelRows * ((k + kKc - 1) / kKc);
-}
-
-// Shared memory of a grid: `fixed` floats besides its weights, whose chunks
-// are n0 of f0 floats then n1 of f1. Picks the weights' layout: every chunk in
-// a place of its own (stages 0) when that fits, else the deepest ring of
-// 2..kMaxStages stages that fits; stages -1 when none does.
-struct Smem {
-  int stages;
-  size_t bytes;
-  Smem(size_t fixed, int n0, int f0, int n1, int f1) {
-    bytes = sizeof(float) * (fixed + static_cast<size_t>(n0) * f0 + static_cast<size_t>(n1) * f1);
-    stages = 0;
-    if (bytes <= kSmemLimit) return;
-    for (stages = kMaxStages; stages >= 2; --stages) {
-      bytes = sizeof(float) * (fixed + static_cast<size_t>(stages) * std::max(f0, f1));
-      if (bytes <= kSmemLimit) return;
-    }
-    stages = -1;
-  }
+// One step's plan, as ops/encoder_layer.py::plan gives it: consumer warpgroups
+// (rows 64 nc), n64 blocks a block (columns 64 nb), K splits (the cluster),
+// stages of the TMA ring (step 2: TMA buffers), key tile (step 2), and whether
+// a split grid's receive buffer lies over its ring (1) or beside it.
+struct GridPlan {
+  int nc, nb, ck, stages, kt, overlay;
 };
 
-Smem qkv_smem(int D) {
-  const int n = series_chunks(kQkvCols, D), f = chunk_floats(kQkvCols);
-  return Smem(kRows * kstride(D) + kQkvCols + kRedFloats, n, f, 0, 0);
+size_t gemm_stage_bytes(bool bf16, int nc, int nb) {
+  return static_cast<size_t>(64) * (nc + nb) * (bf16 ? 192 : 256);
 }
-size_t attention_smem(int T, int D, int H) {
-  const int hd = D / H, tk = round_up(T, 16);
-  return sizeof(float) *
-         ((kRows + tk) * kstride(hd) + tk * vstride(hd) + kRows * kstride(T));
-}
-size_t attention_tiled_smem(int kt, int D, int H) {
+// k values of each of ck K slices (whole stages)
+int slice_k(int K, int ck) { return cdiv(cdiv(K, ck), kKc) * kKc; }
+// A ring refills a stage only after the stage after it has landed, so it needs
+// two stages unless it holds every chunk at once.
+bool ring_ok(int stages, int chunks) { return stages >= 1 && (stages >= 2 || stages >= chunks); }
+
+// Shared memory of the GEMM or attention grid of step `which` (1..5) under plan
+// p, or 0 when p is not one the kernels take at this shape.
+size_t grid_smem(int which, bool bf16, const GridPlan& p, int D, int H, int F) {
   const int hd = D / H;
-  return sizeof(float) * ((kRows + kt) * kstride(hd) + kt * vstride(hd) + kRows * kstride(kt) +
-                          kRows * round_up(hd, 8) + 3 * kRows);
+  if (which == 2) {
+    if (hd > kMaxHeadDim || p.nb != attention_nb(hd) || p.kt != attention_kt(hd) ||
+        p.stages < 1 || p.stages > 2 || p.overlay != 0 || p.nc < 1 || p.nc > 2 || p.ck != 1 ||
+        (p.nc == 2 && (p.nb > 2 ||
+                       attention_region(bf16, hd, p.stages) < attention_handoff(hd)))) {
+      return 0;
+    }
+    return kReserve + attention_bytes(bf16, hd, p.stages, p.nc);
+  }
+  if (which < 1 || which > kSteps) return 0;
+  const int K = which == 5 ? F : D;
+  // the instantiations: (nc, nb) 22, 12 and 11
+  const bool tile = (p.nc == 2 && p.nb == 2) || (p.nc == 1 && p.nb == 2) ||
+                    (p.nc == 1 && p.nb == 1);
+  if (!tile || p.ck < 1 || p.ck > kMaxCluster || cdiv(K, slice_k(K, p.ck)) != p.ck ||
+      !ring_ok(p.stages, cdiv(slice_k(K, p.ck), kKc)) || p.stages > kMaxStages ||
+      p.overlay < 0 || p.overlay > (p.ck > 1 ? 1 : 0)) {
+    return 0;
+  }
+  const size_t ring = p.stages * gemm_stage_bytes(bf16, p.nc, p.nb);
+  const int per = cdiv(64 * p.nc, p.ck);
+  const size_t recv = p.ck > 1 ? static_cast<size_t>(p.ck) * per * (64 * p.nb + 4) * 4 : 0;
+  return kReserve + (p.overlay ? std::max(ring, recv) : ring + recv);
 }
 
-// The attention grid's key tile: 0 for the whole-row grid where one head's
-// keys and values fit in shared memory whole, else the keys per tile of the
-// key-tiled grid (the most of kKeyTiles that fits); -1 when neither fits.
-constexpr int kKeyTiles[] = {64, 32, 16};
-int key_tile(int T, int D, int H) {
-  if (attention_smem(T, D, H) <= kSmemLimit) return 0;
-  for (int kt : kKeyTiles) {
-    if (attention_tiled_smem(kt, D, H) <= kSmemLimit) return kt;
+// cuTensorMapEncodeTiled, reached through the runtime (no link against libcuda).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = []() -> EncodeTiled {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    return e == cudaSuccess && q == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p)
+                                                                 : nullptr;
+  }();
+  return fn;
+}
+
+// A TMA descriptor of a float32 tensor (rank 2 or 4; dims innermost first,
+// strides in bytes of dims 1..), boxes of 32 x box[1] x ..., 128-byte swizzle,
+// zeros past the edges. Descriptors are cached by their fields: encoding is
+// host work on every eager call otherwise.
+cudaError_t tensor_map(CUtensorMap* map, const float* ptr, int rank, const cuuint64_t* dims,
+                       const cuuint64_t* strides, const cuuint32_t* box) {
+  std::array<uint64_t, 14> key{};
+  key[0] = reinterpret_cast<uint64_t>(ptr);
+  key[1] = static_cast<uint64_t>(rank);
+  for (int i = 0; i < rank; ++i) {
+    key[2 + i] = dims[i];
+    key[6 + i] = box[i];
+    if (i + 1 < rank) key[10 + i] = strides[i];
   }
-  return -1;
+  static std::mutex mu;
+  static std::map<std::array<uint64_t, 14>, CUtensorMap> cache;
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    const auto it = cache.find(key);
+    if (it != cache.end()) {
+      *map = it->second;
+      return cudaSuccess;
+    }
+  }
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, rank, const_cast<float*>(ptr),
+                            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r != CUDA_SUCCESS) return cudaErrorInvalidValue;
+  std::lock_guard<std::mutex> lock(mu);
+  if (cache.size() >= 4096) cache.clear();
+  cache.emplace(key, *map);
+  return cudaSuccess;
 }
-size_t attention_grid_smem(int T, int D, int H) {
-  const int kt = key_tile(T, D, H);
-  if (kt < 0) return kSmemLimit + 1;
-  return kt ? attention_tiled_smem(kt, D, H) : attention_smem(T, D, H);
-}
-Smem out_ff1_smem(int D, int F) {
-  const int db = slice(D), fb = slice(F);
-  return Smem(kRows * kstride(D) + (kRows + 1) * db + 2 * D + fb, series_chunks(db, D),
-              chunk_floats(db), series_chunks(fb, D), chunk_floats(fb));
-}
-Smem ff2_ln2_smem(int D, int F) {
-  const int fb = slice(F);
-  return Smem(kRows * kstride(fb) + kRows * kstride(D) + kRowsPerBlock * D + 3 * D + kRedFloats,
-              series_chunks(D, fb), chunk_floats(D), 0, 0);
+// A row-major (rows, cols) matrix, boxes of 32 columns x box_rows rows.
+cudaError_t matrix_map(CUtensorMap* map, const float* ptr, int rows, int cols, int box_rows) {
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 4};
+  const cuuint32_t box[2] = {32, static_cast<cuuint32_t>(box_rows)};
+  return tensor_map(map, ptr, 2, dims, strides, box);
 }
 
 // One layer's arguments, as dsg_encoder_layer takes them.
@@ -1025,10 +1308,8 @@ struct LayerArgs {
 
 // Raises `Kernel`'s dynamic shared-memory limit to kSmemLimit on the current
 // device, once per device: the attribute belongs to a device, so a process that
-// launches on a second card opts in there too (at the ZEGGS shapes all four
-// grids need more than the default 48 KB: 115,968 / 71,168 / 226,944 / 211,968
-// bytes). A failed opt-in is not recorded, and its error goes back to the
-// wrapper, which raises.
+// launches on a second card opts in there too. A failed opt-in is not
+// recorded, and its error goes back to the wrapper, which raises.
 constexpr int kMaxDevices = 64;
 template <auto Kernel>
 cudaError_t allow_smem() {
@@ -1049,11 +1330,20 @@ cudaError_t allow_smem() {
   return cudaSuccess;
 }
 
-// Launches `Kernel` with Programmatic Dependent Launch (and a cluster of
-// kCluster blocks along x when `cluster`) on `stream`. The kernel's dynamic
-// shared-memory limit is raised first, once per device.
+// cudaLaunchKernelExC with each argument converted to its parameter's type.
+template <typename... Params, typename... Args>
+cudaError_t launch_ex(const cudaLaunchConfig_t& cfg, void (*kernel)(Params...), Args... args) {
+  return [&](Params... coerced) {
+    void* ptrs[] = {const_cast<void*>(static_cast<const void*>(&coerced))...};
+    return cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(kernel), ptrs);
+  }(args...);
+}
+
+// Launches `Kernel` with Programmatic Dependent Launch (and clusters of
+// `cluster` blocks along x when cluster > 0) on `stream`.
 template <auto Kernel, typename... Args>
-cudaError_t launch(dim3 grid, size_t smem, bool cluster, cudaStream_t stream, Args... args) {
+cudaError_t launch(dim3 grid, int threads, size_t smem, int cluster, cudaStream_t stream,
+                   Args... args) {
   const cudaError_t allowed = allow_smem<Kernel>();
   if (allowed != cudaSuccess) return allowed;
   if (smem > kSmemLimit) return cudaErrorInvalidConfiguration;
@@ -1061,83 +1351,141 @@ cudaError_t launch(dim3 grid, size_t smem, bool cluster, cudaStream_t stream, Ar
   attrs[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
   attrs[0].val.programmaticStreamSerializationAllowed = 1;
   attrs[1].id = cudaLaunchAttributeClusterDimension;
-  attrs[1].val.clusterDim.x = kCluster;
+  attrs[1].val.clusterDim.x = cluster;
   attrs[1].val.clusterDim.y = 1;
   attrs[1].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = grid;
-  cfg.blockDim = dim3(kThreads);
+  cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cfg.attrs = attrs;
-  cfg.numAttrs = cluster ? 2 : 1;
-  return cudaLaunchKernelEx(&cfg, Kernel, args...);
+  cfg.numAttrs = cluster > 0 ? 2 : 1;
+  return launch_ex(cfg, Kernel, args...);
 }
 
-// Launches grid `which` (1..4) of the layer; the layer is the four in order.
+// out (M, N) = act(A (M, K) W (N, K)^T + bias); `grid` numbers its phase marks.
 template <bool BF16>
-cudaError_t launch_grid(int which, const LayerArgs& a, cudaStream_t stream) {
-  const int M = a.B * a.T, D = a.D, F = a.F, mtiles = (M + kRows - 1) / kRows;
+cudaError_t run_gemm(const GridPlan& p, size_t smem, const float* A, const float* W,
+                     const float* bias, float* out, int M, int N, int K, int act, int grid,
+                     cudaStream_t stream) {
+  CUtensorMap am, wm;
+  cudaError_t e = matrix_map(&am, A, M, K, 64 * p.nc);
+  if (e == cudaSuccess) e = matrix_map(&wm, W, N, K, 64 * p.nb);
+  if (e != cudaSuccess) return e;
+  const dim3 g(cdiv(M, 64 * p.nc) * p.ck, cdiv(N, 64 * p.nb));
+  const int key = 10 * p.nc + p.nb, kl = slice_k(K, p.ck);
+#define DSG_GEMM(NC, NB)                                                                      \
+  launch<encoder_layer_gemm<BF16, NC, NB>>(g, Gemm<BF16, NC, NB>::kThreads, smem, p.ck, stream, \
+                                           am, wm, bias, out, M, N, K, kl, act, p.stages,      \
+                                           p.overlay, grid)
+  if (key == 22) return DSG_GEMM(2, 2);
+  if (key == 12) return DSG_GEMM(1, 2);
+  return DSG_GEMM(1, 1);
+#undef DSG_GEMM
+}
+
+// out (M, D) = LN(resid + s), one warp a row.
+cudaError_t run_norm(const float* s, const float* resid, const float* gamma, const float* beta,
+                     float* out, int M, int D, float eps, cudaStream_t stream) {
+  const dim3 g(cdiv(M, 4));
+#define DSG_NORM(V) \
+  launch<encoder_layer_norm<V>>(g, 128, 0, 0, stream, s, resid, gamma, beta, out, M, D, eps)
+  if (D <= 256) return DSG_NORM(2);
+  if (D <= 512) return DSG_NORM(4);
+  return DSG_NORM(8);
+#undef DSG_NORM
+}
+
+// Grid 2: attention over qkv (B, T, 3, H, hd) into attn (B, T, D).
+template <bool BF16>
+cudaError_t run_attention(const GridPlan& p, size_t smem, const LayerArgs& a, const float* qkv,
+                          float* attn, cudaStream_t stream) {
+  const int hd = a.D / a.H;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd), static_cast<cuuint64_t>(3 * a.H),
+                              static_cast<cuuint64_t>(a.T), static_cast<cuuint64_t>(a.B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(hd) * 4,
+                                 static_cast<cuuint64_t>(3 * a.D) * 4,
+                                 static_cast<cuuint64_t>(a.T) * 3 * a.D * 4};
+  const cuuint32_t qbox[4] = {32, 1, kQueries, 1};
+  const cuuint32_t kvbox[4] = {32, 1, static_cast<cuuint32_t>(p.kt), 1};
+  CUtensorMap qm, kvm;
+  cudaError_t e = tensor_map(&qm, qkv, 4, dims, strides, qbox);
+  if (e == cudaSuccess) e = tensor_map(&kvm, qkv, 4, dims, strides, kvbox);
+  if (e != cudaSuccess) return e;
+  const dim3 g(a.B * a.H, cdiv(a.T, kQueries));
+  const int threads = 128 * p.nc + 32, key = 10 * p.nb + p.nc;
+#define DSG_ATTN(NB, NW)                                                                     \
+  launch<encoder_layer_attention<BF16, NB, NW>>(g, threads, smem, 0, stream, qm, kvm, attn, a.T, \
+                                                a.D, a.H, a.scale, p.stages)
+  switch (key) {
+    case 11: return DSG_ATTN(1, 1);
+    case 12: return DSG_ATTN(1, 2);
+    case 21: return DSG_ATTN(2, 1);
+    case 22: return DSG_ATTN(2, 2);
+    case 41: return DSG_ATTN(4, 1);
+    default: return cudaErrorInvalidValue;
+  }
+#undef DSG_ATTN
+}
+
+// Launches step `which` (1..5) of the layer (steps 3 and 5: a GEMM grid and a
+// LayerNorm grid); the layer is the five in order, seven grids.
+template <bool BF16>
+cudaError_t launch_step(int which, const LayerArgs& a, const GridPlan* plan, cudaStream_t stream) {
+  const int M = a.B * a.T, D = a.D, F = a.F;
   float* qkv = a.work;
   float* attn = qkv + static_cast<size_t>(M) * 3 * D;
   float* y = attn + static_cast<size_t>(M) * D;
   float* hid = y + static_cast<size_t>(M) * D;
+  const GridPlan& p = plan[which - 1];
+  const size_t smem = grid_smem(which, BF16, p, D, a.H, F);
+  if (smem == 0 || smem > kSmemLimit) return cudaErrorInvalidValue;
   switch (which) {
-    case 1: {
-      const Smem s = qkv_smem(D);
-      if (s.stages < 0) return cudaErrorInvalidConfiguration;
-      return launch<encoder_layer_qkv<BF16>>(dim3((3 * D + kQkvCols - 1) / kQkvCols, mtiles),
-                                             s.bytes, false, stream, a.x, a.w_in, a.b_in, qkv, M,
-                                             D, s.stages);
+    case 1:
+      return run_gemm<BF16>(p, smem, a.x, a.w_in, a.b_in, qkv, M, 3 * D, D, kNone, 0, stream);
+    case 2:
+      return run_attention<BF16>(p, smem, a, qkv, attn, stream);
+    case 3: {  // s (in qkv's place: attention has read it) = attn Wout^T + bout; y = LN1(x + s)
+      const cudaError_t e =
+          run_gemm<BF16>(p, smem, attn, a.w_out, a.b_out, qkv, M, D, D, kNone, 2, stream);
+      return e != cudaSuccess ? e : run_norm(qkv, a.x, a.ln1_w, a.ln1_b, y, M, D, a.eps, stream);
     }
-    case 2: {
-      const int kt = key_tile(a.T, D, a.H);
-      const dim3 grid(a.B * a.H, (a.T + kRows - 1) / kRows);
-      if (kt < 0) return cudaErrorInvalidConfiguration;
-      if (kt) {
-        return launch<encoder_layer_attention_tiled<BF16>>(
-            grid, attention_tiled_smem(kt, D, a.H), false, stream, static_cast<const float*>(qkv),
-            attn, a.T, D, a.H, a.scale, kt);
-      }
-      return launch<encoder_layer_attention<BF16>>(grid, attention_smem(a.T, D, a.H), false,
-                                                   stream, static_cast<const float*>(qkv), attn,
-                                                   a.T, D, a.H, a.scale);
-    }
-    case 3: {
-      const Smem s = out_ff1_smem(D, F);
-      if (s.stages < 0) return cudaErrorInvalidConfiguration;
-      return launch<encoder_layer_out_ff1<BF16>>(
-          dim3(kCluster * mtiles), s.bytes, true, stream, static_cast<const float*>(attn),
-          a.w_out, a.b_out, a.x, a.ln1_w, a.ln1_b, a.w1, a.b1, y, hid, M, D, F, a.act, a.eps,
-          s.stages);
-    }
-    case 4: {
-      const Smem s = ff2_ln2_smem(D, F);
-      if (s.stages < 0) return cudaErrorInvalidConfiguration;
-      return launch<encoder_layer_ff2_ln2<BF16>>(
-          dim3(kCluster * mtiles), s.bytes, true, stream, static_cast<const float*>(hid),
-          static_cast<const float*>(y), a.w2, a.b2, a.ln2_w, a.ln2_b, a.out, M, D, F, a.eps,
-          s.stages);
+    case 4:
+      return run_gemm<BF16>(p, smem, y, a.w1, a.b1, hid, M, F, D, a.act, 3, stream);
+    case 5: {  // s (in qkv's place) = h W2^T + b2; out = LN2(y + s)
+      const cudaError_t e =
+          run_gemm<BF16>(p, smem, hid, a.w2, a.b2, qkv, M, D, F, kNone, 4, stream);
+      return e != cudaSuccess ? e : run_norm(qkv, y, a.ln2_w, a.ln2_b, a.out, M, D, a.eps, stream);
     }
     default:
       return cudaErrorInvalidValue;
   }
 }
 
-// Checks the arguments, then launches grid `which` (1..4), or all four when 0.
-cudaError_t run(int which, bool bf16, const LayerArgs& a, cudaStream_t stream) {
-  // the 16-byte copies and stores need 16-byte aligned rows and vectors
+// Checks the arguments and the plan, then launches step `which` (1..5), or all
+// five when 0.
+cudaError_t run(int which, bool bf16, const LayerArgs& a, const int* plan_ints,
+                cudaStream_t stream) {
+  // TMA and the 16-byte loads and stores need 16-byte aligned rows and vectors
   const void* ptrs[] = {a.x,  a.w_in, a.b_in, a.w_out, a.b_out, a.ln1_w, a.ln1_b, a.w1,
                         a.b1, a.w2,   a.b2,   a.ln2_w, a.ln2_b, a.work,  a.out};
   for (const void* p : ptrs) {
     if (reinterpret_cast<size_t>(p) % 16) return cudaErrorMisalignedAddress;
   }
-  if (a.B < 1 || a.T < 1 || a.D % a.H || (a.D / a.H) % 4 || a.D % 4 || a.F % 4 ||
-      a.D > kMaxWidth || which < 0 || which > 4) {
+  if (plan_ints == nullptr || a.B < 1 || a.T < 1 || a.H < 1 || a.D % a.H || (a.D / a.H) % 4 ||
+      a.D / a.H > kMaxHeadDim || a.D % 4 || a.F % 4 || a.D > kMaxWidth || which < 0 ||
+      which > kSteps) {
     return cudaErrorInvalidValue;
   }
-  for (int g = which ? which : 1; g <= (which ? which : 4); ++g) {
-    const cudaError_t e = bf16 ? launch_grid<true>(g, a, stream) : launch_grid<false>(g, a, stream);
+  GridPlan plan[kSteps];
+  for (int g = 0; g < kSteps; ++g) {
+    const int* v = plan_ints + kPlanInts * g;
+    plan[g] = GridPlan{v[0], v[1], v[2], v[3], v[4], v[5]};
+  }
+  for (int g = which ? which : 1; g <= (which ? which : kSteps); ++g) {
+    const cudaError_t e = bf16 ? launch_step<true>(g, a, plan, stream)
+                               : launch_step<false>(g, a, plan, stream);
     if (e != cudaSuccess) return e;
   }
   return cudaSuccess;
@@ -1145,29 +1493,31 @@ cudaError_t run(int which, bool bf16, const LayerArgs& a, cudaStream_t stream) {
 
 }  // namespace
 
-// The largest dynamic shared memory (bytes) one of the layer's four grids
-// needs; above 227 KB (no layout fits) the layer cannot run.
-extern "C" size_t dsg_encoder_layer_smem_bytes(int T, int D, int H, int F) {
-  const Smem s[] = {qkv_smem(D), out_ff1_smem(D, F), ff2_ln2_smem(D, F)};
-  size_t most = attention_grid_smem(T, D, H);
-  for (const Smem& g : s) most = std::max(most, g.stages < 0 ? kSmemLimit + 1 : g.bytes);
-  return most;
-}
+// The number of steps of a layer (`which` of dsg_encoder_layer).
+extern "C" int dsg_encoder_layer_steps() { return kSteps; }
 
-// Keys per tile of the attention grid the layer takes at this shape: 0 for the
-// whole-row grid, -1 when none fits.
-extern "C" int dsg_encoder_layer_key_tile(int T, int D, int H) { return key_tile(T, D, H); }
+// Dynamic shared memory (bytes) of step `which`'s GEMM or attention grid (1..5)
+// under its plan (six ints, as ops/encoder_layer.py::plan gives them), 0 when
+// this source refuses the plan at this shape.
+extern "C" size_t dsg_encoder_layer_grid_smem(int which, int bf16, const int* plan, int D, int H,
+                                              int F) {
+  if (which < 1 || which > kSteps || H < 1 || D % H) return 0;
+  const GridPlan p{plan[0], plan[1], plan[2], plan[3], plan[4], plan[5]};
+  return grid_smem(which, bf16 != 0, p, D, H, F);
+}
 
 // Floats of device workspace one layer needs: qkv, the attention output, y and h.
 extern "C" size_t dsg_encoder_layer_workspace_floats(int B, int T, int D, int F) {
   return static_cast<size_t>(B) * T * (5 * D + F);
 }
 
-// x, out: (B, T, D) float32, D <= 1024. Weights in nn.Linear (out, in) layout,
-// float32. act: 0 none, 1 erf GELU, 2 tanh GELU, 3 ReLU. bf16: 0 for the f32
-// (3xTF32) mode, 1 for the mxu_bf16 mode. `work` holds
-// dsg_encoder_layer_workspace_floats(B, T, D, F) floats. `which` is 0 for the
-// whole layer (four grids, in order), or 1..4 for that grid alone, for timing.
+// x, out: (B, T, D) float32, D <= 1024, head dim D / H <= 256. Weights in
+// nn.Linear (out, in) layout, float32. act: 0 none, 1 erf GELU, 2 tanh GELU,
+// 3 ReLU. bf16: 0 for the f32 (3xTF32) mode, 1 for the mxu_bf16 mode. `work`
+// holds dsg_encoder_layer_workspace_floats(B, T, D, F) floats. `plan`: five
+// steps x six ints (ops/encoder_layer.py::plan). `which` is 0 for the whole
+// layer (five steps, seven grids, in order), or 1..5 for that step alone, for
+// timing.
 // Returns the first CUDA error of the launches (0 on success).
 extern "C" int dsg_encoder_layer(int which, const float* x, const float* w_in, const float* b_in,
                                  const float* w_out, const float* b_out, const float* ln1_w,
@@ -1175,15 +1525,15 @@ extern "C" int dsg_encoder_layer(int which, const float* x, const float* w_in, c
                                  const float* w2, const float* b2, const float* ln2_w,
                                  const float* ln2_b, float* work, float* out, int B, int T,
                                  int D, int H, int F, int act, int bf16, float attn_scale,
-                                 float eps, cudaStream_t stream) {
+                                 float eps, const int* plan, cudaStream_t stream) {
   const LayerArgs a{x,  w_in, b_in, w_out, b_out, ln1_w, ln1_b, w1, b1, w2, b2, ln2_w, ln2_b,
                     work, out, B, T, D, H, F, act, attn_scale, eps};
-  return static_cast<int>(run(which, bf16 != 0, a, stream));
+  return static_cast<int>(run(which, bf16 != 0, a, plan, stream));
 }
 
-// Copies the phase marks of the last run into `out` (kPhaseGrids x
-// kPhaseBlocks x kPhaseMarks x {global timer ns, SM cycles}); returns the
-// number of values copied, 0 when the library was built without DSG_PHASES.
+// Copies the phase marks of the last run into `out` (kSteps x kPhaseBlocks x
+// kPhaseMarks x {global timer ns, SM cycles}); returns the number of values
+// copied, 0 when the library was built without DSG_PHASES.
 extern "C" int dsg_encoder_layer_phases(unsigned long long* out) {
 #ifdef DSG_PHASES
   if (cudaMemcpyFromSymbol(out, g_phases, sizeof(g_phases)) != cudaSuccess) return 0;

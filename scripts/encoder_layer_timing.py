@@ -5,16 +5,22 @@ and grid by grid, and where each grid's time goes.
 Run from the repository root on a machine with one NVIDIA card:
 
     python3 scripts/encoder_layer_timing.py [--sources A.cu B.cu ...] [--phases]
+                                            [--shapes 1x89x256 16x89x256 ...]
 
 Each source (default: the package's) is built with the package's nvcc flags,
 one nvcc each, all at once. Each is held against the plain PyTorch layer at
-the denoiser's shapes (x (B, 89, 256), H 4, F 1024, B = 1 and 2, float32 and
-mxu_bf16 modes), then timed in turns (the sources in order, then reversed;
-twice) with `chip_smoke.device_ms`. A source of the seven-grid design that
-came before (its `dsg_encoder_layer` takes no grid and no mode) is called
-through that entry point, in float32 only. For each source of this design, each of the
-layer's four grids is also timed alone: the same launch the layer makes,
-`which` = 1..4, repeated.
+each shape (B x T x D, H 4, F 1024; default: the ZEGGS denoiser at B = 1, the
+BEAT one at B = 1, the TWH one at B = 1 and 2 (CFG), the server's B = 16 and
+the distillation teacher's B = 300), in the float32 and mxu_bf16 modes, then
+timed in turns (the sources in order, then reversed; twice) with
+`chip_smoke.device_ms`. Three generations of the source are told apart by
+what they export: the wgmma design (`dsg_encoder_layer_steps`: five steps,
+seven grids; takes the plan of `ops/encoder_layer.py::plan`), the four-grid
+mma.sync design before it (`dsg_encoder_layer_phases`; e.g. `git show
+bcab30f:diffusestylegesture_torch/csrc/encoder_layer.cu`) and the first,
+seven-grid design (float32 only). For each source of the first two designs,
+each step of the layer is also timed alone: the same launches the layer
+makes, `which` = 1.., repeated.
 
 With --phases the first source is built again with -DDSG_PHASES and an
 8-layer chain runs; of its last layer, for each grid, it prints the median
@@ -23,8 +29,8 @@ cycle counter at the SM clock nvidia-smi reads) and of the block's start (µs
 after the layer's first block started, from the global timer). The marks are
 the `mark(grid, i)` calls in the source.
 
-Prints one JSON line per measurement, then the card's name and power limit.
-Imports nothing of JAX.
+Prints one JSON line per measurement (with the plan the wgmma source ran),
+then the card's name and power limit. Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -44,12 +50,17 @@ from chip_smoke import device_ms  # noqa: E402
 from diffusestylegesture_torch.ops import build  # noqa: E402
 
 SOURCE = os.path.join(build.CSRC_DIR, "encoder_layer.cu")
-T, D, H, F, LAYERS = 89, 256, 4, 1024, 8
-GRIDS = ("qkv", "attention", "out_ff1", "ff2_ln2")
-# kPhaseGrids x kPhaseBlocks x kPhaseMarks x {global timer ns, SM cycles}
-PHASE_SHAPE = (4, 256, 8, 2)
+H, F, LAYERS = 4, 1024, 8
+SHAPES = ("1x89x256", "1x151x384", "1x151x512", "2x151x512", "16x89x256", "300x89x256")
+GRIDS = {5: ("qkv", "attention", "out_ln1", "ff1", "ff2_ln2"),
+         4: ("qkv", "attention", "out_ff1", "ff2_ln2")}
+# kGrids x kPhaseBlocks x kPhaseMarks x {global timer ns, SM cycles}
+PHASE_BLOCKS, PHASE_MARKS = 256, 8
 # the seven-grid design's entry point: x, 12 weights, work, out, B, T, D, H, F, act, scale, eps, stream
 OLD_ARGTYPES = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 6
+                + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
+# the mma.sync design's: which, x, 12 weights, work, out, B, T, D, H, F, act, bf16, scale, eps, stream
+MMA_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 15 + [ctypes.c_int] * 7
                 + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
 
 
@@ -71,10 +82,18 @@ def compile_all(sources, out_dir):
         regs = {f"{k}<{'bf16' if b == '1' else 'f32'}>": int(n) for k, b, n in re.findall(
             r"entry function '\w*?[a-z]\d+encoder_layer_(\w+?)ILb([01])\w*'"
             r"(?:(?!entry function).)*?Used (\d+) registers", log, re.S)}
-        print(json.dumps(dict(source=name, registers=regs)))
+        spills = {}  # the most of any instantiation of each kernel
+        for k, b, n in re.findall(r"entry function '\w*?[a-z]\d+encoder_layer_(\w+?)ILb([01])\w*'"
+                                  r"(?:(?!entry function).)*?(\d+) bytes spill stores", log, re.S):
+            key = f"{k}<{'bf16' if b == '1' else 'f32'}>"
+            spills[key] = max(spills.get(key, 0), int(n))
+        print(json.dumps(dict(source=name, registers=regs, spill_store_bytes=spills)))
         lib = ctypes.CDLL(so)
-        lib.current = hasattr(lib, "dsg_encoder_layer_phases")
-        lib.dsg_encoder_layer.argtypes = LAYER_ARGTYPES if lib.current else OLD_ARGTYPES
+        # 5: the wgmma design (takes a plan), 4: mma.sync, 0: the seven-grid one
+        lib.grids = (lib.dsg_encoder_layer_steps() if hasattr(lib, "dsg_encoder_layer_steps")
+                     else 4 if hasattr(lib, "dsg_encoder_layer_phases") else 0)
+        lib.dsg_encoder_layer.argtypes = {5: LAYER_ARGTYPES, 4: MMA_ARGTYPES,
+                                          0: OLD_ARGTYPES}[lib.grids]
         lib.dsg_encoder_layer_workspace_floats.argtypes = [ctypes.c_int] * 4
         lib.dsg_encoder_layer_workspace_floats.restype = ctypes.c_size_t
         libs[name] = lib
@@ -87,22 +106,27 @@ class Call:
     def __init__(self, lib, x, layer, stream):
         import torch
 
-        from diffusestylegesture_torch.ops.encoder_layer import layer_weights
+        from diffusestylegesture_torch.ops import encoder_layer as el
 
-        B = x.shape[0]
+        self.B, self.T, self.D = x.shape
         self.lib, self.x, self.stream = lib, x, stream
-        self.work = torch.empty(lib.dsg_encoder_layer_workspace_floats(B, T, D, F),
+        self.work = torch.empty(lib.dsg_encoder_layer_workspace_floats(self.B, self.T, self.D, F),
                                 device=x.device)
         self.out = torch.empty_like(x)
-        self.weights = [w.data_ptr() for w in layer_weights(layer)]
-        self.B = B
+        self.weights = [w.data_ptr() for w in el.layer_weights(layer)]
+        self.plans = {bf16: el.plan(self.B, self.T, self.D, H, F, bf16) for bf16 in (False, True)}
+        self.ints = {bf16: el.plan_ints(g) for bf16, g in self.plans.items()}
 
     def __call__(self, bf16=False, which=0, x=None, out=None):
         x = self.x if x is None else x
         out = self.out if out is None else out
+        D = self.D
         head = [x.data_ptr(), *self.weights, self.work.data_ptr(), out.data_ptr(),
-                self.B, T, D, H, F, 1]
-        if self.lib.current:
+                self.B, self.T, D, H, F, 1]
+        if self.lib.grids == 5:
+            err = self.lib.dsg_encoder_layer(which, *head, int(bf16), (D // H) ** -0.5, 1e-5,
+                                             ctypes.addressof(self.ints[bf16]), self.stream)
+        elif self.lib.grids == 4:
             err = self.lib.dsg_encoder_layer(which, *head, int(bf16), (D // H) ** -0.5, 1e-5,
                                              self.stream)
         else:
@@ -123,7 +147,9 @@ def phases(lib, calls, bf16):
     import numpy as np
     import torch
 
-    buf = (ctypes.c_ulonglong * int(np.prod(PHASE_SHAPE)))()
+    grids = GRIDS[lib.grids]
+    shape = (len(grids), PHASE_BLOCKS, PHASE_MARKS, 2)
+    buf = (ctypes.c_ulonglong * int(np.prod(shape)))()
     h = calls.x
     for _ in range(LAYERS):
         h = calls(bf16, x=h, out=torch.empty_like(h))
@@ -131,16 +157,16 @@ def phases(lib, calls, bf16):
     mhz = sm_clock_mhz()
     if lib.dsg_encoder_layer_phases(buf) != len(buf):
         raise SystemExit("the phase build recorded no marks")
-    marks = np.frombuffer(buf, dtype=np.uint64).reshape(PHASE_SHAPE).astype(np.int64)
+    marks = np.frombuffer(buf, dtype=np.uint64).reshape(shape).astype(np.int64)
     # blocks of this layer: started within 1 ms of the grid's last block start
     starts = marks[:, :, 0, 0]
-    first = min(starts[g][starts[g] > 0].max() for g in range(4)) - 1_000_000
-    t0 = min(starts[g][starts[g] >= first].min() for g in range(4))
+    first = min(starts[g][starts[g] > 0].max() for g in range(len(grids))) - 1_000_000
+    t0 = min(starts[g][starts[g] >= first].min() for g in range(len(grids)))
     out = {}
-    for g, name in enumerate(GRIDS):
+    for g, name in enumerate(grids):
         live = starts[g] >= first
         cyc = marks[g, live, :, 1]
-        used = [i for i in range(1, PHASE_SHAPE[2]) if (cyc[:, i] != 0).all()]
+        used = [i for i in range(1, PHASE_MARKS) if (cyc[:, i] != 0).all()]
         out[name] = dict(
             blocks=int(live.sum()),
             start_us=float(np.median(starts[g][live] - t0) / 1e3),
@@ -155,7 +181,7 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--sources", nargs="*", default=[SOURCE], help="versions of encoder_layer.cu")
     p.add_argument("--phases", action="store_true", help="also record the phase marks")
-    p.add_argument("--batch", nargs="*", type=int, default=[1, 2])
+    p.add_argument("--shapes", nargs="*", default=list(SHAPES), help="B x T x D")
     args = p.parse_args(argv)
 
     import torch
@@ -174,13 +200,14 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory(prefix="dsg_el_timing_") as tmp:
         libs = compile_all(sources, tmp)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        torch.manual_seed(0)
-        layer = TorchEncoderLayer(D, H, F).to(dev).eval()
-        for B in args.batch:
+        for shape in args.shapes:
+            B, T, D = map(int, shape.split("x"))
+            torch.manual_seed(0)
+            layer = TorchEncoderLayer(D, H, F).to(dev).eval()
             x = torch.randn(B, T, D, device=dev)
             calls = {n: Call(libs[n], x, layer, stream) for n in libs}
             for bf16 in (False, True):
-                timed = [n for n in names if libs[n].current or not bf16]
+                timed = [n for n in names if libs[n].grids or not bf16]
                 with torch.no_grad():
                     ref = layer(x, mxu_bf16=bf16)
                 errs = {}
@@ -189,21 +216,26 @@ def main(argv=None) -> int:
                     torch.cuda.synchronize()
                     errs[n] = (out - ref).abs().max().item()
                 times = {n: [] for n in timed}
+                iters = 10 if B * T > 10_000 else 30
                 for _ in range(2):
                     for n in timed + timed[::-1]:
-                        times[n].append(device_ms(lambda: calls[n](bf16)) * 1e3)
+                        times[n].append(device_ms(lambda: calls[n](bf16), iters=iters) * 1e3)
                 for n in timed:
-                    print(json.dumps(dict(source=n, batch=B, mxu_bf16=bf16,
-                                          layer_us=sorted(times[n]), max_abs_err=errs[n])))
+                    plan = ([g.describe() for g in calls[n].plans[bf16]] if libs[n].grids == 5
+                            else None)
+                    print(json.dumps(dict(source=n, shape=[B, T, D], heads=H, mxu_bf16=bf16,
+                                          layer_us=sorted(times[n]), max_abs_err=errs[n],
+                                          plan=plan)))
                 for n in timed:
-                    if libs[n].current:
-                        grid_us = {g: device_ms(lambda: calls[n](bf16, which=i + 1)) * 1e3
-                                   for i, g in enumerate(GRIDS)}
-                        print(json.dumps(dict(source=n, batch=B, mxu_bf16=bf16,
+                    if libs[n].grids:
+                        grid_us = {g: device_ms(lambda: calls[n](bf16, which=i + 1),
+                                                iters=iters) * 1e3
+                                   for i, g in enumerate(GRIDS[libs[n].grids])}
+                        print(json.dumps(dict(source=n, shape=[B, T, D], mxu_bf16=bf16,
                                               grids_alone_us=grid_us)))
                 first = names[0]
                 if args.phases:
-                    print(json.dumps(dict(source=first, batch=B, mxu_bf16=bf16,
+                    print(json.dumps(dict(source=first, shape=[B, T, D], mxu_bf16=bf16,
                                           max_abs_err=errs["phases"],
                                           **phases(libs["phases"], calls["phases"], bf16))))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

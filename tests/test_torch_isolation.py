@@ -412,12 +412,11 @@ def test_cuda_encoder_layer_is_deterministic(cuda_device, mxu_bf16):
 
 @pytest.mark.cuda
 def test_cuda_encoder_layer_rejects_what_shared_memory_cannot_hold(cuda_device):
-    # the whole-row attention grid holds all keys of a head: at head dim 64, T 336
-    # is the most it takes; past it the key-tiled grid runs. At T 64 one head of
-    # width 1024 fits neither grid (601 KB whole, 270 KB in 16-key tiles)
-    assert ops_encoder_layer.key_tile(336, 256, 4) == 0
-    assert ops_encoder_layer.key_tile(337, 256, 4) == 64
-    assert ops_encoder_layer.key_tile(64, 1024, 1) == -1
+    # the attention grid streams keys in tiles at every T (64 keys at head dim
+    # 64, 32 at 128, 16 at 256), so T does not bound it; one head of width 1024
+    # does not fit (its Q alone, split for 3xTF32, is 512 KB)
+    assert ops_encoder_layer.key_tile(256, 4) == 64
+    assert ops_encoder_layer.key_tile(1024, 1) == -1
     layer = TorchEncoderLayer(256, 4, 1024).to(cuda_device).eval()
     wide = TorchEncoderLayer(1024, 1, 1024).to(cuda_device).eval()
     before = ops_encoder_layer.launches
@@ -429,9 +428,9 @@ def test_cuda_encoder_layer_rejects_what_shared_memory_cannot_hold(cuda_device):
     assert ops_encoder_layer.launches == before + 2
 
 
-# the key-tiled attention grid: HumanML3D's text-to-motion trunk (T 197, head
-# dim 128, past the whole-row grid's T 176), the first T past it, T 400 at head
-# dim 64, and the first T past the whole-row grid's 336 there (a 17-key tile)
+# the attention grid's key tiles: HumanML3D's text-to-motion trunk (T 197, head
+# dim 128: 32-key tiles, the last one 5 keys), T 177, T 400 at head dim 64
+# (64-key tiles, the last one 16 keys) and T 337 (a 17-key last tile)
 TILED_SHAPES = [(2, 197, 512), (3, 177, 512), (2, 400, 256), (1, 337, 256)]
 
 
@@ -442,7 +441,7 @@ def test_cuda_encoder_layer_key_tiles_match_plain(cuda_device, shape, mxu_bf16):
     B, T, D = shape
     torch.manual_seed(0)
     layer = TorchEncoderLayer(D, 4, 1024).to(cuda_device).eval()
-    assert ops_encoder_layer.key_tile(T, D, 4) == 64
+    assert ops_encoder_layer.key_tile(D, 4) == {256: 64, 512: 32}[D]
     x = torch.randn(B, T, D, device=cuda_device)
     before = (ops_encoder_layer.launches, ops_encoder_layer.launches_bf16)
     with torch.no_grad():
@@ -453,6 +452,55 @@ def test_cuda_encoder_layer_key_tiles_match_plain(cuda_device, shape, mxu_bf16):
     assert after == (before[0] + 2 * (not mxu_bf16), before[1] + 2 * mxu_bf16)
     assert torch.equal(out, again)
     assert (out - ref).abs().max().item() <= (1e-2 if mxu_bf16 else 1e-4)
+
+
+# the wgmma design: row tiles over ragged row counts (B·T = 89, 151, 302, 1,424
+# and 26,700 at the distillation batch), widths 256 / 384 / 512 / 1024 at head
+# counts 1 / 4 / 8 (head dims 48 to 256: 64-, 32- and 16-key tiles), and key
+# tiles past T at T 197 and 400
+DESIGN_SHAPES = [(1, 89, 256, 4), (1, 151, 512, 4), (2, 151, 512, 8), (16, 89, 256, 4),
+                 (1, 89, 256, 1), (2, 151, 384, 8), (1, 89, 1024, 8), (1, 89, 1024, 4),
+                 (6, 197, 512, 4), (2, 400, 256, 4), (300, 89, 256, 4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mxu_bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", DESIGN_SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("activation", ["gelu", "gelu_tanh", "relu"])
+def test_cuda_encoder_layer_wgmma_design_matches_plain(cuda_device, activation, shape, mxu_bf16):
+    """Kernel B against the plain layer (1e-4 in f32, 1e-2 in bf16) and two
+    calls bitwise equal, at the shapes that exercise its plan."""
+    B, T, D, H = shape
+    torch.manual_seed(0)
+    layer = TorchEncoderLayer(D, H, 1024, activation).to(cuda_device).eval()
+    x = torch.randn(B, T, D, device=cuda_device)
+    with torch.no_grad():
+        out = ops_encoder_layer.encoder_layer(x, layer, mxu_bf16=mxu_bf16)
+        again = ops_encoder_layer.encoder_layer(x, layer, mxu_bf16=mxu_bf16)
+        ref = layer(x, mxu_bf16=mxu_bf16)
+    assert torch.equal(out, again)
+    assert (out - ref).abs().max().item() <= (1e-2 if mxu_bf16 else 1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_encoder_layer_source_takes_the_plans(cuda_device):
+    """The CUDA source computes each grid's shared memory from the plan as
+    ops/encoder_layer.py does, at every shape the plan test covers, and
+    refuses a plan it cannot run."""
+    import ctypes
+
+    from test_torch_encoder_layer_plan import PORT_SHAPES
+
+    lib = ops_encoder_layer._library()
+    for (B, T, D, H, F) in PORT_SHAPES:
+        for bf16 in (False, True):
+            grids = ops_encoder_layer.plan(B, T, D, H, F, bf16)
+            for i, g in enumerate(grids):
+                ints = (ctypes.c_int * ops_encoder_layer.PLAN_INTS)(*g.ints())
+                assert lib.dsg_encoder_layer_grid_smem(i + 1, int(bf16), ctypes.addressof(ints),
+                                                       D, H, F) == g.smem, (B, T, D, H, F, g)
+    bad = (ctypes.c_int * ops_encoder_layer.PLAN_INTS)(2, 4, 1, 3, 0, 0)  # 128 x 256: none
+    assert lib.dsg_encoder_layer_grid_smem(1, 0, ctypes.addressof(bad), 256, 4, 1024) == 0
 
 
 @pytest.mark.cuda
