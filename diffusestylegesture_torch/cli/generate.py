@@ -118,8 +118,8 @@ def sample_t2m(model: TextMDM, sched: D.Schedule, text_emb: torch.Tensor, n_fram
             graph_set, captured, step = GraphSet(dev, [generator]), [], prog.t0
             state = generator.get_state()
             for phase in prog.phases:
-                graph, _ = graph_set.capture(phase.fn,
-                                             prepare=lambda s=step: prog.idx.fill_(s))
+                graph, _ = graph_set.capture(phase.fn, prepare=lambda s=step: prog.idx.fill_(s),
+                                             what=f"{type(prog).__name__} {phase.name}", batch=B)
                 captured.append(graph)
                 step -= phase.count
             generator.set_state(state)  # the warm-up calls' draws go back

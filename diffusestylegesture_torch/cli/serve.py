@@ -11,7 +11,10 @@ a request:
 list, by default the token in the wav's name; `out` defaults next to the
 wav.) Requests are read from `--requests` or stdin and fed through the
 micro-batching `GestureServer`, so concurrent lines ride one batched engine
-call; one JSON line is printed per request, then `{"served", "batches"}`.
+call; one JSON line is printed per request, then the server's counters
+(`{"served", "batches", "rows_padded", "windows_encoded", "windows_padding",
+"requests_by_bucket"}`: padded rows, windows WavLM encoded and how many of
+them carried no request's audio, requests per window-count bucket).
 Checkpoints load as in `cli/sample.py` (a reference `.pt` or a converted
 directory; a MoE checkpoint with its expert count).
 """
@@ -109,7 +112,8 @@ def build_server(args, device) -> GestureServer:
 
 
 def main(argv=None):
-    """Serves every request; returns {'served', 'batches', 'capture_seconds'}.
+    """Serves every request; returns the server's counters (the closing
+    line) and 'capture_seconds'.
     Only the server's dispatcher thread touches the card: the reader (this
     thread) and the emitter decode wavs and write BVH files on the host."""
     args = build_parser().parse_args(argv)
@@ -188,9 +192,9 @@ def main(argv=None):
         if args.requests:
             src.close()
         server.stop()
-    say({"served": server.requests_served, "batches": server.batches_served})
-    return {"served": server.requests_served, "batches": server.batches_served,
-            "capture_seconds": server.sampler.capture_seconds}
+    counters = server.counters()
+    say(counters)
+    return {**counters, "capture_seconds": server.sampler.capture_seconds}
 
 
 if __name__ == "__main__":

@@ -46,6 +46,12 @@ noise of the whole batch from the same generator state and keeps its rows
 (the reference quirk), so the output is the unsharded run's up to the cards'
 rounding. `lane_launches` holds each card's kernel launches of the last
 meshed call.
+
+Tracing (`utils/profiling.py`, off by default): `ZeggsSampler.encode` is an
+`engine.encode` span, and each window of the loop an `engine.window` span
+holding `engine.begin` (buffers refilled, graphs captured at first use),
+`engine.steps` (the step loop; `steps` replayed) and `engine.finish` (root
+delta and crossfade).
 """
 from __future__ import annotations
 
@@ -62,6 +68,7 @@ from ..diffusion import SamplerConfig, Schedule, make_cfg_model_fn
 from ..diffusion.sampling import PROGRAMS, SampleProgram
 from ..parallel.draws import GlobalDraws
 from ..parallel.mesh import row_bounds
+from ..utils import profiling
 from ..utils.graphs import GraphSet, launch_counts
 
 
@@ -167,7 +174,9 @@ class _WindowRun:
         state = self.generator.get_state()
         for phase in prog.phases:
             start = step
-            graph, _ = self.graph_set.capture(phase.fn, prepare=lambda s=start: prog.idx.fill_(s))
+            graph, _ = self.graph_set.capture(phase.fn, prepare=lambda s=start: prog.idx.fill_(s),
+                                              what=f"{type(prog).__name__} {phase.name}",
+                                              batch=prog.shape[0])
             self.graphs.append(graph)
             step -= phase.count
         self.generator.set_state(state)
@@ -319,29 +328,37 @@ class _WindowSampler:
             launches[j] = [a + b - c for a, b, c in zip(launches[j], launch_counts(), before)]
             return out
 
+        rows = sum(lane.hi - lane.lo for lane in lanes)
         for i in range(num_windows):
-            cond = window_cond(i)
-            for j, lane in enumerate(lanes):
-                noise = None
-                if noise_windows is not None:
-                    noise = torch.as_tensor(
-                        np.asarray(noise_windows[i][lane.lo:lane.hi], np.float32),
-                        device=lane.device)
-                cond_l = ({k: v[lane.lo:lane.hi].to(lane.device) for k, v in cond.items()}
-                          if meshed else cond)
-                on_lane(j, lambda: lane.run.begin(noise, seed=seeds[j], **cond_l))
-            # one step of every card's loop in turn: each card's queue stays short
-            # and the cards run at once
-            loops = [lane.run.steps() for lane in lanes]
-            live = list(range(len(lanes)))
-            while live:
-                for j in list(live):
-                    if on_lane(j, lambda: next(loops[j], StopIteration)) is StopIteration:
-                        live.remove(j)
-            for j, lane in enumerate(lanes):
-                sample, seeds[j] = on_lane(j, lambda: lane.sampler.finish_window(
-                    lane.run, lane.run.program.img.clone(), i == 0, seeds[j]))
-                pieces[j].append(keep(sample, i))
+            with profiling.span("engine.window", window=i, rows=rows):
+                with profiling.span("engine.begin"):
+                    cond = window_cond(i)
+                    for j, lane in enumerate(lanes):
+                        noise = None
+                        if noise_windows is not None:
+                            noise = torch.as_tensor(
+                                np.asarray(noise_windows[i][lane.lo:lane.hi], np.float32),
+                                device=lane.device)
+                        cond_l = ({k: v[lane.lo:lane.hi].to(lane.device) for k, v in cond.items()}
+                                  if meshed else cond)
+                        on_lane(j, lambda: lane.run.begin(noise, seed=seeds[j], **cond_l))
+                # one step of every card's loop in turn: each card's queue stays short
+                # and the cards run at once
+                with profiling.span("engine.steps") as sp:
+                    loops = [lane.run.steps() for lane in lanes]
+                    live = list(range(len(lanes)))
+                    while live:
+                        for j in list(live):
+                            if on_lane(j, lambda: next(loops[j], StopIteration)) is StopIteration:
+                                live.remove(j)
+                    if sp:
+                        sp.set(steps=sum(ph.count for lane in lanes
+                                         for ph in lane.run.program.phases))
+                with profiling.span("engine.finish"):
+                    for j, lane in enumerate(lanes):
+                        sample, seeds[j] = on_lane(j, lambda: lane.sampler.finish_window(
+                            lane.run, lane.run.program.img.clone(), i == 0, seeds[j]))
+                        pieces[j].append(keep(sample, i))
         generator.set_state(lanes[0].run.generator.get_state())
         if meshed:
             self.lane_launches = launches
@@ -418,26 +435,34 @@ class ZeggsSampler(_WindowSampler):
         (W, n_poses, D) features on the device. WavLM: on the graph path one
         replay of the encoder captured for W windows (the result is the
         graph's output buffer, overwritten by the next call). A host-side
-        function: its numpy result copied to the device."""
-        if getattr(self.wavlm_apply, "host_side", False):
-            host = windows.cpu().numpy() if torch.is_tensor(windows) else windows
-            feats = self.wavlm_apply(wavlm_params, np.asarray(host, np.float32))
-            return torch.as_tensor(np.asarray(feats, np.float32), device=self.device)
-        if not torch.is_tensor(windows):
-            windows = torch.as_tensor(np.asarray(windows, np.float32), device=self.device)
-        if not self.graphs:
-            return self.wavlm_apply(wavlm_params, windows)
-        key = (tuple(windows.shape), id(wavlm_params))
-        rec = self._encoders.get(key)
-        if rec is None or rec[0] is not wavlm_params:
-            graph_set = GraphSet(self.device)
-            static_in = windows.clone()
-            graph, out = graph_set.capture(lambda: self.wavlm_apply(wavlm_params, static_in))
-            rec = self._encoders[key] = (wavlm_params, graph_set, graph, static_in, out)
-        _, _, graph, static_in, out = rec
-        static_in.copy_(windows)
-        graph.replay()
-        return out
+        function: its numpy result copied to the device. Traced as an
+        `engine.encode` span: the windows and how they ran (`host`, `eager`,
+        `capture` or `replay`)."""
+        with profiling.span("engine.encode", windows=int(windows.shape[0])) as sp:
+            if getattr(self.wavlm_apply, "host_side", False):
+                sp.set(path="host")
+                host = windows.cpu().numpy() if torch.is_tensor(windows) else windows
+                feats = self.wavlm_apply(wavlm_params, np.asarray(host, np.float32))
+                return torch.as_tensor(np.asarray(feats, np.float32), device=self.device)
+            if not torch.is_tensor(windows):
+                windows = torch.as_tensor(np.asarray(windows, np.float32), device=self.device)
+            if not self.graphs:
+                sp.set(path="eager")
+                return self.wavlm_apply(wavlm_params, windows)
+            key = (tuple(windows.shape), id(wavlm_params))
+            rec = self._encoders.get(key)
+            fresh = rec is None or rec[0] is not wavlm_params
+            sp.set(path="capture" if fresh else "replay")
+            if fresh:
+                graph_set = GraphSet(self.device)
+                static_in = windows.clone()
+                graph, out = graph_set.capture(lambda: self.wavlm_apply(wavlm_params, static_in),
+                                               what="encoder", shape=tuple(windows.shape))
+                rec = self._encoders[key] = (wavlm_params, graph_set, graph, static_in, out)
+            _, _, graph, static_in, out = rec
+            static_in.copy_(windows)
+            graph.replay()
+            return out
 
     def _new_run(self, params, batch: int, rows: Optional[tuple] = None) -> _WindowRun:
         cfg, dev = self.cfg, self.device

@@ -26,6 +26,8 @@ lies in buffers of the graph set that each window or each call refills.
 `graphs=False` runs the same step functions eagerly (the comparison path,
 bitwise equal). The JAX engine's `aot_dir=` has no counterpart (a CUDA graph
 lives in its process) and its `mesh=` belongs to the port's multi-GPU slice.
+Traced (`utils/profiling.py`) as `beat.generate` around `beat.prepare`, the
+window loop's spans (`sample/engine.py`) and `beat.output`.
 """
 from __future__ import annotations
 
@@ -36,6 +38,7 @@ import numpy as np
 import torch
 
 from ..diffusion import SamplerConfig, Schedule
+from ..utils import profiling
 from .engine import _WindowRun, _WindowSampler
 
 VARIANTS = ("attention3", "attention4", "attention5")
@@ -140,34 +143,41 @@ class BeatTwhSampler(_WindowSampler):
         do not depend on the window count, so no padded window is sampled and
         the output is the unpadded run's.
         """
-        cfg, dev = self.cfg, self.device
-        if cfg.variant == "attention5" and seed_last is None:
-            raise ValueError("attention5 needs seed_last")
-        if max_len:
-            textaudio = textaudio[:max_len]
-        windows, num, real_n = self.slice_windows(np.asarray(textaudio, np.float32))
-        style_t = torch.as_tensor(np.atleast_2d(np.asarray(style, np.float32)), device=dev)
-        B = style_t.shape[0]
-        lanes = self._lanes(params, B, mesh)
-        for lane in lanes:
-            with lane.on_card():
-                rows = lane.hi - lane.lo
-                lane.run = lane.sampler._run(lane.params, rows, lane.rows)
-                lane.run.fill(style=style_t[lane.lo:lane.hi].to(lane.device))
-                if cfg.variant == "attention5":
-                    lane.run.fill(seed_last=lane.sampler.seed_tensor(seed_last, rows))
-        feats = torch.as_tensor(windows, device=dev)
-        pieces = self._run_lanes(
-            lanes, num, self._generator(generator), noise_windows,
-            lambda lane: lane.sampler.seed_tensor(seed_gesture, lane.hi - lane.lo),
-            lambda i: {"audio": feats[i][None].expand((B,) + feats.shape[1:])},
-            lambda sample, i: sample)
-        samples = [torch.cat([p[i].to(dev) for p in pieces]) for i in range(num)]
-
-        keep = cfg.njoints // cfg.motion_feature_division
-        parts = [s[:, :keep, 0, : cfg.stride] for s in samples[:-1]] + [samples[-1][:, :keep, 0]]
-        seq = torch.cat(parts, dim=-1).transpose(1, 2)[:, cfg.n_seed:].cpu().numpy()
-        return unnormalize(seq, mean, std)[:, :real_n]
+        with profiling.span("beat.generate") as sp:
+            cfg, dev = self.cfg, self.device
+            if cfg.variant == "attention5" and seed_last is None:
+                raise ValueError("attention5 needs seed_last")
+            # the windows sliced, the buffers filled, the features copied to the card
+            with profiling.span("beat.prepare"):
+                if max_len:
+                    textaudio = textaudio[:max_len]
+                windows, num, real_n = self.slice_windows(np.asarray(textaudio, np.float32))
+                sp.set(windows=num, frames=real_n)
+                style_t = torch.as_tensor(np.atleast_2d(np.asarray(style, np.float32)),
+                                          device=dev)
+                B = style_t.shape[0]
+                lanes = self._lanes(params, B, mesh)
+                for lane in lanes:
+                    with lane.on_card():
+                        rows = lane.hi - lane.lo
+                        lane.run = lane.sampler._run(lane.params, rows, lane.rows)
+                        lane.run.fill(style=style_t[lane.lo:lane.hi].to(lane.device))
+                        if cfg.variant == "attention5":
+                            lane.run.fill(seed_last=lane.sampler.seed_tensor(seed_last, rows))
+                feats = torch.as_tensor(windows, device=dev)
+            pieces = self._run_lanes(
+                lanes, num, self._generator(generator), noise_windows,
+                lambda lane: lane.sampler.seed_tensor(seed_gesture, lane.hi - lane.lo),
+                lambda i: {"audio": feats[i][None].expand((B,) + feats.shape[1:])},
+                lambda sample, i: sample)
+            # the windows joined, copied to the host and un-normalized
+            with profiling.span("beat.output"):
+                samples = [torch.cat([p[i].to(dev) for p in pieces]) for i in range(num)]
+                keep = cfg.njoints // cfg.motion_feature_division
+                parts = ([s[:, :keep, 0, : cfg.stride] for s in samples[:-1]]
+                         + [samples[-1][:, :keep, 0]])
+                seq = torch.cat(parts, dim=-1).transpose(1, 2)[:, cfg.n_seed:].cpu().numpy()
+                return unnormalize(seq, mean, std)[:, :real_n]
 
     def seed_tensor(self, a: np.ndarray, batch: int) -> torch.Tensor:
         """(n_seed, njoints) seed frames → (batch, njoints, 1, n_seed) on the device."""

@@ -117,7 +117,8 @@ class CapturedRollout:
         self.step = step
         if self.graphs:
             self._graph_set = GraphSet(dev)
-            self.graph, _ = self._graph_set.capture(step, prepare=lambda: self.idx.fill_(1))
+            self.graph, _ = self._graph_set.capture(step, prepare=lambda: self.idx.fill_(1),
+                                                    what="zeroeggs rollout step")
 
     @torch.inference_mode()
     def __call__(self, initial_state: Sequence[torch.Tensor], gaze_pos: torch.Tensor,

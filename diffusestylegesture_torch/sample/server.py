@@ -23,20 +23,32 @@ it enqueues batch k+1 (encoder, windowed denoiser, the copy of the result
 into pinned host memory and an event after it) before it waits on batch k's
 event, so the card holds the next batch while the host assembles and
 delivers the previous one. Nothing in the dispatch waits for the card.
+
+Tracing (`utils/profiling.py`, off by default): a `server.request` span per
+request (submit → its future resolved), and per batch `server.collect`,
+`server.dispatch` (its request ids, rows real and padded, bucket, windows
+encoded, windows carrying a request's audio, windows sampled) and
+`server.finalize`; a batch's id is its first request's. Beside
+`batches_served` and `requests_served` the server always counts
+`rows_padded`, `windows_encoded`, `windows_padding` (encoded windows that
+carry no request's audio) and `requests_by_bucket` over the batches it
+dispatched.
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import queue
 import threading
 import time
 from collections import deque
 from concurrent.futures import Future
-from typing import Deque, List, Optional, Sequence
+from typing import Deque, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from ..utils import profiling
 from .engine import ZeggsSampler, slice_audio_windows, unnormalize_poses
 
 
@@ -65,6 +77,8 @@ class _Request:
     seed: int
     num_windows: int
     future: Future
+    id: int = 0
+    submitted_ns: int = 0  # time.time_ns() at submit while tracing is on, else 0
 
 
 @dataclasses.dataclass
@@ -112,8 +126,13 @@ class GestureServer:
         self._submit_lock = threading.Lock()
         self._rng_lock = threading.Lock()
         self._rng = np.random.default_rng(seed)
+        self._ids = itertools.count()
         self.batches_served = 0
         self.requests_served = 0
+        self.rows_padded = 0
+        self.windows_encoded = 0
+        self.windows_padding = 0
+        self.requests_by_bucket: Dict[int, int] = {}
 
     # -- client API ---------------------------------------------------------
 
@@ -142,9 +161,17 @@ class GestureServer:
                 # a submit racing stop() (or before start()) would otherwise
                 # return a Future that never resolves
                 raise RuntimeError("server is not running (submit before start() or after stop())")
-            self._queue.put(_Request(audio=audio, style=style, seed=seed, num_windows=num,
-                                     future=fut))
+            self._queue.put(_Request(
+                audio=audio, style=style, seed=seed, num_windows=num, future=fut,
+                id=next(self._ids), submitted_ns=time.time_ns() if profiling.enabled() else 0))
         return fut
+
+    def counters(self) -> dict:
+        """The server's counters, as `cli/serve.py` prints them."""
+        return {"served": self.requests_served, "batches": self.batches_served,
+                "rows_padded": self.rows_padded, "windows_encoded": self.windows_encoded,
+                "windows_padding": self.windows_padding,
+                "requests_by_bucket": dict(sorted(self.requests_by_bucket.items()))}
 
     def start(self) -> "GestureServer":
         self._stop.clear()
@@ -174,9 +201,7 @@ class GestureServer:
                     leftovers.append(self._queue.get_nowait())
                 except queue.Empty:
                     break
-        for req in leftovers:
-            if not req.future.done():
-                req.future.set_exception(RuntimeError("server stopped before serving this request"))
+        self._fail(leftovers, RuntimeError("server stopped before serving this request"))
 
     # -- internals ----------------------------------------------------------
 
@@ -233,18 +258,23 @@ class GestureServer:
         inflight = None
         while (not self._stop.is_set() or not self._queue.empty() or self._pending
                or inflight is not None):
-            batch = self._collect_batch()
+            with profiling.span("server.collect") as sp:
+                batch = self._collect_batch()
+                if batch:
+                    sp.set(batch=batch[0].id)
+                else:
+                    sp.drop()  # a poll that found no request is no span
             dispatched = None
             if batch:
                 try:
                     dispatched = (batch, self._dispatch_batch(batch))
                 except Exception as e:  # deliver the failure, keep serving
-                    _fail(batch, e)
+                    self._fail(batch, e)
             if inflight is not None:
                 try:
                     self._finalize_batch(*inflight)
                 except Exception as e:
-                    _fail(inflight[0], e)
+                    self._fail(inflight[0], e)
             inflight = dispatched
 
     def _run_batch(self, batch: List[_Request]) -> None:
@@ -259,44 +289,77 @@ class GestureServer:
         encoder pass over clips × bucket windows, then the window loop over the
         batch's longest clip (the padded windows past it would only feed
         windows nobody reads)."""
-        sampler, ecfg = self.sampler, self.sampler.cfg
-        dev = sampler.device
-        bucket = self._bucket_for(batch[0].num_windows)
-        S = ecfg.samples_per_seed + ecfg.samples_per_stride
-        B = self.cfg.max_batch if self.cfg.pad_to_max_batch else len(batch)
-        # dummy rows past len(batch) stay zero and their outputs are dropped
-        windows = np.zeros((B, bucket, S), np.float32)
-        styles = np.zeros((B, self.cfg.style_dim), np.float32)
-        for i, req in enumerate(batch):
-            win = slice_audio_windows(req.audio, ecfg)[:bucket]
-            windows[i, : win.shape[0]] = win
-            styles[i] = req.style
-        feats = sampler.encode(self.wavlm_params, _to_device(windows.reshape(B * bucket, S), dev))
-        feats = feats.reshape((B, bucket) + tuple(feats.shape[1:]))
-        generator = torch.Generator(device=dev).manual_seed(batch[0].seed)
-        num_windows = max(req.num_windows for req in batch)
-        out = sampler.sample_windows(self.params, lambda w: feats[:, w], num_windows,
-                                     _to_device(styles, dev), generator)
-        seq = out[:, :, 0].transpose(1, 2)  # (B, T, C)
-        if dev.type == "cpu":
-            return _Dispatched(seq.clone(), None)
-        host = torch.empty(seq.shape, dtype=seq.dtype, pin_memory=True)
-        host.copy_(seq, non_blocking=True)
-        event = torch.cuda.Event()
-        event.record()
-        return _Dispatched(host, event)
+        with profiling.span("server.dispatch") as sp:
+            sampler, ecfg = self.sampler, self.sampler.cfg
+            dev = sampler.device
+            bucket = self._bucket_for(batch[0].num_windows)
+            S = ecfg.samples_per_seed + ecfg.samples_per_stride
+            B = self.cfg.max_batch if self.cfg.pad_to_max_batch else len(batch)
+            # dummy rows past len(batch) stay zero and their outputs are dropped
+            windows = np.zeros((B, bucket, S), np.float32)
+            styles = np.zeros((B, self.cfg.style_dim), np.float32)
+            carried = 0  # windows that carry a request's audio
+            for i, req in enumerate(batch):
+                win = slice_audio_windows(req.audio, ecfg)[:bucket]
+                windows[i, : win.shape[0]] = win
+                styles[i] = req.style
+                carried += win.shape[0]
+            feats = sampler.encode(self.wavlm_params,
+                                   _to_device(windows.reshape(B * bucket, S), dev))
+            feats = feats.reshape((B, bucket) + tuple(feats.shape[1:]))
+            generator = torch.Generator(device=dev).manual_seed(batch[0].seed)
+            num_windows = max(req.num_windows for req in batch)
+            out = sampler.sample_windows(self.params, lambda w: feats[:, w], num_windows,
+                                         _to_device(styles, dev), generator)
+            seq = out[:, :, 0].transpose(1, 2)  # (B, T, C)
+            if dev.type == "cpu":
+                done = _Dispatched(seq.clone(), None)
+            else:
+                host = torch.empty(seq.shape, dtype=seq.dtype, pin_memory=True)
+                host.copy_(seq, non_blocking=True)
+                event = torch.cuda.Event()
+                event.record()
+                done = _Dispatched(host, event)
+            self.rows_padded += B - len(batch)
+            self.windows_encoded += B * bucket
+            self.windows_padding += B * bucket - carried
+            self.requests_by_bucket[bucket] = self.requests_by_bucket.get(bucket, 0) + len(batch)
+            if sp:
+                sp.set(batch=batch[0].id, requests=[req.id for req in batch],
+                       rows_real=len(batch), rows_padded=B - len(batch), bucket=bucket,
+                       windows_encoded=B * bucket, windows_carried=carried,
+                       windows_sampled=num_windows)
+            return done
 
     def _finalize_batch(self, batch: List[_Request], out: _Dispatched) -> None:
         """Wait for the batch's event (not for later batches), un-normalize on
         the host and deliver."""
-        if out.event is not None:
-            out.event.synchronize()
-        seq = unnormalize_poses(out.host.numpy(), self.mean, self.std)
-        ecfg = self.sampler.cfg
-        for i, req in enumerate(batch):
-            req.future.set_result(seq[i, : req.num_windows * ecfg.stride - ecfg.n_seed])
-        self.batches_served += 1
-        self.requests_served += len(batch)
+        with profiling.span("server.finalize", batch=batch[0].id):
+            if out.event is not None:
+                out.event.synchronize()
+            seq = unnormalize_poses(out.host.numpy(), self.mean, self.std)
+            ecfg = self.sampler.cfg
+            for i, req in enumerate(batch):
+                self._resolve(req, seq[i, : req.num_windows * ecfg.stride - ecfg.n_seed])
+            self.batches_served += 1
+            self.requests_served += len(batch)
+
+    def _fail(self, batch: List[_Request], e: Exception) -> None:
+        for req in batch:
+            if not req.future.done():
+                self._resolve(req, error=e)
+
+    def _resolve(self, req: _Request, result=None, error: Optional[Exception] = None) -> None:
+        """Deliver a request's result or failure; its `server.request` span
+        ends here (recorded where tracing was on at its submit)."""
+        if error is None:
+            req.future.set_result(result)
+        else:
+            req.future.set_exception(error)
+        if req.submitted_ns and profiling.enabled():
+            profiling.record("server.request", req.submitted_ns, time.time_ns(), request=req.id,
+                             bucket=self._bucket_for(req.num_windows), windows=req.num_windows,
+                             failed=error is not None)
 
 
 def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -307,8 +370,3 @@ def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
         return t
     return t.pin_memory().to(device, non_blocking=True)
 
-
-def _fail(batch: List[_Request], e: Exception) -> None:
-    for req in batch:
-        if not req.future.done():
-            req.future.set_exception(e)

@@ -42,6 +42,7 @@ import torch
 
 from ..ops import encoder_layer as _el
 from ..ops import local_attention as _la
+from . import profiling
 
 
 @contextlib.contextmanager
@@ -97,35 +98,37 @@ class GraphSet:
         self.stream = torch.cuda.Stream(device)
         self.capture_seconds = 0.0
 
-    def capture(self, fn: Callable[[], object],
-                prepare: Optional[Callable[[], None]] = None) -> Tuple[StepGraph, object]:
+    def capture(self, fn: Callable[[], object], prepare: Optional[Callable[[], None]] = None,
+                **attrs) -> Tuple[StepGraph, object]:
         """Warm `fn` up once, capture it, and return (graph, what the captured
         call returned: tensors in the pool that each replay overwrites).
         `prepare` runs before the warm-up call, eagerly: it sets the state the
         call may index with (a step index in range). Raises if the capture
         fails, and nothing falls back to eager execution; PyTorch then leaves
         the process's default CUDA generator in capture mode, so its later
-        draws raise too."""
-        t0 = time.perf_counter()
-        before = launch_counts()
-        current = torch.cuda.current_stream(self.device)
-        self.stream.wait_stream(current)
-        with torch.cuda.stream(self.stream):
-            if prepare is not None:
-                prepare()
-            fn()
-        current.wait_stream(self.stream)
-        graph = torch.cuda.CUDAGraph()
-        for gen in self.generators:
-            graph.register_generator_state(gen)
-        start = launch_counts()
-        with _collector_paused(), torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
-            out = fn()
-        launches = tuple(b - a for a, b in zip(start, launch_counts()))
-        _set_launch_counts(before)
-        current.wait_stream(self.stream)
-        torch.cuda.synchronize(self.device)
-        self.capture_seconds += time.perf_counter() - t0
+        draws raise too. Traced as a `graphs.capture` span whose attrs (`attrs`)
+        say what was captured."""
+        with profiling.span("graphs.capture", **attrs):
+            t0 = time.perf_counter()
+            before = launch_counts()
+            current = torch.cuda.current_stream(self.device)
+            self.stream.wait_stream(current)
+            with torch.cuda.stream(self.stream):
+                if prepare is not None:
+                    prepare()
+                fn()
+            current.wait_stream(self.stream)
+            graph = torch.cuda.CUDAGraph()
+            for gen in self.generators:
+                graph.register_generator_state(gen)
+            start = launch_counts()
+            with _collector_paused(), torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
+                out = fn()
+            launches = tuple(b - a for a, b in zip(start, launch_counts()))
+            _set_launch_counts(before)
+            current.wait_stream(self.stream)
+            torch.cuda.synchronize(self.device)
+            self.capture_seconds += time.perf_counter() - t0
         return StepGraph(graph, launches), out
 
 

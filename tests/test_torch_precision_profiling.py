@@ -3,12 +3,10 @@
 `bf16_cast` casts float32 tensors of a nested structure to bfloat16 and leaves
 every other dtype and non-tensor alone, as the JAX `bf16_cast` does to its
 pytree leaves (held against it on the same values); the WavLM loader's bf16
-mode goes through it. The scope profiler keeps the JAX module's accounting:
-sums and counts per scope, `wait_<scope>` means, the decorator's names, reset;
-`trace_capture` writes a trace file of the scopes it saw.
+mode goes through it. `trace_capture` writes a trace file that shows the
+program's spans (`tests/test_torch_tracing.py` holds the span API).
 """
 import os
-import time
 
 import numpy as np
 import torch
@@ -35,33 +33,10 @@ def test_bf16_cast_matches_jax():
     assert isinstance(out["n"], list) and isinstance(out["n"][1], tuple)
 
 
-def test_profile_kv_means_decorator_and_reset():
-    profiling.reset_profile()
-    for _ in range(2):
-        with profiling.profile_kv("unit_scope", device_annotation=False):
-            time.sleep(0.01)
-
-    @profiling.profile
-    def work():
-        time.sleep(0.005)
-
-    @profiling.profile(name="named")
-    def other():
-        return 7
-
-    work()
-    assert other() == 7
-    means = profiling.profile_means()
-    assert set(means) == {"wait_unit_scope", "wait_work", "wait_named"}
-    assert 0.01 <= means["wait_unit_scope"] < 0.5 and means["wait_work"] >= 0.005
-    profiling.reset_profile()
-    assert profiling.profile_means() == {}
-
-
 def test_trace_capture_writes_a_trace(tmp_path):
     with profiling.trace_capture(str(tmp_path)):
-        with profiling.profile_kv("traced_scope"):
+        with profiling.span("traced_scope"):
             torch.ones(8).sum()
     files = [os.path.join(r, f) for r, _, fs in os.walk(tmp_path) for f in fs]
     assert files and any("traced_scope" in open(f, errors="ignore").read() for f in files)
-    profiling.reset_profile()
+    profiling.clear()

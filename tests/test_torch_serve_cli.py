@@ -5,7 +5,8 @@ one JSONL: a request whose style comes from the wav's name, one with an
 explicit style and output path, one with an unknown style and a malformed
 line. Both CLIs print the same result keys and frame counts, an error line
 for the unknown style and one for the malformed line, and `{"served": 2,
-"batches": 1}`. The JAX server's draws (its per-request keys, the batch run
+"batches": 1}`, to which the port's closing line adds its server's
+counters. The JAX server's draws (its per-request keys, the batch run
 under the first request's) are replayed into the port's DDPM loop: the
 poses handed to the BVH writer agree within 2e-3 relative (the windowed
 engine's bar) and the BVH files within that bar too, angles compared modulo
@@ -107,7 +108,14 @@ def test_serve_cli_matches_jax_cli(tmp_path, capsys, monkeypatch):
         errors = [l for l in lines if "wav" in l and "error" in l]
         assert len(errors) == 1 and "NotAStyle" in errors[0]["error"]
         assert len([l for l in lines if "line" in l and "error" in l]) == 1
-        assert [l for l in lines if "served" in l] == [{"served": 2, "batches": 1}]
+        closing = [l for l in lines if "served" in l]
+        assert len(closing) == 1
+        assert {k: closing[0][k] for k in ("served", "batches")} == {"served": 2, "batches": 1}
+    # the port's closing line adds its server's counters: one batch of 16 rows, two of them
+    # real, at the 2-window bucket
+    assert [l for l in tl if "served" in l] == [
+        {"served": 2, "batches": 1, "rows_padded": 14, "windows_encoded": 32,
+         "windows_padding": 28, "requests_by_bucket": {"2": 2}}]
     jok = [l for l in jl if "out" in l]
     tok = [l for l in tl if "out" in l]
     assert [sorted(l) for l in jok] == [sorted(l) for l in tok]
@@ -172,5 +180,6 @@ def test_serve_cli_options_on_cpu(tmp_path, capsys, extra):
                            + extra)
     ok = [l for l in _lines(capsys.readouterr().out) if "out" in l]
     assert [l["frames"] for l in ok] == [152, 152]
-    assert res == {"served": 2, "batches": 1, "capture_seconds": 0.0}
+    assert res == {"served": 2, "batches": 1, "rows_padded": 2, "windows_encoded": 8,
+                   "windows_padding": 4, "requests_by_bucket": {2: 2}, "capture_seconds": 0.0}
     assert os.path.getsize(tmp_path / "blend.bvh") > 0

@@ -3,7 +3,8 @@
 The JAX `tests/test_server.py` behaviours, ported: a single request, four
 concurrent requests in one batch, bucketing by window count, a minority
 bucket not starved, submit after stop, too-long rejection, a batch's failure
-delivered to its futures while the server keeps serving. Against the port's
+delivered to its futures while the server keeps serving; the server's
+counters of padded rows and windows over a two-bucket run. Against the port's
 own engine: a solo request equals `generate_multi_clip` on the padded batch
 under the request's seed (bitwise: the same pieces in the same order).
 Against the JAX package: the port's dispatch + finalize of a mixed batch
@@ -119,6 +120,28 @@ def test_minority_bucket_not_starved():
     assert [r.num_windows for r in server._collect_batch()] == [1, 1]
     assert [r.num_windows for r in server._collect_batch()] == [4]
     assert [r.num_windows for r in server._collect_batch()] == [1, 1]
+
+
+def test_counters_of_a_two_bucket_run():
+    """Padded rows, windows encoded, windows that carry no clip's audio and
+    requests a bucket, over two batches run through dispatch + finalize."""
+    server, ecfg = make_server(max_batch=4, buckets=(1, 2, 4))
+    rng = np.random.default_rng(3)
+
+    def req(windows, i):
+        audio = rng.standard_normal(windows * ecfg.samples_per_stride + 50).astype(np.float32)
+        return _Request(audio=audio, style=np.eye(6, dtype=np.float32)[i], seed=i,
+                        num_windows=windows, future=Future(), id=i)
+
+    batches = [[req(1, 0), req(1, 1)], [req(3, 2)]]
+    for batch in batches:
+        server._run_batch(batch)
+    assert [r.future.result(timeout=0).shape[0] for b in batches for r in b] == \
+        [ecfg.stride - ecfg.n_seed] * 2 + [3 * ecfg.stride - ecfg.n_seed]
+    # bucket 1: 4 rows × 1 window, 2 carry audio; bucket 4: 4 rows × 4 windows, 3 carry audio
+    assert server.counters() == {"served": 3, "batches": 2, "rows_padded": 2 + 3,
+                                 "windows_encoded": 4 + 16, "windows_padding": 2 + 13,
+                                 "requests_by_bucket": {1: 2, 4: 1}}
 
 
 def test_submit_after_stop_raises():
