@@ -573,7 +573,7 @@ def phase_end_to_end(dev, tmp, card):
              True))
     cli_poses = {}
     for mode, extra, calls_per_window, bf16 in runs:
-        la.launches = el.launches = el.launches_bf16 = 0
+        la.launches = el.launches = el.launches_bf16 = el.launches_planes = 0
         res, wall = timed(lambda: sample_cli.main(
             ["--config", cfg_path, "--model_path", mdm_pt, "--audiowavlm_path", wav_path,
              "--save_dir", os.path.join(tmp, "out_" + mode), "--seed", "123456"] + extra))
@@ -587,10 +587,14 @@ def phase_end_to_end(dev, tmp, card):
         expected = (calls, 0, 8 * calls) if bf16 else (calls, 8 * calls, 0)
         check(counts == expected, f"{mode}: launches {counts}, expected {expected}")
         gen_s, cap_s = res["generate_seconds"], res["capture_seconds"]
+        # B = 1: every GEMM grid splits its weight tiles in shared memory (the plan)
+        planes = el.launches_planes
+        check(planes == 0, f"{mode}: {planes} GEMM grids on weight planes at B = 1")
         results[mode] = dict(denoiser_calls=calls, local_attention_launches=counts[0],
                              encoder_layer_launches=counts[1],
                              encoder_layer_bf16_launches=counts[2],
-                             generate_s=gen_s, capture_s=cap_s, cli_wall_s=wall, frames=frames,
+                             encoder_layer_planes_grids=planes, generate_s=gen_s,
+                             capture_s=cap_s, cli_wall_s=wall, frames=frames,
                              frames_per_s=frames / gen_s)
         print(f"e2e {mode} (CLI, graphs, capture included) [{card}]: "
               f"{json.dumps(results[mode])}")
@@ -684,7 +688,7 @@ def phase_end_to_end(dev, tmp, card):
         tt = torch.tensor([500], device=dev)
         out = torch.empty_like(x)
         replay, _ = GraphSet(dev).capture(lambda: out.copy_(models["f32"][0](x, tt, cond)))
-        replay.launches = (0, 0, 0)  # timing calls are not main-path launches
+        replay.launches = (0,) * len(replay.launches)  # timing calls are not main-path launches
         for name, fn, iters in (("kernel", lambda: models["f32"][0](x, tt, cond), 4),
                                 ("graph_replay", replay.replay, 40),
                                 ("plain", lambda: plain(x, tt, cond), 4)):
@@ -1483,7 +1487,7 @@ def phase_beat_twh(dev, tmp, card, wavlm_pt):
         tt = torch.tensor([500], device=dev)
         out = torch.empty_like(x)
         replay, _ = GraphSet(dev).capture(lambda: out.copy_(kernel(x, tt, cond)))
-        replay.launches = (0, 0, 0)  # timing calls are not main-path launches
+        replay.launches = (0,) * len(replay.launches)  # timing calls are not main-path launches
         for name, fn, iters in (("kernel", lambda: kernel(x, tt, cond), 4),
                                 ("graph_replay", replay.replay, 40),
                                 ("plain", lambda: variants["plain"](x, tt, cond), 4)):
@@ -1930,7 +1934,7 @@ def counted(fn):
     from diffusestylegesture_torch.ops import encoder_layer as el
     from diffusestylegesture_torch.ops import local_attention as la
 
-    la.launches = el.launches = el.launches_bf16 = 0
+    la.launches = el.launches = el.launches_bf16 = el.launches_planes = 0
     res, wall = timed(fn)
     return res, wall, (la.launches, el.launches, el.launches_bf16)
 
@@ -1975,6 +1979,7 @@ def phase_serving(dev, tmp, card):
                                                           load_wavlm_checkpoint)
     from diffusestylegesture_torch.models.wavlm import make_zeggs_wavlm_fn
     from diffusestylegesture_torch.motion import zeggs_features as zf
+    from diffusestylegesture_torch.ops import encoder_layer as el
     from diffusestylegesture_torch.sample import (BeatTwhStreamSampler, GestureServer,
                                                   ServerConfig, ZeggsEngineConfig, ZeggsSampler,
                                                   ZeggsStreamSampler, edit_motion,
@@ -2074,12 +2079,16 @@ def phase_serving(dev, tmp, card):
         capture_s = server.sampler.capture_seconds
         batches0 = server.batches_served
         (outs, wall, lat), _, counts = counted(lambda: burst(list(zip(clips, styles))))
+        planes = el.launches_planes  # the burst's float32 GEMM grids on weight planes
         batches = server.batches_served - batches0
         check(all(o.shape == (int(w) * 80 - 8, 1141) and np.isfinite(o).all()
                   for o, w in zip(outs, windows)), "server burst: bad output")
         launches["server"] = counts
         check(counts[0] > 0 and counts[1] == cfg.num_layers * counts[0] and counts[2] == 0,
               f"server burst: launches {counts}")
+        # B = 16: all four GEMM grids of every kernel-B launch on weight planes
+        check(planes == 4 * counts[1], f"server burst: {planes} GEMM grids on weight planes, "
+                                       f"expected {4 * counts[1]}")
         share, prof_wall = busy_share(lambda: burst(list(zip(clips, styles))))
     finally:
         server.stop()
@@ -2092,7 +2101,7 @@ def phase_serving(dev, tmp, card):
         p99_latency_s=float(np.percentile(lat, 99)), first_use_s=warm_s, capture_s=capture_s,
         peak_memory_gb=peak_gb, device_busy_share=share,
         device_idle_share=None if share is None else 1.0 - share,
-        profiled_burst_wall_s=prof_wall, launches=counts)
+        profiled_burst_wall_s=prof_wall, launches=counts, encoder_layer_planes_grids=planes)
     print(f"serving server burst (dpmpp5) [{card}]: {json.dumps(res['server'])}")
 
     solo = sampler()
@@ -2359,7 +2368,7 @@ def denoiser_call(dev, model, plain, batch=1):
     with torch.inference_mode():
         out = torch.empty(batch, cfg.njoints, 1, 88, device=dev)
         replay, _ = GraphSet(dev).capture(lambda: out.copy_(model(x, t, cond)))
-        replay.launches = (0, 0, 0)  # timing calls are not main-path launches
+        replay.launches = (0,) * len(replay.launches)  # timing calls are not main-path launches
         ms = {"graph_replay_device_ms": device_ms(replay.replay, iters=40, warmup=2)}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2794,7 +2803,7 @@ def t2m_denoiser_call(dev, model, plain, text_emb, frames):
     with torch.inference_mode():
         out = torch.empty_like(x)
         replay, _ = GraphSet(dev).capture(lambda: out.copy_(model(x, t, cond, uncond=uncond)))
-        replay.launches = (0, 0, 0)  # timing calls are not main-path launches
+        replay.launches = (0,) * len(replay.launches)  # timing calls are not main-path launches
         ms = {"graph_replay_device_ms": device_ms(replay.replay, iters=20, warmup=2)}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -3205,7 +3214,9 @@ def phase_parallel(dev, tmp, card, ctx):
         err = rel(pm, p1)
         check(pm.shape == p1.shape and err <= E2E_REL,
               f"{name}: mesh vs one card {err} > {E2E_REL} rel")
-        check(all(tuple(lane) == c1 for lane in lanes) and len(lanes) == min(cards, MESH_BATCH),
+        # a lane's (A, B f32, B bf16) launches (its fourth: GEMM grids on weight planes)
+        check(all(tuple(lane[:3]) == c1 for lane in lanes)
+              and len(lanes) == min(cards, MESH_BATCH),
               f"{name}: per-card launches {lanes}, the one-card run's {c1}")
         res["serving"][name] = dict(
             mesh_vs_one_card_rel=err, one_card_s=w1, mesh_s=wm,

@@ -12,20 +12,28 @@
 //   out = LN2(y + act(y W1^T + b1) W2^T + b2)
 // with act chosen at run time (erf GELU, tanh GELU or ReLU); the Pallas kernel
 // hard-codes erf GELU whatever the config says, this one does not. Weights are
-// taken as torch stores them, nn.Linear (out, in), f32, with no per-call copy
-// and no cached copy. Head dims up to 256.
+// taken as torch stores them, nn.Linear (out, in), f32, with no per-call copy;
+// in f32 mode a GEMM grid may read them from weight planes instead (below).
+// Head dims up to 256.
 //
 // Operand modes. f32 (the main path): 3xTF32 on wgmma.mma_async m64nNk8.tf32.
-// Each operand tile lands in shared memory as f32; the consumer warpgroups
-// split it there into big (its top 19 bits, a tf32 value, written in place)
-// and small = v - big (exact in f32, written beside it), and issue
-// small*big, big*small, then big*big into one f32 accumulator, as CUTLASS's
-// 3xTF32 does; this keeps the layer within 1e-4 of a float32 layer. bf16
-// (`mxu_bf16`, the Pallas kernel's `mxu_bf16=True`): m64nNk16.bf16 with exactly
-// the operands the Pallas kernel rounds rounded to bf16 (x, Win, q, k, the
-// softmax probabilities, v, the attention output, Wout, y, W1, the activated
-// hidden rows, W2) and f32 sums; the tiles are rounded in shared memory after
-// they land.
+// Each operand is split into big (its top 19 bits, a tf32 value) and small =
+// v - big (exact in f32), and the products small*big, big*small, then big*big
+// go into one f32 accumulator, as CUTLASS's 3xTF32 does; this keeps the layer
+// within 1e-4 of a float32 layer. Where each part is split: the GEMM grids'
+// activation operand (A) in registers (each warpgroup reads its fragments
+// from the raw f32 tile TMA landed and issues wgmma with A from registers);
+// their weight operand (W) either from weight planes, big and small copies of
+// each weight matrix that dsg_encoder_layer_split makes once per weight
+// version (the wrapper keeps them), TMA-loaded into the stage as they are, or
+// in shared memory, each tile split in place as it lands (big written over
+// it, small beside it); the plan picks per grid. The attention grid splits Q
+// and K tiles in shared memory, and P in registers. bf16 (`mxu_bf16`, the
+// Pallas kernel's `mxu_bf16=True`): m64nNk16.bf16 with exactly the operands
+// the Pallas kernel rounds rounded to bf16 (x, Win, q, k, the softmax
+// probabilities, v, the attention output, Wout, y, W1, the activated hidden
+// rows, W2) and f32 sums; the tiles are rounded in shared memory after they
+// land.
 //
 // What bounds it on an H100 (SXM, 132 SMs; 495 TFLOP/s TF32, 989 bf16, 3.35
 // TB/s): one layer at the ZEGGS shape (B*T = 89 rows, D = 256, H = 4, F = 1024)
@@ -38,24 +46,27 @@
 //     rows that span batch elements, so each weight tile is read from L2 once
 //     per 64-128 rows (the earlier design read the layer's whole 3.15 MB
 //     weight set once per 16 rows: 5.3 GB of L2 traffic a layer at B = 300);
-//     a ring of TMA stages fed by one producer warp while the consumer
-//     warpgroups convert one stage and the tensor cores run the previous one;
-//     and tiles, K splits and stages chosen so that a grid's blocks sit on the
-//     SMs at once (two or three a SM) rather than in a second wave. What bounds
-//     it there now is shared-memory traffic, not the tensor cores: the in-place
-//     split (or rounding) of every tile and the three products' operand reads
-//     move ~0.6-0.85 bytes of shared memory a multiply-add (64 x 128 and
-//     64 x 64 tiles), against the 128 bytes a cycle an SM reads.
+//     a ring of TMA stages fed by one producer warp while the tensor cores run
+//     the previous stage; and tiles, K splits and stages chosen so that a
+//     grid's blocks sit on the SMs at once (two or three a SM) rather than in
+//     a second wave. Shared-memory traffic bounded the GEMM grids when both
+//     operands were split in shared memory (a stage of 64 x 64 tiles moved
+//     ~112 KB: TMA's writes, the split's read and two writes of each tile, and
+//     the three products' operand reads, against 384 tensor-core cycles). Now
+//     the activation is split in registers (its tile read once) and, where
+//     many row tiles read each weight tile, the weight comes split from its
+//     planes: ~56 KB a stage, for twice the weight bytes from L2.
 //   * B = 1, bytes and latency: 89 rows are two 64-row tiles, so every GEMM
 //     grid splits K over a cluster (4 blocks, 8 for FF2's K = 1024 and the
 //     out-proj at D >= 512) to spread over 32-128 SMs; the two LayerNorms run
 //     in grids of their own (a cluster that holds whole rows for the norm has
 //     at most 8 blocks a row tile: 16 SMs at B = 1, where FF2 took 15.5 us
 //     against 8.3 us now for its GEMM and LayerNorm grids); each grid issues
-//     its weight tiles, and splits or rounds them, before griddepcontrol.wait,
-//     so under programmatic dependent launch that work overlaps the previous
-//     grid; split partials are pushed into their owner's shared memory (no
-//     round trip through device memory).
+//     its weight tiles, and splits them in shared memory (no planes: their
+//     extra bytes would cost more than two row tiles' splits), before
+//     griddepcontrol.wait, so under programmatic dependent launch that work
+//     overlaps the previous grid; split partials are pushed into their owner's
+//     shared memory (no round trip through device memory).
 //
 // Design (seven grids in five steps, each grid launched with cudaLaunchKernelEx
 // and programmatic dependent launch; the host picks each step's tiles from the
@@ -83,7 +94,10 @@
 //   4. FF1      h = act(y W1^T + b1), as grid 1.
 //   5. FF2, LN2 s = h W2^T + b2 as step 3 (K = F), then out = LN2(y + s).
 //   Operand tiles: rows of 32 f32 (128 bytes) in TMA's 128-byte swizzle, the
-//   layout wgmma reads K-major; bf16 copies in the 64-byte swizzle. TMA
+//   layout wgmma reads K-major (and whose chunks spread a warp's A-fragment
+//   reads over all banks); bf16 copies in the 64-byte swizzle. A GEMM stage
+//   in f32 holds raw A, big W and small W (24 KB at 64 x 64), the same on
+//   weight planes and off them. TMA
 //   descriptors come from cuTensorMapEncodeTiled (reached through
 //   cudaGetDriverEntryPoint, no link against libcuda), cached by their fields
 //   and passed as __grid_constant__ parameters, so graph capture records them.
@@ -101,12 +115,13 @@
 // weight tiles and different A tiles (the same rows, other k); no two blocks
 // of a cluster load the same tile.
 //
-// Times a layer on an NVIDIA H100 80GB HBM3 at 700 W (scripts/encoder_layer_timing.py
-// against the mma.sync source of commit bcab30f in one process; PERF.md's
-// kernel table), f32 / bf16: (1, 89, 256) 0.0336 / 0.0291 ms (mma.sync 0.0386 /
-// 0.0312); (1, 151, 384) 0.0481 / 0.0414 (0.0698 / 0.0574); (1, 151, 512)
-// 0.0587 / 0.0456 (0.0889 / 0.0729); (16, 89, 256) 0.0851 / 0.0655 (0.2290 /
-// 0.1942); (300, 89, 256) 1.013 / 0.796 (4.149 / 3.550).
+// Times a layer on an NVIDIA H100 80GB HBM3 at 700 W (scripts/encoder_layer_timing.py,
+// this source and, in the same call, the one before weight planes and the
+// register split of A; PERF.md's kernel table), f32 / bf16: (1, 89, 256) 0.0322
+// / 0.0295 ms (before: 0.0339 / 0.0293); (1, 151, 384) 0.0476 / 0.0420 (0.0486 /
+// 0.0418); (1, 151, 512) 0.0558 / 0.0459 (0.0595 / 0.0462); (16, 89, 256)
+// 0.0667 / 0.0658 (0.0863 / 0.0680); (300, 89, 256) 0.905 / 0.789 (1.018 /
+// 0.796).
 #include <cooperative_groups.h>
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -135,7 +150,7 @@ constexpr int kMaxHeadDim = 256;
 constexpr int kQueries = 64;        // query rows of an attention block (one wgmma m-tile)
 constexpr size_t kSmemLimit = 227 * 1024;
 constexpr size_t kReserve = 1024 + 256;  // alignment slack and the mbarriers
-constexpr int kPlanInts = 6;        // per step: nc, nb, ck, stages, key tile, overlay
+constexpr int kPlanInts = 7;        // per step: nc, nb, ck, stages, key tile, overlay, planes
 constexpr int kMaxStages = 10;      // three mbarriers a stage in the 256 reserved bytes
 
 __host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
@@ -406,6 +421,32 @@ __device__ __forceinline__ void wgmma_rs_tf32_n64(float (&d)[32], const uint32_t
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+__device__ __forceinline__ void wgmma_rs_tf32_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63},"
+      " {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs_tf32(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (N == 64) wgmma_rs_tf32_n64(d, a, b);
+  else wgmma_rs_tf32_n128(d, a, b);
+}
+
 __device__ __forceinline__ void wgmma_ss_bf16_n16(float (&d)[8], uint64_t a, uint64_t b) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
@@ -528,20 +569,23 @@ __device__ __forceinline__ void to_bf16(const uint8_t* src, uint8_t* dst, int be
 // ---- the GEMM grids (1, 3, 4 and 5) ---------------------------------------------------
 // A block of NC consumer warpgroups (BM = 64 NC rows) and one producer warp
 // computes BM x BN (BN = 64 NB) of A W^T over a range of K, 32 k a stage.
-// Stage layout: raw A [BM][32] f32, raw W [BN][32] f32 (TMA, 128-byte swizzle),
-// then the converted operands: f32 mode small A, small W (big is written over
-// the raw tile), bf16 mode A, W in bf16 (64-byte swizzle).
+// Stage layout: raw A [BM][32] f32 and W [BN][32] f32 (TMA, 128-byte swizzle),
+// then the converted operands. f32 mode: small W [BN][32] (A is split in
+// registers, see a_fragments); on weight planes TMA brings the big plane into
+// W's place and the small plane into small W's, otherwise the consumers split
+// the raw W tile there (big written over it). bf16 mode: A, W in bf16
+// (64-byte swizzle).
 template <bool BF16, int NC, int NB>
 struct Gemm {
   static constexpr int BM = 64 * NC, BN = 64 * NB;
   static constexpr int kConsumers = 128 * NC, kThreads = kConsumers + 32;
   static constexpr int kRawA = BM * 128, kRawB = BN * 128;
-  static constexpr int kOpA = BF16 ? BM * 64 : kRawA, kOpB = BF16 ? BN * 64 : kRawB;
+  static constexpr int kOpA = BF16 ? BM * 64 : 0, kOpB = BF16 ? BN * 64 : kRawB;
   static constexpr int kStage = kRawA + kRawB + kOpA + kOpB;
 };
 
 // The consumer threads (tid < kConsumers) convert the W tile of stage `st`
-// (all of them) or its A tile (each warpgroup its own 64 rows).
+// (all of them) or, in bf16 mode, its A tile (each warpgroup its own 64 rows).
 template <bool BF16, int NC, int NB>
 __device__ __forceinline__ void convert_w(uint8_t* st, int tid) {
   using G = Gemm<BF16, NC, NB>;
@@ -554,41 +598,80 @@ __device__ __forceinline__ void convert_w(uint8_t* st, int tid) {
                reinterpret_cast<float4*>(op), tid, 8 * G::BN, G::kConsumers);
   }
 }
-template <bool BF16, int NC, int NB>
-__device__ __forceinline__ void convert_a(uint8_t* st, int tid) {
-  using G = Gemm<BF16, NC, NB>;
+template <int NC, int NB>
+__device__ __forceinline__ void convert_a_bf16(uint8_t* st, int tid) {
+  using G = Gemm<true, NC, NB>;
   const int wg = tid >> 7, lt = tid & 127;
-  uint8_t* op = st + G::kRawA + G::kRawB;
-  if constexpr (BF16) {
-    to_bf16(st, op, wg * 512 + lt, wg * 512 + 512, 128);
-  } else {
-    float4* raw = reinterpret_cast<float4*>(st);
-    split_tf32(raw, raw, reinterpret_cast<float4*>(op), wg * 512 + lt, wg * 512 + 512, 128);
+  to_bf16(st, st + G::kRawA + G::kRawB, wg * 512 + lt, wg * 512 + 512, 128);
+}
+
+// Warpgroup wg's bf16 products of one stage into acc (64 x BN).
+template <int NC, int NB>
+__device__ __forceinline__ void stage_products_bf16(float (&acc)[NB * 32], uint32_t st, int wg) {
+  using G = Gemm<true, NC, NB>;
+  const uint32_t op = st + G::kRawA + G::kRawB;
+  const uint32_t a = op + wg * 4096, b = op + G::kOpA;
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk) {
+    wgmma_ss<true, G::BN>(acc, smem_desc(a + 32 * kk, 64), smem_desc(b + 32 * kk, 64));
   }
 }
 
-// Warpgroup wg's products of one stage into acc (64 x BN).
-template <bool BF16, int NC, int NB>
-__device__ __forceinline__ void stage_products(float (&acc)[NB * 32], uint32_t st, int wg) {
-  using G = Gemm<BF16, NC, NB>;
-  const uint32_t op = st + G::kRawA + G::kRawB;
-  if constexpr (BF16) {
-    const uint32_t a = op + wg * 4096, b = op + G::kOpA;
+// A thread's A fragments of k-steps 2h and 2h + 1 (8 k each) of a stage, split
+// for 3xTF32: fragment e of k-step kk is row r (+ 8 for e = 1, 3) and column
+// 8 kk + q (+ 4 for e = 2, 3) of the raw f32 tile, r = 16 warp + g of the
+// warpgroup's 64 rows (`row` points at row r of the tile). A warp's 32 loads of
+// one fragment fall on 8 rows x 4 columns whose 16-byte chunks the 128-byte
+// swizzle spreads over all 32 banks.
+template <int H>
+__device__ __forceinline__ void a_fragments(const uint8_t* row, int g, int q,
+                                            uint32_t (&hi)[2][4], uint32_t (&lo)[2][4]) {
 #pragma unroll
-    for (int kk = 0; kk < 2; ++kk) {
-      wgmma_ss<true, G::BN>(acc, smem_desc(a + 32 * kk, 64), smem_desc(b + 32 * kk, 64));
-    }
-  } else {
-    const uint32_t ahi = st + wg * 8192, bhi = st + G::kRawA;
-    const uint32_t alo = op + wg * 8192, blo = op + G::kOpA;
+  for (int j = 0; j < 2; ++j) {
+    const int kk = 2 * H + j;
+    const int c0 = (((2 * kk) ^ g) << 4) + 4 * q, c1 = (((2 * kk + 1) ^ g) << 4) + 4 * q;
+    const float v[4] = {*reinterpret_cast<const float*>(row + c0),
+                        *reinterpret_cast<const float*>(row + 1024 + c0),
+                        *reinterpret_cast<const float*>(row + c1),
+                        *reinterpret_cast<const float*>(row + 1024 + c1)};
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const uint32_t o = 32 * kk;
-      wgmma_ss<false, G::BN>(acc, smem_desc(alo + o, 128), smem_desc(bhi + o, 128));
-      wgmma_ss<false, G::BN>(acc, smem_desc(ahi + o, 128), smem_desc(blo + o, 128));
-      wgmma_ss<false, G::BN>(acc, smem_desc(ahi + o, 128), smem_desc(bhi + o, 128));
+    for (int e = 0; e < 4; ++e) {
+      const float b = tf32_big(v[e]);
+      hi[j][e] = __float_as_uint(b);
+      lo[j][e] = __float_as_uint(v[e] - b);
     }
+    fence_regs(hi[j]);
+    fence_regs(lo[j]);
   }
+}
+
+// Warpgroup products of k-steps 2h and 2h + 1 of a stage, A from registers,
+// big and small W at `whi` / `wlo`: small*big, big*small, big*big into acc.
+template <int NB, int H>
+__device__ __forceinline__ void half_products(float (&acc)[NB * 32], const uint32_t (&hi)[2][4],
+                                              const uint32_t (&lo)[2][4], uint32_t whi,
+                                              uint32_t wlo) {
+  fence_regs(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const uint32_t o = 32 * (2 * H + j);
+    wgmma_rs_tf32<64 * NB>(acc, lo[j], smem_desc(whi + o, 128));
+    wgmma_rs_tf32<64 * NB>(acc, hi[j], smem_desc(wlo + o, 128));
+    wgmma_rs_tf32<64 * NB>(acc, hi[j], smem_desc(whi + o, 128));
+  }
+  wgmma_commit();
+}
+
+// The W operand of a stage at (k, n0): the raw tile, or on weight planes the
+// big and the small plane's tiles, on one barrier.
+template <typename G>
+__device__ __forceinline__ void load_w(uint8_t* st, const CUtensorMap* wmap,
+                                       const CUtensorMap* smap, uint64_t* bar, int k, int n0,
+                                       int planes) {
+  mbar_expect_tx(bar, planes ? 2 * G::kRawB : G::kRawB);
+  tma_load_2d(st + G::kRawA, wmap, bar, k, n0);
+  if (planes) tma_load_2d(st + G::kRawA + G::kRawB, smap, bar, k, n0);
 }
 
 __device__ __forceinline__ float4 add4(float4 a, float4 b) {
@@ -609,19 +692,26 @@ __device__ __forceinline__ float4 add4(float4 a, float4 b) {
 // from its own shared memory and adds bias and activation.
 //
 // Pipeline: the producer warp's first thread issues the W (weight) tiles of
-// the first `stages` stages, then waits for the grids before
-// (griddepcontrol.wait) and issues the A tiles, then refills each stage as the
-// consumers release it. The consumers split or round the weight tiles of
+// the first `stages` stages (on weight planes, `planes`: the big and the small
+// plane's tiles), then waits for the grids before (griddepcontrol.wait) and
+// issues the A tiles, then refills each stage as the consumers release it.
+// Without planes the consumers split (f32) or round (bf16) the weight tiles of
 // those stages before they wait for the grids before (so at B = 1 that work
-// overlaps the previous grid), then for each stage convert its A tile (and its
-// W tile, past the first `stages`) and run its products while the previous
-// stage's are still in flight (wgmma.wait_group 1); a stage is released once
-// its products are done.
+// overlaps the previous grid), and each later stage's W tile as it lands.
+// Then for each stage, f32: each warpgroup reads its A fragments from the raw
+// tile, splits them in registers and issues the stage's products in two
+// halves of two k-steps, each half while the one before is still in flight
+// (wgmma.wait_group 1), from two sets of fragment registers; bf16: the
+// consumers round the A tile in shared memory and issue the stage's products
+// while the previous stage's are in flight. A stage is released once its
+// products are done.
+// (64-row tiles: registers for three blocks a SM, as many as the plan puts there)
 template <bool BF16, int NC, int NB>
-__global__ void __launch_bounds__(Gemm<BF16, NC, NB>::kThreads, 1)
+__global__ void __launch_bounds__(Gemm<BF16, NC, NB>::kThreads, NC == 1 ? 3 : 1)
 encoder_layer_gemm(const __grid_constant__ CUtensorMap amap, const __grid_constant__ CUtensorMap wmap,
-                   const float* __restrict__ bias, float* __restrict__ out, int M, int N, int K,
-                   int kl, int act, int stages, int overlay, int grid) {
+                   const __grid_constant__ CUtensorMap smap, const float* __restrict__ bias,
+                   float* __restrict__ out, int M, int N, int K, int kl, int act, int stages,
+                   int overlay, int planes, int grid) {
   using G = Gemm<BF16, NC, NB>;
   extern __shared__ uint8_t smem[];
   cg::cluster_group cluster = cg::this_cluster();
@@ -662,8 +752,7 @@ encoder_layer_gemm(const __grid_constant__ CUtensorMap amap, const __grid_consta
     if (tid == G::kConsumers) {
       prefetch_map(&amap);
       for (int c = 0; c < pre; ++c) {
-        mbar_expect_tx(&full_w[c], G::kRawB);
-        tma_load_2d(ring + c * G::kStage + G::kRawA, &wmap, &full_w[c], k0 + kKc * c, n0);
+        load_w<G>(ring + c * G::kStage, &wmap, &smap, &full_w[c], k0 + kKc * c, n0, planes);
       }
       grid_dependency_wait();
       for (int c = 0; c < pre; ++c) {
@@ -674,42 +763,80 @@ encoder_layer_gemm(const __grid_constant__ CUtensorMap amap, const __grid_consta
         const int s = c % stages;
         uint8_t* st = ring + s * G::kStage;
         mbar_wait(&empty[s], (c / stages - 1) & 1);
-        mbar_expect_tx(&full_w[s], G::kRawB);
-        tma_load_2d(st + G::kRawA, &wmap, &full_w[s], k0 + kKc * c, n0);
+        load_w<G>(st, &wmap, &smap, &full_w[s], k0 + kKc * c, n0, planes);
         mbar_expect_tx(&full_a[s], G::kRawA);
         tma_load_2d(st, &amap, &full_a[s], k0 + kKc * c, m0);
       }
     }
     __syncwarp();
   } else {
-    for (int c = 0; c < pre; ++c) {  // weights only: before the wait
-      mbar_wait(&full_w[c], 0);
-      convert_w<BF16, NC, NB>(ring + c * G::kStage, tid);
+    if (!planes) {
+      for (int c = 0; c < pre; ++c) {  // weights only: before the wait
+        mbar_wait(&full_w[c], 0);
+        convert_w<BF16, NC, NB>(ring + c * G::kStage, tid);
+      }
     }
     grid_dependency_wait();  // nothing this grid writes may be read by the grids before
     launch_dependents();
     mark(grid, 1);
     const int wg = tid >> 7, lt = tid & 127;
-    for (int c = 0; c < nk; ++c) {
-      const int s = c % stages;
-      uint8_t* st = ring + s * G::kStage;
-      if (c >= pre) {
-        mbar_wait(&full_w[s], (c / stages) & 1);
-        convert_w<BF16, NC, NB>(st, tid);
+    if constexpr (BF16) {
+      for (int c = 0; c < nk; ++c) {
+        const int s = c % stages;
+        uint8_t* st = ring + s * G::kStage;
+        if (c >= pre) {
+          mbar_wait(&full_w[s], (c / stages) & 1);
+          convert_w<BF16, NC, NB>(st, tid);
+        }
+        mbar_wait(&full_a[s], (c / stages) & 1);
+        __syncwarp();
+        if (c == 0) mark(grid, 2);
+        convert_a_bf16<NC, NB>(st, tid);
+        fence_proxy_async();
+        consumer_sync(G::kConsumers);
+        fence_regs(acc);
+        wgmma_fence();
+        stage_products_bf16<NC, NB>(acc, smem_u32(st), wg);
+        wgmma_commit();
+        wgmma_wait<1>();  // the previous stage's products are done
+        fence_regs(acc);
+        if (c > 0 && lt == 0) mbar_arrive(&empty[(c - 1) % stages]);
       }
-      mbar_wait(&full_a[s], (c / stages) & 1);
-      __syncwarp();
-      if (c == 0) mark(grid, 2);
-      convert_a<BF16, NC, NB>(st, tid);
-      fence_proxy_async();
-      consumer_sync(G::kConsumers);
-      fence_regs(acc);
-      wgmma_fence();
-      stage_products<BF16, NC, NB>(acc, smem_u32(st), wg);
-      wgmma_commit();
-      wgmma_wait<1>();  // the previous stage's products are done
-      fence_regs(acc);
-      if (c > 0 && lt == 0) mbar_arrive(&empty[(c - 1) % stages]);
+    } else {
+      const int lane = tid & 31, g = lane >> 2, q = lane & 3;
+      const int r = 64 * wg + 16 * ((tid >> 5) & 3) + g;  // this thread's first A row
+      uint32_t hi[2][2][4], lo[2][2][4];  // the two halves' fragments
+      if (!planes) {  // the weight tiles split before the wait, for every warpgroup's products
+        fence_proxy_async();
+        consumer_sync(G::kConsumers);
+      }
+      for (int c = 0; c < nk; ++c) {
+        const int s = c % stages;
+        const uint32_t parity = (c / stages) & 1;
+        uint8_t* st = ring + s * G::kStage;
+        if (planes) {
+          mbar_wait(&full_w[s], parity);
+        } else if (c >= pre) {
+          mbar_wait(&full_w[s], parity);
+          convert_w<BF16, NC, NB>(st, tid);
+          fence_proxy_async();
+          consumer_sync(G::kConsumers);
+        }
+        mbar_wait(&full_a[s], parity);
+        __syncwarp();
+        if (c == 0) mark(grid, 2);
+        const uint8_t* row = st + r * 128;
+        const uint32_t whi = smem_u32(st) + G::kRawA, wlo = whi + G::kRawB;
+        a_fragments<0>(row, g, q, hi[0], lo[0]);
+        half_products<NB, 0>(acc, hi[0], lo[0], whi, wlo);
+        wgmma_wait<1>();  // the previous stage's products are done
+        fence_regs(acc);
+        if (c > 0 && lt == 0) mbar_arrive(&empty[(c - 1) % stages]);
+        a_fragments<1>(row, g, q, hi[1], lo[1]);
+        half_products<NB, 1>(acc, hi[1], lo[1], whi, wlo);
+        wgmma_wait<1>();  // this stage's first half is done
+        fence_regs(acc);
+      }
     }
     wgmma_wait<0>();
     fence_regs(acc);
@@ -1184,18 +1311,34 @@ encoder_layer_attention(const __grid_constant__ CUtensorMap qmap,
   mark(1, 4);
 }
 
+// ---- the weight planes ----------------------------------------------------------------
+// A weight matrix split once for 3xTF32, as convert_w splits a tile: big (the
+// top 19 bits) and small = w - big, n4 float4s of each.
+__global__ void __launch_bounds__(256)
+weight_planes_split(const float4* __restrict__ w, float4* __restrict__ big,
+                    float4* __restrict__ small, int n4) {
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n4; i += gridDim.x * blockDim.x) {
+    const float4 v = w[i], b = big4(v);
+    big[i] = b;
+    small[i] = sub4(v, b);
+  }
+}
+
 // ---- host side ----------------------------------------------------------------------
 
 // One step's plan, as ops/encoder_layer.py::plan gives it: consumer warpgroups
 // (rows 64 nc), n64 blocks a block (columns 64 nb), K splits (the cluster),
-// stages of the TMA ring (step 2: TMA buffers), key tile (step 2), and whether
-// a split grid's receive buffer lies over its ring (1) or beside it.
+// stages of the TMA ring (step 2: TMA buffers), key tile (step 2), whether a
+// split grid's receive buffer lies over its ring (1) or beside it, and whether
+// an f32 GEMM grid reads the weight planes (1) or splits its W tiles (0).
 struct GridPlan {
-  int nc, nb, ck, stages, kt, overlay;
+  int nc, nb, ck, stages, kt, overlay, planes;
 };
 
+// Bytes of a GEMM ring stage: raw A and W, then small W (f32) or A and W in bf16.
 size_t gemm_stage_bytes(bool bf16, int nc, int nb) {
-  return static_cast<size_t>(64) * (nc + nb) * (bf16 ? 192 : 256);
+  return bf16 ? static_cast<size_t>(64) * (nc + nb) * 192
+              : static_cast<size_t>(64) * (128 * nc + 256 * nb);
 }
 // k values of each of ck K slices (whole stages)
 int slice_k(int K, int ck) { return cdiv(cdiv(K, ck), kKc) * kKc; }
@@ -1209,7 +1352,8 @@ size_t grid_smem(int which, bool bf16, const GridPlan& p, int D, int H, int F) {
   const int hd = D / H;
   if (which == 2) {
     if (hd > kMaxHeadDim || p.nb != attention_nb(hd) || p.kt != attention_kt(hd) ||
-        p.stages < 1 || p.stages > 2 || p.overlay != 0 || p.nc < 1 || p.nc > 2 || p.ck != 1 ||
+        p.stages < 1 || p.stages > 2 || p.overlay != 0 || p.planes != 0 || p.nc < 1 ||
+        p.nc > 2 || p.ck != 1 ||
         (p.nc == 2 && (p.nb > 2 ||
                        attention_region(bf16, hd, p.stages) < attention_handoff(hd)))) {
       return 0;
@@ -1223,7 +1367,8 @@ size_t grid_smem(int which, bool bf16, const GridPlan& p, int D, int H, int F) {
                     (p.nc == 1 && p.nb == 1);
   if (!tile || p.ck < 1 || p.ck > kMaxCluster || cdiv(K, slice_k(K, p.ck)) != p.ck ||
       !ring_ok(p.stages, cdiv(slice_k(K, p.ck), kKc)) || p.stages > kMaxStages ||
-      p.overlay < 0 || p.overlay > (p.ck > 1 ? 1 : 0)) {
+      p.overlay < 0 || p.overlay > (p.ck > 1 ? 1 : 0) || p.planes < 0 ||
+      p.planes > (bf16 ? 0 : 1)) {
     return 0;
   }
   const size_t ring = p.stages * gemm_stage_bytes(bf16, p.nc, p.nb);
@@ -1298,9 +1443,14 @@ cudaError_t matrix_map(CUtensorMap* map, const float* ptr, int rows, int cols, i
   return tensor_map(map, ptr, 2, dims, strides, box);
 }
 
+// Floats of a layer's weight planes: big and small of Win (3D x D), Wout (D x
+// D), W1 (F x D) and W2 (D x F), in that order.
+size_t plane_floats(int D, int F) { return 2 * (static_cast<size_t>(4) * D * D + 2 * D * F); }
+
 // One layer's arguments, as dsg_encoder_layer takes them.
 struct LayerArgs {
   const float *x, *w_in, *b_in, *w_out, *b_out, *ln1_w, *ln1_b, *w1, *b1, *w2, *b2, *ln2_w, *ln2_b;
+  const float* planes;  // the layer's weight planes (plane_floats), or null
   float *work, *out;
   int B, T, D, H, F, act;
   float scale, eps;
@@ -1365,20 +1515,26 @@ cudaError_t launch(dim3 grid, int threads, size_t smem, int cluster, cudaStream_
 }
 
 // out (M, N) = act(A (M, K) W (N, K)^T + bias); `grid` numbers its phase marks.
+// On weight planes (p.planes) W's big plane is at `planes`, its small plane
+// N K floats further on; otherwise the grid splits or rounds W itself.
 template <bool BF16>
 cudaError_t run_gemm(const GridPlan& p, size_t smem, const float* A, const float* W,
-                     const float* bias, float* out, int M, int N, int K, int act, int grid,
-                     cudaStream_t stream) {
-  CUtensorMap am, wm;
+                     const float* planes, const float* bias, float* out, int M, int N, int K,
+                     int act, int grid, cudaStream_t stream) {
+  CUtensorMap am, wm, sm;
   cudaError_t e = matrix_map(&am, A, M, K, 64 * p.nc);
-  if (e == cudaSuccess) e = matrix_map(&wm, W, N, K, 64 * p.nb);
+  if (e == cudaSuccess) e = matrix_map(&wm, p.planes ? planes : W, N, K, 64 * p.nb);
+  if (e == cudaSuccess) {
+    if (p.planes) e = matrix_map(&sm, planes + static_cast<size_t>(N) * K, N, K, 64 * p.nb);
+    else sm = wm;  // not read
+  }
   if (e != cudaSuccess) return e;
   const dim3 g(cdiv(M, 64 * p.nc) * p.ck, cdiv(N, 64 * p.nb));
   const int key = 10 * p.nc + p.nb, kl = slice_k(K, p.ck);
 #define DSG_GEMM(NC, NB)                                                                      \
   launch<encoder_layer_gemm<BF16, NC, NB>>(g, Gemm<BF16, NC, NB>::kThreads, smem, p.ck, stream, \
-                                           am, wm, bias, out, M, N, K, kl, act, p.stages,      \
-                                           p.overlay, grid)
+                                           am, wm, sm, bias, out, M, N, K, kl, act, p.stages,  \
+                                           p.overlay, p.planes, grid)
   if (key == 22) return DSG_GEMM(2, 2);
   if (key == 12) return DSG_GEMM(1, 2);
   return DSG_GEMM(1, 1);
@@ -1440,22 +1596,30 @@ cudaError_t launch_step(int which, const LayerArgs& a, const GridPlan* plan, cud
   float* hid = y + static_cast<size_t>(M) * D;
   const GridPlan& p = plan[which - 1];
   const size_t smem = grid_smem(which, BF16, p, D, a.H, F);
-  if (smem == 0 || smem > kSmemLimit) return cudaErrorInvalidValue;
+  if (smem == 0 || smem > kSmemLimit || (p.planes && a.planes == nullptr)) {
+    return cudaErrorInvalidValue;
+  }
+  // each matrix's big plane (its small plane follows it)
+  const float* pin = a.planes;
+  const float* pout = pin + static_cast<size_t>(6) * D * D;
+  const float* p1 = pout + static_cast<size_t>(2) * D * D;
+  const float* p2 = p1 + static_cast<size_t>(2) * F * D;
   switch (which) {
     case 1:
-      return run_gemm<BF16>(p, smem, a.x, a.w_in, a.b_in, qkv, M, 3 * D, D, kNone, 0, stream);
+      return run_gemm<BF16>(p, smem, a.x, a.w_in, pin, a.b_in, qkv, M, 3 * D, D, kNone, 0,
+                            stream);
     case 2:
       return run_attention<BF16>(p, smem, a, qkv, attn, stream);
     case 3: {  // s (in qkv's place: attention has read it) = attn Wout^T + bout; y = LN1(x + s)
-      const cudaError_t e =
-          run_gemm<BF16>(p, smem, attn, a.w_out, a.b_out, qkv, M, D, D, kNone, 2, stream);
+      const cudaError_t e = run_gemm<BF16>(p, smem, attn, a.w_out, pout, a.b_out, qkv, M, D, D,
+                                           kNone, 2, stream);
       return e != cudaSuccess ? e : run_norm(qkv, a.x, a.ln1_w, a.ln1_b, y, M, D, a.eps, stream);
     }
     case 4:
-      return run_gemm<BF16>(p, smem, y, a.w1, a.b1, hid, M, F, D, a.act, 3, stream);
+      return run_gemm<BF16>(p, smem, y, a.w1, p1, a.b1, hid, M, F, D, a.act, 3, stream);
     case 5: {  // s (in qkv's place) = h W2^T + b2; out = LN2(y + s)
       const cudaError_t e =
-          run_gemm<BF16>(p, smem, hid, a.w2, a.b2, qkv, M, D, F, kNone, 4, stream);
+          run_gemm<BF16>(p, smem, hid, a.w2, p2, a.b2, qkv, M, D, F, kNone, 4, stream);
       return e != cudaSuccess ? e : run_norm(qkv, y, a.ln2_w, a.ln2_b, a.out, M, D, a.eps, stream);
     }
     default:
@@ -1468,8 +1632,8 @@ cudaError_t launch_step(int which, const LayerArgs& a, const GridPlan* plan, cud
 cudaError_t run(int which, bool bf16, const LayerArgs& a, const int* plan_ints,
                 cudaStream_t stream) {
   // TMA and the 16-byte loads and stores need 16-byte aligned rows and vectors
-  const void* ptrs[] = {a.x,  a.w_in, a.b_in, a.w_out, a.b_out, a.ln1_w, a.ln1_b, a.w1,
-                        a.b1, a.w2,   a.b2,   a.ln2_w, a.ln2_b, a.work,  a.out};
+  const void* ptrs[] = {a.x,  a.w_in, a.b_in,  a.w_out, a.b_out, a.ln1_w, a.ln1_b, a.w1,
+                        a.b1, a.w2,   a.b2,    a.ln2_w, a.ln2_b, a.planes, a.work, a.out};
   for (const void* p : ptrs) {
     if (reinterpret_cast<size_t>(p) % 16) return cudaErrorMisalignedAddress;
   }
@@ -1481,7 +1645,7 @@ cudaError_t run(int which, bool bf16, const LayerArgs& a, const int* plan_ints,
   GridPlan plan[kSteps];
   for (int g = 0; g < kSteps; ++g) {
     const int* v = plan_ints + kPlanInts * g;
-    plan[g] = GridPlan{v[0], v[1], v[2], v[3], v[4], v[5]};
+    plan[g] = GridPlan{v[0], v[1], v[2], v[3], v[4], v[5], v[6]};
   }
   for (int g = which ? which : 1; g <= (which ? which : kSteps); ++g) {
     const cudaError_t e = bf16 ? launch_step<true>(g, a, plan, stream)
@@ -1497,12 +1661,12 @@ cudaError_t run(int which, bool bf16, const LayerArgs& a, const int* plan_ints,
 extern "C" int dsg_encoder_layer_steps() { return kSteps; }
 
 // Dynamic shared memory (bytes) of step `which`'s GEMM or attention grid (1..5)
-// under its plan (six ints, as ops/encoder_layer.py::plan gives them), 0 when
+// under its plan (seven ints, as ops/encoder_layer.py::plan gives them), 0 when
 // this source refuses the plan at this shape.
 extern "C" size_t dsg_encoder_layer_grid_smem(int which, int bf16, const int* plan, int D, int H,
                                               int F) {
   if (which < 1 || which > kSteps || H < 1 || D % H) return 0;
-  const GridPlan p{plan[0], plan[1], plan[2], plan[3], plan[4], plan[5]};
+  const GridPlan p{plan[0], plan[1], plan[2], plan[3], plan[4], plan[5], plan[6]};
   return grid_smem(which, bf16 != 0, p, D, H, F);
 }
 
@@ -1511,23 +1675,58 @@ extern "C" size_t dsg_encoder_layer_workspace_floats(int B, int T, int D, int F)
   return static_cast<size_t>(B) * T * (5 * D + F);
 }
 
+// Floats of a layer's weight planes (dsg_encoder_layer_split).
+extern "C" size_t dsg_encoder_layer_plane_floats(int D, int F) { return plane_floats(D, F); }
+
+// Splits the layer's four weight matrices (nn.Linear layout, f32) into
+// `planes` (dsg_encoder_layer_plane_floats(D, F) floats, 16-byte aligned), on
+// `stream`. Returns the first CUDA error (0 on success).
+extern "C" int dsg_encoder_layer_split(const float* w_in, const float* w_out, const float* w1,
+                                       const float* w2, float* planes, int D, int F,
+                                       cudaStream_t stream) {
+  if (D < 4 || F < 4 || D % 4 || F % 4 || D > kMaxWidth) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const float* src[4] = {w_in, w_out, w1, w2};
+  const size_t n[4] = {static_cast<size_t>(3) * D * D, static_cast<size_t>(D) * D,
+                       static_cast<size_t>(F) * D, static_cast<size_t>(D) * F};
+  // Win first: the layer's first grid may begin (programmatic dependent launch)
+  // before the last split ends, and before it waits it reads Win's planes only
+  float* dst = planes;
+  for (int i = 0; i < 4; ++i) {
+    if (reinterpret_cast<size_t>(src[i]) % 16 || reinterpret_cast<size_t>(dst) % 16) {
+      return static_cast<int>(cudaErrorMisalignedAddress);
+    }
+    const int n4 = static_cast<int>(n[i] / 4);
+    weight_planes_split<<<std::min(cdiv(n4, 256), 1024), 256, 0, stream>>>(
+        reinterpret_cast<const float4*>(src[i]), reinterpret_cast<float4*>(dst),
+        reinterpret_cast<float4*>(dst + n[i]), n4);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+    dst += 2 * n[i];
+  }
+  return 0;
+}
+
 // x, out: (B, T, D) float32, D <= 1024, head dim D / H <= 256. Weights in
-// nn.Linear (out, in) layout, float32. act: 0 none, 1 erf GELU, 2 tanh GELU,
-// 3 ReLU. bf16: 0 for the f32 (3xTF32) mode, 1 for the mxu_bf16 mode. `work`
-// holds dsg_encoder_layer_workspace_floats(B, T, D, F) floats. `plan`: five
-// steps x six ints (ops/encoder_layer.py::plan). `which` is 0 for the whole
-// layer (five steps, seven grids, in order), or 1..5 for that step alone, for
-// timing.
+// nn.Linear (out, in) layout, float32. `planes`: the layer's weight planes
+// (dsg_encoder_layer_split), read by the GEMM grids whose plan says so; may be
+// null when none does. act: 0 none, 1 erf GELU, 2 tanh GELU, 3 ReLU. bf16: 0
+// for the f32 (3xTF32) mode, 1 for the mxu_bf16 mode. `work` holds
+// dsg_encoder_layer_workspace_floats(B, T, D, F) floats. `plan`: five steps x
+// seven ints (ops/encoder_layer.py::plan). `which` is 0 for the whole layer
+// (five steps, seven grids, in order), or 1..5 for that step alone, for timing.
 // Returns the first CUDA error of the launches (0 on success).
 extern "C" int dsg_encoder_layer(int which, const float* x, const float* w_in, const float* b_in,
                                  const float* w_out, const float* b_out, const float* ln1_w,
                                  const float* ln1_b, const float* w1, const float* b1,
                                  const float* w2, const float* b2, const float* ln2_w,
-                                 const float* ln2_b, float* work, float* out, int B, int T,
-                                 int D, int H, int F, int act, int bf16, float attn_scale,
-                                 float eps, const int* plan, cudaStream_t stream) {
-  const LayerArgs a{x,  w_in, b_in, w_out, b_out, ln1_w, ln1_b, w1, b1, w2, b2, ln2_w, ln2_b,
-                    work, out, B, T, D, H, F, act, attn_scale, eps};
+                                 const float* ln2_b, const float* planes, float* work, float* out,
+                                 int B, int T, int D, int H, int F, int act, int bf16,
+                                 float attn_scale, float eps, const int* plan,
+                                 cudaStream_t stream) {
+  const LayerArgs a{x,  w_in, b_in,  w_out, b_out, ln1_w, ln1_b, w1, b1, w2, b2, ln2_w, ln2_b,
+                    planes, work, out, B, T, D, H, F, act, attn_scale, eps};
   return static_cast<int>(run(which, bf16 != 0, a, plan, stream));
 }
 

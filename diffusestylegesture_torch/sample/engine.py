@@ -318,7 +318,7 @@ class _WindowSampler:
         seeds = [seed0(lane) for lane in lanes]
         pieces: List[List[torch.Tensor]] = [[] for _ in lanes]
         meshed = len(lanes) > 1 or lanes[0].rows is not None
-        launches = [[0, 0, 0] for _ in lanes]
+        launches = [[0] * len(launch_counts()) for _ in lanes]
 
         def on_lane(j, fn):
             """fn() on lane j's card, its launches added to the lane's count."""

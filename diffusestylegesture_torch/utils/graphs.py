@@ -60,19 +60,20 @@ def _collector_paused():
             gc.enable()
 
 
-def launch_counts() -> Tuple[int, int, int]:
-    """(local attention, encoder layer f32, encoder layer bf16) launches."""
-    return _la.launches, _el.launches, _el.launches_bf16
+def launch_counts() -> Tuple[int, int, int, int]:
+    """(local attention, encoder layer f32, encoder layer bf16) launches, and
+    the encoder layer's f32 GEMM grids that ran on weight planes."""
+    return _la.launches, _el.launches, _el.launches_bf16, _el.launches_planes
 
 
-def _set_launch_counts(counts: Tuple[int, int, int]) -> None:
-    _la.launches, _el.launches, _el.launches_bf16 = counts
+def _set_launch_counts(counts: Tuple[int, int, int, int]) -> None:
+    _la.launches, _el.launches, _el.launches_bf16, _el.launches_planes = counts
 
 
 class StepGraph:
     """One captured function. `replay(n)` runs it n times on the current stream."""
 
-    def __init__(self, graph: torch.cuda.CUDAGraph, launches: Tuple[int, int, int]):
+    def __init__(self, graph: torch.cuda.CUDAGraph, launches: Tuple[int, int, int, int]):
         self.graph = graph
         self.launches = launches
 

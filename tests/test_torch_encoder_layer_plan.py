@@ -45,9 +45,12 @@ def test_plan_fits_and_covers(shape, mxu_bf16):
         # a split grid of more blocks than SMs lays its receive buffer over its ring
         assert g.overlay in ((0, 1) if g.ck > 1 else (0,))
         assert g.overlay or g.ck == 1 or g.blocks <= el.SMS
+        # float32 grids read the weight planes where enough row tiles share a weight tile
+        assert g.planes == int(not mxu_bf16 and -(-M // (64 * g.nc)) >= el.PLANES_MIN_ROW_TILES)
+        assert g.ints() == [g.nc, g.nb, g.ck, g.stages, g.kt, g.overlay, g.planes]
     assert attn.kt * -(-T // attn.kt) >= T and 64 * attn.nb >= hd
     assert attn.blocks == B * H * -(-T // 64)
-    assert attn.stages in (1, 2)
+    assert attn.stages in (1, 2) and attn.planes == 0
     # key tiles over two warpgroups only where the grid fills half the SMs at most
     assert attn.nc == 1 or (attn.nc == 2 and 2 * attn.blocks <= el.SMS and T > attn.kt
                             and attn.nb <= 2)
@@ -74,6 +77,28 @@ def test_plan_takes_wide_tiles_at_large_batches_and_splits_k_at_small_ones():
         for g in el.plan(B, T, D, 4, 1024):
             if g.name != "attention":
                 assert g.ck == 1 or g.blocks <= 3 * el.SMS
+
+
+def test_plan_reads_weight_planes_where_many_row_tiles_share_a_weight_tile():
+    """Float32 GEMM grids on weight planes at the server's batch and the
+    distillation teacher's (and the text-to-motion trunk's), splitting their
+    weight tiles in shared memory at B = 1; never in bf16. Both ways at one
+    shape (`_plan(..., planes=)`) take the same tiles, stages and shared memory."""
+    def on_planes(B, T, D, bf16=False):
+        return [g.planes for g in el.plan(B, T, D, 4, 1024, bf16) if g.name != "attention"]
+
+    for B, T, D in ((16, 89, 256), (300, 89, 256), (6, 197, 512), (64, 197, 512)):
+        assert on_planes(B, T, D) == [1, 1, 1, 1]
+        assert on_planes(B, T, D, True) == [0, 0, 0, 0]
+    for B, T, D in ((1, 89, 256), (1, 151, 512), (1, 151, 384)):
+        assert on_planes(B, T, D) == [0, 0, 0, 0]
+    for shape in PORT_SHAPES:
+        grids = {way: el._plan(*shape, False, el.SMS, way)[0] for way in (True, False)}
+        for a, b in zip(grids[True], grids[False]):
+            assert (a.nc, a.nb, a.ck, a.stages, a.blocks, a.smem, a.overlay) == \
+                (b.nc, b.nb, b.ck, b.stages, b.blocks, b.smem, b.overlay)
+            assert (a.planes, b.planes) == ((0, 0) if a.name == "attention" else (1, 0))
+    assert el.describe_plan(16, 89, 256, 4, 1024)["qkv"]["planes"] == 1
 
 
 def test_plan_is_looked_up_once_a_shape():

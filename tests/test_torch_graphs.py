@@ -107,14 +107,14 @@ def test_cuda_graph_equals_eager(card, sampler, steps, guidance):
     assert np.array_equal(g[0], e[0])
     assert torch.equal(g[2], e[2])  # the generator advanced alike
     calls = 3 * (steps + (1 if sampler == "plms" else 0))
-    assert g[1] == e[1] == (calls, 2 * calls, 0)
+    assert g[1] == e[1] and g[1][:3] == (calls, 2 * calls, 0)
 
 
 @pytest.mark.cuda
 def test_cuda_graph_equals_eager_ddpm1000_batched(card):
     out = _both(card, "ddpm", 1000, styles=(0, 4))
     assert np.array_equal(out["graph"][0], out["eager"][0])
-    assert out["graph"][1] == out["eager"][1] == (3000, 6000, 0)
+    assert out["graph"][1] == out["eager"][1] and out["graph"][1][:3] == (3000, 6000, 0)
 
 
 @pytest.mark.cuda
@@ -150,7 +150,7 @@ def test_cuda_graph_is_reused_across_calls(card):
 def test_cuda_serve_fast_within_bf16_gate(card):
     res = {name: _both(card, "dpmpp", 5, model=name)["graph"] for name in ("f32", "bf16")}
     f32, bf16 = res["f32"][0], res["bf16"][0]
-    assert res["bf16"][1] == (15, 0, 30)  # kernel B in its bf16 mode only
+    assert res["bf16"][1] == (15, 0, 30, 0)  # kernel B in its bf16 mode only, no weight planes
     err = float(np.sqrt(np.mean((bf16 - f32) ** 2)) / f32.std())
     assert err <= BF16_TOL
 
@@ -351,8 +351,9 @@ def test_cuda_captured_distillation_step_equals_eager(card):
         mid = graphs.launch_counts()
         loss_c = run()["loss"]
         after = graphs.launch_counts()
-        assert tuple(b - a for a, b in zip(before, mid)) == (2, 4, 0)  # 2 teacher calls
-        assert tuple(b - a for a, b in zip(mid, after)) == (2, 4, 0), i
+        eager_counts = tuple(b - a for a, b in zip(before, mid))
+        assert eager_counts[:3] == (2, 4, 0)  # 2 teacher calls
+        assert tuple(b - a for a, b in zip(mid, after)) == eager_counts, i
         assert torch.equal(loss_e, loss_c)
     torch.cuda.synchronize()
     _assert_states_equal(eager, captured)
@@ -450,7 +451,7 @@ def test_cuda_beat_graph_equals_eager(card, variant, guidance):
     assert gs.graphs and not es.graphs and gs.capture_seconds > 0
     assert g[0].shape == (1, 300, 24) and np.isfinite(g[0]).all()
     assert np.array_equal(g[0], e[0])
-    assert gc == ec == (3 * 5, 2 * 3 * 5, 0)
+    assert gc == ec and gc[:3] == (3 * 5, 2 * 3 * 5, 0)
 
 
 @pytest.mark.cuda

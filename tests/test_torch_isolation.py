@@ -482,6 +482,130 @@ def test_cuda_encoder_layer_wgmma_design_matches_plain(cuda_device, activation, 
     assert (out - ref).abs().max().item() <= (1e-2 if mxu_bf16 else 1e-4)
 
 
+# kernel B's two weight paths in float32: the GEMM grids read the weight planes
+# (split once per weight version) or split each weight tile in shared memory;
+# the server's batch, the distillation teacher's, TWH at B = 1 and text-to-motion
+W_PATH_SHAPES = [(16, 89, 256), (300, 89, 256), (1, 151, 512), (6, 197, 512)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", W_PATH_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_cuda_encoder_layer_weight_paths_match_plain(cuda_device, shape):
+    """Every GEMM grid on weight planes, then every one splitting its weight
+    tiles (the plan built both ways through `_plan`): each within 1e-4 of the
+    plain layer, repeat calls bitwise equal, and the two paths bitwise equal
+    (the same operand bits, the same products in the same order)."""
+    B, T, D = shape
+    torch.manual_seed(0)
+    layer = TorchEncoderLayer(D, 4, 1024).to(cuda_device).eval()
+    x = torch.randn(B, T, D, device=cuda_device)
+    sms = ops_encoder_layer.sm_count(cuda_device.index)
+    outs = {}
+    with torch.no_grad():
+        ref = layer(x)
+        for way in (True, False):
+            grids, ints = ops_encoder_layer._plan(B, T, D, 4, 1024, False, sms, way)
+            assert [g.planes for g in grids] == [int(way), 0, int(way), int(way), int(way)]
+            before = ops_encoder_layer.launches_planes
+            out = ops_encoder_layer._run(x, layer, False, grids, ints)
+            again = ops_encoder_layer._run(x, layer, False, grids, ints)
+            assert ops_encoder_layer.launches_planes == before + 8 * way
+            assert torch.equal(out, again)
+            assert (out - ref).abs().max().item() <= 1e-4
+            outs[way] = out
+    assert torch.equal(outs[True], outs[False])
+
+
+@pytest.mark.cuda
+def test_cuda_encoder_layer_weight_planes_follow_an_in_place_update(cuda_device):
+    """An in-place weight update, then an eager call: the planes are split
+    again into the same storage and the layer gives the new weights' result."""
+    torch.manual_seed(0)
+    layer = TorchEncoderLayer(256, 4, 1024).to(cuda_device).eval()
+    x = torch.randn(16, 89, 256, device=cuda_device)
+    assert all(g.planes for g in ops_encoder_layer.plan(16, 89, 256, 4, 1024)
+               if g.name != "attention")
+    weights = ops_encoder_layer.layer_weights
+    with torch.no_grad():
+        first = ops_encoder_layer.encoder_layer(x, layer)
+        splits = ops_encoder_layer.splits
+        planes = ops_encoder_layer.weight_planes(layer, weights(layer), cuda_device)
+        ptr = planes.data_ptr()
+        assert ops_encoder_layer.splits == splits  # held: no split
+        layer.linear1.weight.mul_(0.5)
+        layer.self_attn.in_proj_weight.add_(0.01)
+        second = ops_encoder_layer.encoder_layer(x, layer)
+        assert ops_encoder_layer.splits == splits + 1
+        assert ops_encoder_layer.weight_planes(layer, weights(layer), cuda_device).data_ptr() == ptr
+        assert (second - layer(x)).abs().max().item() <= 1e-4
+        assert (second - first).abs().max().item() > 1e-2
+        assert torch.equal(ops_encoder_layer.encoder_layer(x, layer), second)
+    assert ops_encoder_layer.splits == splits + 1
+
+
+@pytest.mark.cuda
+def test_cuda_captured_zeggs_denoiser_at_b16_replays_on_weight_planes(cuda_device):
+    """The ZEGGS denoiser at the server's batch of 16, captured as a CUDA
+    graph: the capture's warm-up splits each layer's weights once, the
+    capture and its replays split none, and each replay counts four GEMM
+    grids on weight planes for each of its eight kernel-B launches; replays
+    equal the eager call bitwise."""
+    from diffusestylegesture_torch.utils import graphs
+
+    torch.manual_seed(0)
+    model = MDM(MDMConfig()).to(cuda_device).eval()
+    g = torch.Generator().manual_seed(1)
+    B = 16
+    x = torch.randn(B, 1141, 1, 88, generator=g).to(cuda_device)
+    cond = {"style": torch.eye(6)[torch.arange(B) % 6].to(cuda_device),
+            "seed": torch.randn(B, 1141, 1, 8, generator=g).to(cuda_device),
+            "audio": torch.randn(B, 88, 1024, generator=g).to(cuda_device),
+            "mask_local": torch.ones(B, 88, dtype=torch.bool, device=cuda_device)}
+    t = torch.full((B,), 500, device=cuda_device)
+    gs = graphs.GraphSet(cuda_device)
+    splits = ops_encoder_layer.splits
+    with torch.no_grad():
+        graph, out = gs.capture(lambda: model(x, t, cond))
+        assert ops_encoder_layer.splits == splits + 8  # the warm-up, one a layer
+        before = graphs.launch_counts()
+        graph.replay(3)
+        torch.cuda.synchronize()
+        counts = tuple(b - a for a, b in zip(before, graphs.launch_counts()))
+        assert counts == (3, 24, 0, 96)  # 32 GEMM grids on weight planes a call
+        assert ops_encoder_layer.splits == splits + 8
+        assert torch.equal(out, model(x, t, cond))
+
+
+@pytest.mark.cuda
+def test_cuda_encoder_layer_refuses_to_split_inside_a_capture(cuda_device):
+    """A layer whose planes are not built raises in a capture rather than
+    splitting there (in a subprocess: a failed capture leaves PyTorch's
+    default CUDA generator in capture mode)."""
+    code = (
+        "import torch\n"
+        "from diffusestylegesture_torch import resolve_device\n"
+        "from diffusestylegesture_torch.models.transformer import TorchEncoderLayer\n"
+        "from diffusestylegesture_torch.ops import encoder_layer as el\n"
+        "dev = resolve_device('cuda')\n"
+        "layer = TorchEncoderLayer(256, 4, 1024).to(dev).eval()\n"
+        "x = torch.randn(16, 89, 256, device=dev)\n"
+        "graph, stream = torch.cuda.CUDAGraph(), torch.cuda.Stream(dev)\n"
+        "with torch.no_grad():\n"
+        "    el.encoder_layer(x[:1], layer)\n"  # B = 1 splits in shared memory: no planes
+        "    assert el.splits == 0\n"
+        "    try:\n"
+        "        with torch.cuda.graph(graph, stream=stream):\n"
+        "            el.encoder_layer(x, layer)\n"
+        "    except RuntimeError as e:\n"
+        "        print('refused:', e)\n"
+        "print('splits', el.splits)\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                         timeout=300)
+    assert "refused: encoder_layer: the layer's weight planes would be split inside a CUDA " \
+           "graph capture" in res.stdout, res.stdout + res.stderr
+    assert "splits 0" in res.stdout, res.stdout + res.stderr
+
+
 @pytest.mark.cuda
 def test_cuda_encoder_layer_source_takes_the_plans(cuda_device):
     """The CUDA source computes each grid's shared memory from the plan as
@@ -499,8 +623,14 @@ def test_cuda_encoder_layer_source_takes_the_plans(cuda_device):
                 ints = (ctypes.c_int * ops_encoder_layer.PLAN_INTS)(*g.ints())
                 assert lib.dsg_encoder_layer_grid_smem(i + 1, int(bf16), ctypes.addressof(ints),
                                                        D, H, F) == g.smem, (B, T, D, H, F, g)
-    bad = (ctypes.c_int * ops_encoder_layer.PLAN_INTS)(2, 4, 1, 3, 0, 0)  # 128 x 256: none
+    bad = (ctypes.c_int * ops_encoder_layer.PLAN_INTS)(2, 4, 1, 3, 0, 0, 0)  # 128 x 256: none
     assert lib.dsg_encoder_layer_grid_smem(1, 0, ctypes.addressof(bad), 256, 4, 1024) == 0
+    # weight planes: float32 GEMM grids only
+    for which, bf16 in ((1, 1), (2, 0)):
+        grid = ops_encoder_layer.plan(16, 89, 256, 4, 1024, bool(bf16))[which - 1]
+        ints = (ctypes.c_int * ops_encoder_layer.PLAN_INTS)(*grid.ints()[:-1], 1)
+        assert lib.dsg_encoder_layer_grid_smem(which, bf16, ctypes.addressof(ints),
+                                               256, 4, 1024) == 0
 
 
 @pytest.mark.cuda

@@ -88,7 +88,7 @@ def test_cuda_server_kernel_path_matches_plain_path(card):
         if impl == "kernel":
             assert launched[0] > 0 and launched[1] > 0
         else:
-            assert launched == (0, 0, 0)
+            assert launched == (0, 0, 0, 0)
     for k, p in zip(outs["kernel"], outs["plain"]):
         assert k.shape == p.shape and np.isfinite(k).all()
         assert _rel(k, p) < 2e-3
