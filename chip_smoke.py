@@ -2909,17 +2909,18 @@ def phase_t2m(dev, tmp, card):
                             capture_s=generate.LAST_RUN["capture_seconds"], cli_wall_s=wall,
                             key_tile=el.key_tile(512, 4))
         print(f"t2m generate {name} [{card}]: {json.dumps(served[name])}")
-    # the same 9.8 s DDPM run through the eager loop (`sample_t2m(graphs=False)`,
-    # the CLI's seed): its features bitwise equal to the CLI's on graphs
+    # the same 9.8 s DDPM run through the eager loop (`TextMotionSampler(...,
+    # graphs=False)`, the CLI's seed): its features bitwise equal to the CLI's on graphs
+    from diffusestylegesture_torch.sample import TextMotionSampler
+
     with open(os.path.join(save, "t2m_config.json")) as f:
         spec = json.load(f)
     encode, _ = caption_encoder_from_spec(spec["clip"], save, dev)
-    emb = torch.from_numpy(np.tile(encode([T2M_PROMPT]), (3, 1))).to(dev)
     cfg, model = generate.load_t2m_model(save, dev)
     _, plain = generate.load_t2m_model(save, dev, impl="plain")
-    (eager, _), wall, counts = counted(lambda: generate.sample_t2m(
-        model, generate.make_schedule(cfg, 0, dev), emb, 196, sampler="ddpm", seed=10,
-        graphs=False))
+    emb = torch.from_numpy(np.tile(encode([T2M_PROMPT]), (3, 1))).to(dev)
+    eager, wall, counts = counted(lambda: TextMotionSampler(
+        model, encode, generate.make_schedule(cfg, 0, dev), graphs=False).sample(emb, 196, 10))
     feats = eager[:, :, 0, :].transpose(1, 2).cpu().numpy() * np.load(cfg["std"]) \
         + np.load(cfg["mean"])
     check(np.array_equal(feats, np.load(os.path.join(outs["ddpm_9.8s"], "results_feats.npy"))),
@@ -2928,9 +2929,9 @@ def phase_t2m(dev, tmp, card):
                                      bitwise_equal_to_graphs=True)
     # the kernel path against the plain path on the same noise (DDIM 50, 9.8 s)
     sched = generate.make_schedule(cfg, T2M_RESPACE, dev)
-    kernel_out, _ = generate.sample_t2m(model, sched, emb, 196, sampler="ddim", seed=SEED)
-    plain_out, _ = generate.sample_t2m(plain, sched, emb, 196, sampler="ddim", seed=SEED,
-                                       graphs=False)
+    kernel_out = TextMotionSampler(model, encode, sched, "ddim").sample(emb, 196, SEED)
+    plain_out = TextMotionSampler(plain, encode, sched, "ddim", graphs=False).sample(
+        emb, 196, SEED)
     kp_err = rel(kernel_out.cpu().numpy(), plain_out.cpu().numpy())
     check(kp_err <= E2E_REL, f"t2m kernel path vs plain path: rel {kp_err}")
     served["kernel_vs_plain_ddim50_rel"] = kp_err

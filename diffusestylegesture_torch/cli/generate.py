@@ -9,15 +9,15 @@ sampling over the `TextMDM` denoiser -> inverse z-normalisation ->
 (`generate.py:139-175`), and with --save_feats the de-normalised hml_vec
 features (`results_feats.npy`) that the T2M evaluators embed.
 
-Every repetition runs in one batch, and CFG runs the cond and uncond passes as
-one doubled batch (`diffusion/sampling.py::make_cfg_model_fn`), so one
-denoiser call is 2 x repetitions x prompts rows. The loop (ddpm / ddim /
-plms / dpmpp, --respace) is the port's `SampleProgram`; on the card each of
-its step functions is captured once as a CUDA graph and replayed
-(`utils/graphs.py::GraphSet`), and the trunk's 8 layers run kernel B, whose
-key-tiled attention grid takes the full 9.8 s (T = 197 with the token).
-`sample_t2m(..., graphs=False)` runs the same functions eagerly (the
-comparison path, bitwise equal).
+The prompts go through `sample/engine_t2m.py::TextMotionSampler`: every
+repetition runs in one batch, and CFG runs the cond and uncond passes as one
+doubled batch, so one denoiser call is 2 x repetitions x prompts rows. The
+loop (ddpm / ddim / plms / dpmpp, --respace) is the port's `SampleProgram`;
+on the card its step functions are captured once as CUDA graphs and replayed,
+and the trunk's 8 layers run kernel B, whose key-tiled attention grid takes
+the full 9.8 s (T = 197 with the token). `TextMotionSampler(...,
+graphs=False)` runs the same functions eagerly (the comparison path, bitwise
+equal). The closing line prints the engine's counters.
 
 `--model_path` is a `cli/train_t2m.py` save dir (`t2m_config.json` + step
 dirs of `model.pt` [`model_ema.pt`]); a JAX save dir serves once
@@ -34,20 +34,20 @@ import argparse
 import json
 import os
 import time
-from typing import Dict, Optional
+from typing import Dict
 
 import numpy as np
 import torch
 
 from .. import diffusion as D
 from ..device import resolve_device
-from ..diffusion.sampling import PROGRAMS, SamplerConfig, make_cfg_model_fn
 from ..models.clip_text import caption_encoder_from_spec
 from ..models.mdm_text import TextMDM, TextMDMConfig
 from ..motion.humanml import recover_from_ric
-from ..utils.graphs import GraphSet
+from ..sample.engine_t2m import TextMotionSampler
 
-# timings of the last `main` call: capture and sampling seconds
+# timings of the last `main` call: seconds to generate (prompts encoded, motions
+# sampled) and, of those, to capture graphs
 LAST_RUN: Dict[str, float] = {}
 
 
@@ -90,49 +90,6 @@ def make_schedule(cfg: dict, respace: int, device) -> D.Schedule:
     return D.Schedule.create(betas, device=device)
 
 
-def sample_t2m(model: TextMDM, sched: D.Schedule, text_emb: torch.Tensor, n_frames: int, *,
-               sampler: str = "ddpm", guidance: float = 2.5, seed: int = 10,
-               graphs: Optional[bool] = None, noise: Optional[torch.Tensor] = None):
-    """(B, njoints, 1, n_frames) samples for the (B, clip_dim) text embeddings,
-    and the seconds spent capturing graphs. graphs: None = on a CUDA device."""
-    dev = text_emb.device
-    graphs = dev.type == "cuda" if graphs is None else graphs
-    B = text_emb.shape[0]
-    cond = {"text_emb": text_emb}
-
-    def model_apply(_params, x, t, c, uncond=None):
-        return model(x, t, c, uncond=uncond)
-
-    if guidance != 1.0:
-        model_fn = make_cfg_model_fn(model_apply, guidance, B, params=None, cond=cond)
-    else:
-        def model_fn(x, t):
-            return model(x, t, cond)
-
-    generator = torch.Generator(device=dev).manual_seed(seed)
-    prog = PROGRAMS[sampler](sched, model_fn, (B, model.cfg.njoints, 1, n_frames), generator,
-                             cfg=SamplerConfig())
-    capture_s = 0.0
-    with torch.no_grad():
-        if graphs:
-            graph_set, captured, step = GraphSet(dev, [generator]), [], prog.t0
-            state = generator.get_state()
-            for phase in prog.phases:
-                graph, _ = graph_set.capture(phase.fn, prepare=lambda s=step: prog.idx.fill_(s),
-                                             what=f"{type(prog).__name__} {phase.name}", batch=B)
-                captured.append(graph)
-                step -= phase.count
-            generator.set_state(state)  # the warm-up calls' draws go back
-            capture_s = graph_set.capture_seconds
-            prog.init(noise)
-            for phase, graph in zip(prog.phases, captured):
-                graph.replay(phase.count)
-        else:
-            prog.init(noise)
-            prog.run()
-    return prog.img.clone(), capture_s
-
-
 def main(argv=None):
     p = argparse.ArgumentParser(description="MDM text-to-motion generation")
     p.add_argument("--model_path", required=True,
@@ -169,20 +126,17 @@ def main(argv=None):
     with open(os.path.join(args.model_path, "t2m_config.json")) as f:
         clip_spec = json.load(f)["clip"]
     encode, _ = caption_encoder_from_spec(clip_spec, args.model_path, device)
-    text_emb = encode(texts)  # (num_samples, clip_dim)
     cfg, model = load_t2m_model(args.model_path, device, args.use_ema)
     n_frames = min(int(cfg["num_frames"]), int(args.motion_length * float(cfg["fps"])))
-    sched = make_schedule(cfg, args.respace, device)
+    engine = TextMotionSampler(model, encode, make_schedule(cfg, args.respace, device),
+                               args.sampler, args.guidance_param)
 
-    # rows rep-major, as the reference's loop over repetitions orders them
     B = args.num_repetitions * num_samples
-    emb = torch.from_numpy(np.tile(text_emb, (args.num_repetitions, 1))).to(device)
     t0 = time.perf_counter()
-    sample, capture_s = sample_t2m(model, sched, emb, n_frames, sampler=args.sampler,
-                                   guidance=args.guidance_param, seed=args.seed)
+    sample = engine.generate(texts, n_frames, args.num_repetitions, args.seed)
     feats = sample[:, :, 0, :].transpose(1, 2).cpu().numpy()  # (B, T, C)
     LAST_RUN.clear()
-    LAST_RUN.update(seconds=time.perf_counter() - t0, capture_seconds=capture_s)
+    LAST_RUN.update(seconds=time.perf_counter() - t0, capture_seconds=engine.capture_seconds)
 
     mean, std = np.load(cfg["mean"]), np.load(cfg["std"])
     feats = feats * std + mean
@@ -204,7 +158,8 @@ def main(argv=None):
     with open(os.path.join(out_path, "results.txt"), "w") as f:
         f.write("\n".join(all_text))
     print("wrote", os.path.join(out_path, "results.npy"), f"motion {motion.shape}",
-          f"({LAST_RUN['seconds']:.2f} s, capture {capture_s:.2f} s)")
+          f"({LAST_RUN['seconds']:.2f} s, capture {engine.capture_seconds:.2f} s)",
+          json.dumps(engine.counters()))
     return out_path
 
 

@@ -264,7 +264,8 @@ def make_caption_encoder(params_path: Optional[str] = None, *, seed: int = 0,
                          context_length: int = 77, tokenizer_dir: Optional[str] = None,
                          device: Union[str, torch.device] = "cuda", **_):
     """(`captions -> (N, projection_dim) float32 np.ndarray`, its spec); the
-    callable's `encoder` attribute is the `ClipTextEncoder`.
+    callable's `encoder` attribute is the `ClipTextEncoder` and its `tokenize`
+    the captions → (N, context_length) int32 ids function it applies.
 
     params_path: the encoder's weights (`load_clip_weights`: a `.pt` state
     dict or the JAX package's npz); with `tokenizer_dir`, the captions are
@@ -302,7 +303,7 @@ def make_caption_encoder(params_path: Optional[str] = None, *, seed: int = 0,
         with torch.no_grad():
             return enc(ids).float().cpu().numpy()
 
-    encode.encoder = enc
+    encode.encoder, encode.tokenize = enc, tokenize
     spec = {"params_path": params_path, "seed": seed, "width": width, "layers": layers,
             "heads": heads, "vocab_size": vocab_size, "projection_dim": projection_dim,
             "context_length": context_length, "tokenizer_dir": tokenizer_dir}

@@ -69,7 +69,7 @@ from ..diffusion.sampling import PROGRAMS, SampleProgram
 from ..parallel.draws import GlobalDraws
 from ..parallel.mesh import row_bounds
 from ..utils import profiling
-from ..utils.graphs import GraphSet, launch_counts
+from ..utils.graphs import GraphSet, capture_program, launch_counts
 
 
 def unnormalize_poses(seq, mean, std):
@@ -167,20 +167,6 @@ class _WindowRun:
         self.graph_set = GraphSet(dev, [self.generator]) if sampler.graphs else None
         self.graphs: Optional[list] = None
 
-    def capture(self) -> None:
-        """One graph per phase, each warmed up from the step index it starts at.
-        The warm-up calls' draws are given back to the generator."""
-        prog, self.graphs, step = self.program, [], self.program.t0
-        state = self.generator.get_state()
-        for phase in prog.phases:
-            start = step
-            graph, _ = self.graph_set.capture(phase.fn, prepare=lambda s=start: prog.idx.fill_(s),
-                                              what=f"{type(prog).__name__} {phase.name}",
-                                              batch=prog.shape[0])
-            self.graphs.append(graph)
-            step -= phase.count
-        self.generator.set_state(state)
-
     def fill(self, **tensors: torch.Tensor) -> None:
         """Copy each tensor into its conditioning buffer (a float32 one is
         allocated at the first fill where the buffer is None)."""
@@ -193,7 +179,7 @@ class _WindowRun:
         """Refill the buffers (capturing the graphs at first use) and set x_T."""
         self.fill(**tensors)
         if self.graph_set is not None and self.graphs is None:
-            self.capture()
+            self.graphs = capture_program(self.graph_set, self.program, self.generator)
         self.program.init(noise)
 
     def steps(self):

@@ -36,7 +36,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import time
-from typing import Callable, Dict, Iterable, Optional, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 import torch
 
@@ -131,6 +131,23 @@ class GraphSet:
             torch.cuda.synchronize(self.device)
             self.capture_seconds += time.perf_counter() - t0
         return StepGraph(graph, launches), out
+
+
+def capture_program(graph_set: GraphSet, program, generator: torch.Generator) -> List[StepGraph]:
+    """One graph per phase of a `diffusion.sampling.SampleProgram`, each warmed
+    up from the step index it starts at. The warm-up calls' draws are given back
+    to `generator`, so replaying the phases in order from `program.init` draws
+    what the eager loop draws."""
+    graphs, step = [], program.t0
+    state = generator.get_state()
+    for phase in program.phases:
+        graph, _ = graph_set.capture(phase.fn, prepare=lambda s=step: program.idx.fill_(s),
+                                     what=f"{type(program).__name__} {phase.name}",
+                                     batch=program.shape[0])
+        graphs.append(graph)
+        step -= phase.count
+    generator.set_state(state)
+    return graphs
 
 
 class CapturedStep:

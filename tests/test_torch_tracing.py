@@ -9,7 +9,9 @@ within it. A `GestureServer` on a toy model records one `server.request` span
 a resolved request and a collect, dispatch and finalize span a batch, with
 its request ids; a dispatch's rows and windows add up, and its padding
 matches the server's always-on counters. `BeatTwhSampler.generate` records
-one `engine.window` a window with the schedule's steps. On the card each
+one `engine.window` a window with the schedule's steps; `TextMotionSampler.
+generate` one `t2m.generate` around `t2m.encode` and `t2m.sample`, which holds
+`t2m.steps`, and nothing while tracing is off. On the card each
 graph capture is a `graphs.capture` span that says what it captured.
 
 Imports neither jax nor the JAX package: on a machine with a card and no JAX,
@@ -26,10 +28,13 @@ import torch
 
 from diffusestylegesture_torch import diffusion as D
 from diffusestylegesture_torch import resolve_device
+from diffusestylegesture_torch.models.clip_text import make_caption_encoder
 from diffusestylegesture_torch.models.mdm import MDM, MDMConfig
+from diffusestylegesture_torch.models.mdm_text import TextMDM, TextMDMConfig
 from diffusestylegesture_torch.models.mdm_plus import MDMPlus, MDMPlusConfig
 from diffusestylegesture_torch.sample import (BeatEngineConfig, BeatTwhSampler, GestureServer,
-                                              ServerConfig, ZeggsEngineConfig, ZeggsSampler)
+                                              ServerConfig, TextMotionSampler, ZeggsEngineConfig,
+                                              ZeggsSampler)
 from diffusestylegesture_torch.utils import profiling
 
 NJ, FEAT, MAX_BATCH, BUCKETS, STEPS = 16, 32, 4, (1, 2, 4), 3
@@ -209,6 +214,38 @@ def test_beat_generate_spans_a_window_each(tracing):
         kids = sorted((sp for sp in spans if sp.parent == w.id), key=lambda sp: sp.start_ns)
         assert [k.name for k in kids] == ["engine.begin", "engine.steps", "engine.finish"]
         assert kids[1].attrs == {"steps": steps}
+
+
+def test_t2m_generate_spans_encode_and_sample():
+    """`TextMotionSampler.generate` records its spans only while tracing is on."""
+    clip = dict(width=32, layers=1, heads=2, vocab_size=100, projection_dim=16,
+                context_length=8)
+    torch.manual_seed(0)
+    model = TextMDM(TextMDMConfig(njoints=NJ, latent_dim=32, ff_size=64, num_layers=1,
+                                  num_heads=2, clip_dim=16)).eval()
+    encode, _ = make_caption_encoder(**clip, device="cpu")
+    sched = D.Schedule.create(D.named_beta_schedule("cosine", STEPS), device="cpu")
+    engine = TextMotionSampler(model, encode, sched, "ddpm", 2.5)
+    profiling.clear()
+    engine.generate(["a person walks"], 8, 2, 0)
+    assert profiling.spans() == []
+    profiling.enable(True)
+    try:
+        out = engine.generate(["a person walks", "a man waves"], 8, 2, 0)
+        spans = profiling.spans()
+    finally:
+        profiling.enable(False)
+        profiling.clear()
+    assert out.shape == (4, NJ, 1, 8)
+    gen, = [sp for sp in spans if sp.name == "t2m.generate"]
+    assert gen.attrs == {"prompts": 2, "rows": 4, "frames": 8}
+    kids = sorted((sp for sp in spans if sp.parent == gen.id), key=lambda sp: sp.start_ns)
+    assert [k.name for k in kids] == ["t2m.encode", "t2m.sample"]
+    assert kids[0].attrs == {"prompts": 2, "tokens": 2 * 2 + 3 + 3}  # words + start / end
+    assert kids[1].attrs == {"path": "eager"}
+    steps, = [sp for sp in spans if sp.parent == kids[1].id]
+    assert steps.name == "t2m.steps" and steps.attrs == {"steps": STEPS}
+    assert len(spans) == 4
 
 
 def test_trace_capture_restores_tracing(tmp_path):
