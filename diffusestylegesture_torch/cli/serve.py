@@ -13,8 +13,10 @@ wav.) Requests are read from `--requests` or stdin and fed through the
 micro-batching `GestureServer`, so concurrent lines ride one batched engine
 call; one JSON line is printed per request, then the server's counters
 (`{"served", "batches", "rows_padded", "windows_encoded", "windows_padding",
-"requests_by_bucket"}`: padded rows, windows WavLM encoded and how many of
-them carried no request's audio, requests per window-count bucket).
+"windows_skipped", "requests_by_bucket"}`: padded rows, windows WavLM
+encoded and how many of them carried no request's audio, windows of the
+padded batches that WavLM did not run over, requests per window-count
+bucket).
 Checkpoints load as in `cli/sample.py` (a reference `.pt` or a converted
 directory; a MoE checkpoint with its expert count).
 """

@@ -47,6 +47,14 @@ noise of the whole batch from the same generator state and keeps its rows
 rounding. `lane_launches` holds each card's kernel launches of the last
 meshed call.
 
+WavLM runs once a call over every window handed to `ZeggsSampler.encode`, on
+the graph path as one graph per window count; a count that is a multiple
+of `ENCODE_CHUNK` above it replays one graph of `ENCODE_CHUNK` windows once
+a chunk instead. `encode_packed` feeds it a batch's windows that carry a
+clip's audio and nothing else, rounded up to whole chunks, and scatters the
+features into the batch's (rows, windows) grid: what the server and
+`generate_multi_clip` encode, so one small graph serves every batch.
+
 Tracing (`utils/profiling.py`, off by default): `ZeggsSampler.encode` is an
 `engine.encode` span, and each window of the loop an `engine.window` span
 holding `engine.begin` (buffers refilled, graphs captured at first use),
@@ -58,7 +66,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
-from typing import Callable, Dict, List, Optional, Sequence, Union
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -402,6 +410,13 @@ class ZeggsSampler(_WindowSampler):
       path); True on the CPU raises.
     """
 
+    # windows a replay of the chunked encoder runs over; divides the server's
+    # batch of 16, so a batch's packed windows (`encode_packed`) and a warm-up
+    # of 16 × bucket windows all replay one graph. On an H100, WavLM-Large
+    # costs 5.30 ms a window in chunks of 8, 5.09 in chunks of 16 and 4.86 in
+    # one graph of 80 windows; rounding up to 8 pads half as much as to 16
+    ENCODE_CHUNK = 8
+
     def __init__(self, model_apply: Callable, wavlm_apply: Callable, schedule: Schedule,
                  cfg: ZeggsEngineConfig = ZeggsEngineConfig(),
                  sampler_cfg: SamplerConfig = SamplerConfig(),
@@ -420,10 +435,13 @@ class ZeggsSampler(_WindowSampler):
         """The window function over (W, S) windows (numpy or a tensor) →
         (W, n_poses, D) features on the device. WavLM: on the graph path one
         replay of the encoder captured for W windows (the result is the
-        graph's output buffer, overwritten by the next call). A host-side
-        function: its numpy result copied to the device. Traced as an
-        `engine.encode` span: the windows and how they ran (`host`, `eager`,
-        `capture` or `replay`)."""
+        graph's output buffer, overwritten by the next call), or, where W is
+        a multiple of `ENCODE_CHUNK` above it, W / `ENCODE_CHUNK` replays of
+        the one graph captured for `ENCODE_CHUNK` windows, each chunk's
+        output copied into a new result. A host-side function: its numpy
+        result copied to the device. Traced as an `engine.encode` span: the
+        windows, how they ran (`host`, `eager`, `capture` or `replay`) and,
+        on the graph path, the replays made (`chunks`)."""
         with profiling.span("engine.encode", windows=int(windows.shape[0])) as sp:
             if getattr(self.wavlm_apply, "host_side", False):
                 sp.set(path="host")
@@ -431,24 +449,62 @@ class ZeggsSampler(_WindowSampler):
                 feats = self.wavlm_apply(wavlm_params, np.asarray(host, np.float32))
                 return torch.as_tensor(np.asarray(feats, np.float32), device=self.device)
             if not torch.is_tensor(windows):
-                windows = torch.as_tensor(np.asarray(windows, np.float32), device=self.device)
+                windows = _to_device(np.asarray(windows, np.float32), self.device)
             if not self.graphs:
                 sp.set(path="eager")
                 return self.wavlm_apply(wavlm_params, windows)
-            key = (tuple(windows.shape), id(wavlm_params))
+            W, C = windows.shape[0], self.ENCODE_CHUNK
+            chunks = W // C if W > C and W % C == 0 else 1
+            shape = (W // chunks,) + tuple(windows.shape[1:])
+            key = (shape, id(wavlm_params))
             rec = self._encoders.get(key)
             fresh = rec is None or rec[0] is not wavlm_params
-            sp.set(path="capture" if fresh else "replay")
+            sp.set(path="capture" if fresh else "replay", chunks=chunks)
             if fresh:
                 graph_set = GraphSet(self.device)
-                static_in = windows.clone()
+                static_in = windows[: shape[0]].clone()
                 graph, out = graph_set.capture(lambda: self.wavlm_apply(wavlm_params, static_in),
-                                               what="encoder", shape=tuple(windows.shape))
+                                               what="encoder", shape=shape)
                 rec = self._encoders[key] = (wavlm_params, graph_set, graph, static_in, out)
             _, _, graph, static_in, out = rec
-            static_in.copy_(windows)
-            graph.replay()
-            return out
+            if chunks == 1:
+                static_in.copy_(windows)
+                graph.replay()
+                return out
+            result = out.new_empty((W,) + tuple(out.shape[1:]))
+            for part, dst in zip(windows.split(C), result.split(C)):
+                static_in.copy_(part)
+                graph.replay()
+                dst.copy_(out)
+            return result
+
+    def encode_packed(self, wavlm_params, clips: Sequence[np.ndarray], rows: int,
+                      bucket: int) -> Tuple[torch.Tensor, int]:
+        """Features of a batch's (rows, bucket) grid of windows, WavLM run only
+        over those that carry a clip's audio. Clip i's (n_i, S) windows (n_i <=
+        bucket; rows past the clips have none) are packed in order into one
+        `encode` of W = min(roundup(Σ n_i, ENCODE_CHUNK), rows × bucket)
+        windows, zero windows after them, and their features scattered into
+        a zeroed (rows, bucket, n_poses, D) grid. The grid's other places
+        feed only rows nobody reads or windows after a clip's last, which no
+        frame it delivers depends on. Returns (grid, W). Nothing waits for
+        the card: the packed windows and the scatter's index go through
+        pinned memory."""
+        cfg = self.cfg
+        carried = sum(c.shape[0] for c in clips)
+        C = self.ENCODE_CHUNK
+        W = min(-(-carried // C) * C, rows * bucket)
+        packed = np.zeros((W, cfg.samples_per_seed + cfg.samples_per_stride), np.float32)
+        index = np.empty(carried, np.int64)
+        k = 0
+        for i, c in enumerate(clips):
+            packed[k: k + c.shape[0]] = c
+            index[k: k + c.shape[0]] = i * bucket + np.arange(c.shape[0])
+            k += c.shape[0]
+        feats = self.encode(wavlm_params, packed)
+        grid = feats.new_zeros((rows * bucket,) + tuple(feats.shape[1:]))
+        grid.index_copy_(0, _to_device(index, grid.device), feats[:carried])
+        return grid.reshape((rows, bucket) + tuple(feats.shape[1:])), W
 
     def _new_run(self, params, batch: int, rows: Optional[tuple] = None) -> _WindowRun:
         cfg, dev = self.cfg, self.device
@@ -546,6 +602,15 @@ class _Lane:
             contextlib.nullcontext()
 
 
+def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Host array → device tensor; on the card through pinned memory, without
+    waiting for the work already queued there."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if device.type == "cpu":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 def _poses_out(seq: torch.Tensor, mean, std, device_out: bool, transfer_dtype):
     """(B, T, C) device poses → un-normalized: a device tensor, or numpy
     (cast to `transfer_dtype` on the device first, when given)."""
@@ -564,23 +629,19 @@ def generate_multi_clip(sampler: ZeggsSampler, params, wavlm_params, audios: Seq
                         transfer_dtype: Optional[torch.dtype] = None):
     """Several clips as one batch (JAX `generate_multi_clip`, `engine.py:425-474`):
     the clips are padded to the largest window count, WavLM runs once over
-    clips × windows, and window w of every clip runs in one denoiser call
-    with per-clip features, through the sampler's engine at batch = number of
-    clips. `noise_windows` is (w_max, n_clips, njoints, 1, n_poses). Returns
-    a list of (T_i, njoints) float32 arrays; a clip shorter than one stride
-    gives an empty one."""
+    the windows that carry audio (`ZeggsSampler.encode_packed`), and window
+    w of every clip runs in one denoiser call with per-clip features, through
+    the sampler's engine at batch = number of clips. `noise_windows` is
+    (w_max, n_clips, njoints, 1, n_poses). Returns a list of (T_i, njoints)
+    float32 arrays; a clip shorter than one stride gives an empty one."""
     cfg = sampler.cfg
     sliced = [slice_audio_windows(np.asarray(a, np.float32), cfg) for a in audios]
     counts = [s.shape[0] for s in sliced]
     w_max, B = max(counts), len(audios)
     if w_max == 0:
         raise ValueError("every clip is shorter than one window")
-    padded = np.zeros((B, w_max, sliced[0].shape[1]), np.float32)
-    for i, s in enumerate(sliced):
-        padded[i, : s.shape[0]] = s
     dev = sampler.device
-    feats = sampler.encode(wavlm_params, padded.reshape(B * w_max, -1))
-    feats = feats.reshape((B, w_max) + tuple(feats.shape[1:]))
+    feats, _ = sampler.encode_packed(wavlm_params, sliced, B, w_max)
     styles_t = torch.as_tensor(np.asarray(styles, np.float32), device=dev)
     out = sampler.sample_windows(params, lambda w: feats[:, w], w_max, styles_t, generator,
                                  noise_windows)

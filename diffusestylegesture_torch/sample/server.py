@@ -9,8 +9,12 @@ engine call:
   * requests (audio, style) are queued; a dispatcher thread drains up to
     `max_batch` of them, waiting at most `max_delay_ms` past the first;
   * audio lengths are padded up to a small set of window-count buckets, so
-    the engine captures one WavLM graph per bucket (and one denoiser graph
-    set per batch size) instead of one per length;
+    the engine captures one denoiser graph set per batch size instead of one
+    per length; WavLM runs only over the windows that carry a request's
+    audio, packed and rounded up to whole chunks of one captured graph
+    (`ZeggsSampler.encode_packed`), and the rest of the batch's grid of
+    windows gets zero features: dummy rows are dropped, and a clip's windows
+    past its own count come after every frame it delivers;
   * every request in a batch shares the window loop; per-request styles ride
     the batch axis; outputs are cropped back to their true lengths;
   * results are delivered through per-request `concurrent.futures.Future`s.
@@ -27,12 +31,13 @@ delivers the previous one. Nothing in the dispatch waits for the card.
 Tracing (`utils/profiling.py`, off by default): a `server.request` span per
 request (submit → its future resolved), and per batch `server.collect`,
 `server.dispatch` (its request ids, rows real and padded, bucket, windows
-encoded, windows carrying a request's audio, windows sampled) and
-`server.finalize`; a batch's id is its first request's. Beside
+encoded, windows carrying a request's audio, windows skipped, windows
+sampled) and `server.finalize`; a batch's id is its first request's. Beside
 `batches_served` and `requests_served` the server always counts
-`rows_padded`, `windows_encoded`, `windows_padding` (encoded windows that
-carry no request's audio) and `requests_by_bucket` over the batches it
-dispatched.
+`rows_padded`, `windows_encoded` (windows WavLM ran over),
+`windows_padding` (encoded windows that carry no request's audio),
+`windows_skipped` (windows of the batch's rows × bucket grid that WavLM did
+not run over) and `requests_by_bucket` over the batches it dispatched.
 """
 from __future__ import annotations
 
@@ -49,7 +54,7 @@ import numpy as np
 import torch
 
 from ..utils import profiling
-from .engine import ZeggsSampler, slice_audio_windows, unnormalize_poses
+from .engine import ZeggsSampler, _to_device, slice_audio_windows, unnormalize_poses
 
 
 @dataclasses.dataclass(frozen=True)
@@ -132,6 +137,7 @@ class GestureServer:
         self.rows_padded = 0
         self.windows_encoded = 0
         self.windows_padding = 0
+        self.windows_skipped = 0
         self.requests_by_bucket: Dict[int, int] = {}
 
     # -- client API ---------------------------------------------------------
@@ -171,6 +177,7 @@ class GestureServer:
         return {"served": self.requests_served, "batches": self.batches_served,
                 "rows_padded": self.rows_padded, "windows_encoded": self.windows_encoded,
                 "windows_padding": self.windows_padding,
+                "windows_skipped": self.windows_skipped,
                 "requests_by_bucket": dict(sorted(self.requests_by_bucket.items()))}
 
     def start(self) -> "GestureServer":
@@ -286,27 +293,22 @@ class GestureServer:
         """Enqueue the batch on the device without waiting for it: inputs go
         through pinned memory, the output comes back into pinned memory, and
         an event marks the end. The pieces are `generate_multi_clip`'s: one
-        encoder pass over clips × bucket windows, then the window loop over the
-        batch's longest clip (the padded windows past it would only feed
-        windows nobody reads)."""
+        encoder pass over the windows that carry the clips' audio, scattered
+        into the B × bucket grid, then the window loop over the batch's
+        longest clip (the windows past it would only feed windows nobody
+        reads)."""
         with profiling.span("server.dispatch") as sp:
             sampler, ecfg = self.sampler, self.sampler.cfg
             dev = sampler.device
             bucket = self._bucket_for(batch[0].num_windows)
-            S = ecfg.samples_per_seed + ecfg.samples_per_stride
             B = self.cfg.max_batch if self.cfg.pad_to_max_batch else len(batch)
-            # dummy rows past len(batch) stay zero and their outputs are dropped
-            windows = np.zeros((B, bucket, S), np.float32)
+            # dummy rows past len(batch) have no windows, zero features and
+            # styles, and their outputs are dropped
+            clips = [slice_audio_windows(req.audio, ecfg)[:bucket] for req in batch]
             styles = np.zeros((B, self.cfg.style_dim), np.float32)
-            carried = 0  # windows that carry a request's audio
-            for i, req in enumerate(batch):
-                win = slice_audio_windows(req.audio, ecfg)[:bucket]
-                windows[i, : win.shape[0]] = win
-                styles[i] = req.style
-                carried += win.shape[0]
-            feats = sampler.encode(self.wavlm_params,
-                                   _to_device(windows.reshape(B * bucket, S), dev))
-            feats = feats.reshape((B, bucket) + tuple(feats.shape[1:]))
+            styles[: len(batch)] = [req.style for req in batch]
+            carried = sum(c.shape[0] for c in clips)  # windows that carry a request's audio
+            feats, encoded = sampler.encode_packed(self.wavlm_params, clips, B, bucket)
             generator = torch.Generator(device=dev).manual_seed(batch[0].seed)
             num_windows = max(req.num_windows for req in batch)
             out = sampler.sample_windows(self.params, lambda w: feats[:, w], num_windows,
@@ -321,14 +323,15 @@ class GestureServer:
                 event.record()
                 done = _Dispatched(host, event)
             self.rows_padded += B - len(batch)
-            self.windows_encoded += B * bucket
-            self.windows_padding += B * bucket - carried
+            self.windows_encoded += encoded
+            self.windows_padding += encoded - carried
+            self.windows_skipped += B * bucket - encoded
             self.requests_by_bucket[bucket] = self.requests_by_bucket.get(bucket, 0) + len(batch)
             if sp:
                 sp.set(batch=batch[0].id, requests=[req.id for req in batch],
                        rows_real=len(batch), rows_padded=B - len(batch), bucket=bucket,
-                       windows_encoded=B * bucket, windows_carried=carried,
-                       windows_sampled=num_windows)
+                       windows_encoded=encoded, windows_carried=carried,
+                       windows_skipped=B * bucket - encoded, windows_sampled=num_windows)
             return done
 
     def _finalize_batch(self, batch: List[_Request], out: _Dispatched) -> None:
@@ -360,13 +363,3 @@ class GestureServer:
             profiling.record("server.request", req.submitted_ns, time.time_ns(), request=req.id,
                              bucket=self._bucket_for(req.num_windows), windows=req.num_windows,
                              failed=error is not None)
-
-
-def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
-    """Host array → device tensor; on the card through pinned memory, without
-    waiting for the work already queued there."""
-    t = torch.from_numpy(np.ascontiguousarray(a))
-    if device.type == "cpu":
-        return t
-    return t.pin_memory().to(device, non_blocking=True)
-

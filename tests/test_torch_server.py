@@ -4,9 +4,13 @@ The JAX `tests/test_server.py` behaviours, ported: a single request, four
 concurrent requests in one batch, bucketing by window count, a minority
 bucket not starved, submit after stop, too-long rejection, a batch's failure
 delivered to its futures while the server keeps serving; the server's
-counters of padded rows and windows over a two-bucket run. Against the port's
-own engine: a solo request equals `generate_multi_clip` on the padded batch
-under the request's seed (bitwise: the same pieces in the same order).
+counters of padded rows and windows over a two-bucket run, and over a
+bucket-5 batch of 3- and 5-window clips with dummy rows, where WavLM runs
+only over the carried windows rounded up to whole chunks. Against the port's
+own engine: the packed encoder's features of the carried windows equal the
+whole grid's, and zero elsewhere; a solo request equals
+`generate_multi_clip` on the padded batch under the request's seed
+(bitwise: the same pieces in the same order).
 Against the JAX package: the port's dispatch + finalize of a mixed batch
 equals the JAX `_generate_multi` on the same padded batch with the same
 per-window x_T (a deterministic DDIM-10 loop), within 2e-3 relative.
@@ -31,6 +35,7 @@ from diffusestylegesture_torch.sample import (
     ZeggsEngineConfig,
     ZeggsSampler,
     generate_multi_clip,
+    slice_audio_windows,
 )
 from diffusestylegesture_torch.sample.server import _Request
 
@@ -138,10 +143,62 @@ def test_counters_of_a_two_bucket_run():
         server._run_batch(batch)
     assert [r.future.result(timeout=0).shape[0] for b in batches for r in b] == \
         [ecfg.stride - ecfg.n_seed] * 2 + [3 * ecfg.stride - ecfg.n_seed]
-    # bucket 1: 4 rows × 1 window, 2 carry audio; bucket 4: 4 rows × 4 windows, 3 carry audio
+    # bucket 1: 2 windows carry audio, rounded up to a chunk of 8 but at most the grid of
+    # 4 rows × 1 window; bucket 4: 3 carry audio, rounded up to 8 of the grid's 4 × 4
     assert server.counters() == {"served": 3, "batches": 2, "rows_padded": 2 + 3,
-                                 "windows_encoded": 4 + 16, "windows_padding": 2 + 13,
-                                 "requests_by_bucket": {1: 2, 4: 1}}
+                                 "windows_encoded": 4 + 8, "windows_padding": 2 + 5,
+                                 "windows_skipped": 0 + 8, "requests_by_bucket": {1: 2, 4: 1}}
+
+
+@pytest.mark.parametrize("max_batch,clips,encoded", [(16, (3, 5, 3), 16), (2, (5, 3), 8),
+                                                     (3, (5, 3, 3), 15)])
+def test_counters_of_a_packed_bucket_five_batch(max_batch, clips, encoded):
+    """3- and 5-window clips in bucket 5, with dummy rows or without: WavLM
+    runs, in one `encode` call, over the carried windows rounded up to whole
+    chunks of 8, and never over more than the max_batch × 5 grid."""
+    server, ecfg = make_server(max_batch=max_batch, buckets=(1, 2, 5))
+    seen = []
+    encode = server.sampler.encode
+    server.sampler.encode = lambda p, w: seen.append(int(w.shape[0])) or encode(p, w)
+    rng = np.random.default_rng(6)
+    batch = [_Request(audio=rng.standard_normal(w * ecfg.samples_per_stride + 9).astype(np.float32),
+                      style=np.eye(6, dtype=np.float32)[i], seed=i, num_windows=w,
+                      future=Future(), id=i) for i, w in enumerate(clips)]
+    server._run_batch(batch)
+    assert [r.future.result(timeout=0).shape[0] for r in batch] == \
+        [w * ecfg.stride - ecfg.n_seed for w in clips]
+    grid, carried = max_batch * 5, sum(clips)
+    assert ZeggsSampler.ENCODE_CHUNK == 8 and seen == [encoded] and carried <= encoded <= grid
+    assert server.counters() == {"served": len(clips), "batches": 1,
+                                 "rows_padded": max_batch - len(clips),
+                                 "windows_encoded": encoded, "windows_padding": encoded - carried,
+                                 "windows_skipped": grid - encoded,
+                                 "requests_by_bucket": {5: len(clips)}}
+
+
+def test_encode_packed_matches_the_grid_encode(pair):
+    """A tiny WavLM over 3-, 5- and 1-window clips in 4 rows × bucket 5: the
+    packed features of each carried window equal the whole grid's encode of
+    the same window; the other places of the grid are zero."""
+    sampler = _port_sampler("dpmpp", 5)
+    ecfg = sampler.cfg
+    rng = np.random.default_rng(8)
+    clips = [slice_audio_windows((rng.standard_normal(w * ecfg.samples_per_stride + 17) * 0.1)
+                                 .astype(np.float32), ecfg) for w in (3, 5, 1)]
+    rows, bucket = 4, 5
+    windows = np.zeros((rows, bucket, clips[0].shape[1]), np.float32)
+    for i, c in enumerate(clips):
+        windows[i, : len(c)] = c
+    with torch.inference_mode():
+        want = sampler.encode(pair["wavlm"], windows.reshape(rows * bucket, -1)).numpy()
+        got, encoded = sampler.encode_packed(pair["wavlm"], clips, rows, bucket)
+    want = want.reshape((rows, bucket) + want.shape[1:])
+    got = got.numpy()
+    assert got.shape == want.shape and encoded == 16  # 9 carried, rounded up to chunks of 8
+    for i in range(rows):
+        n = len(clips[i]) if i < len(clips) else 0
+        np.testing.assert_allclose(got[i, :n], want[i, :n], rtol=0, atol=1e-6)
+        assert not got[i, n:].any()
 
 
 def test_submit_after_stop_raises():

@@ -11,7 +11,9 @@ the plain path within 2e-3 relative, and the kernels were launched; a ZEGGS
 stream over 0.5 s pushes is within 2e-3 relative of the batch engine; a
 capture made on a thread other than the main one survives cyclic garbage
 that holds finished graphs (the collector is paused there too); the
-ZeroEGGS rollout step replayed as a CUDA graph equals its eager run bitwise.
+ZeroEGGS rollout step replayed as a CUDA graph equals its eager run bitwise;
+`ZeggsSampler.encode` of five chunks replays the one graph captured for a
+chunk and equals one eager WavLM pass within 1e-5, capturing nothing more.
 Elsewhere every test skips.
 """
 import os
@@ -28,7 +30,7 @@ from diffusestylegesture_torch.models.mdm import MDM, MDMConfig
 from diffusestylegesture_torch.models.wavlm import WavLM, WavLMConfig, make_zeggs_wavlm_fn
 from diffusestylegesture_torch.sample import (GestureServer, ServerConfig, ZeggsEngineConfig,
                                               ZeggsSampler, ZeggsStreamSampler)
-from diffusestylegesture_torch.utils import graphs
+from diffusestylegesture_torch.utils import graphs, profiling
 
 from test_torch_isolation import TINY_WAVLM
 
@@ -92,6 +94,36 @@ def test_cuda_server_kernel_path_matches_plain_path(card):
     for k, p in zip(outs["kernel"], outs["plain"]):
         assert k.shape == p.shape and np.isfinite(k).all()
         assert _rel(k, p) < 2e-3
+
+
+@pytest.mark.cuda
+def test_cuda_encode_by_chunk_replays_matches_one_eager_pass(card):
+    """5 × ENCODE_CHUNK windows run as five replays of the graph captured for
+    one chunk; a second call, and a call of one chunk, capture nothing."""
+    sampler = _sampler(card["dev"])
+    C, ecfg = sampler.ENCODE_CHUNK, sampler.cfg
+    S = ecfg.samples_per_seed + ecfg.samples_per_stride
+    gen = torch.Generator(device=card["dev"]).manual_seed(7)
+    windows = 0.1 * torch.randn(5 * C, S, device=card["dev"], generator=gen)
+    profiling.clear()
+    profiling.enable(True)
+    try:
+        with torch.inference_mode():
+            eager = sampler.wavlm_apply(card["wavlm"], windows).cpu().numpy()
+            first = sampler.encode(card["wavlm"], windows).cpu().numpy()
+            again = sampler.encode(card["wavlm"], windows.flip(0)).cpu().numpy()
+            one = sampler.encode(card["wavlm"], windows[:C]).cpu().numpy()
+        spans = profiling.spans()
+    finally:
+        profiling.enable(False)
+        profiling.clear()
+    assert [sp.attrs["shape"] for sp in spans if sp.name == "graphs.capture"] == [(C, S)]
+    assert [(sp.attrs["path"], sp.attrs["chunks"]) for sp in spans
+            if sp.name == "engine.encode"] == [("capture", 5), ("replay", 5), ("replay", 1)]
+    assert first.shape == eager.shape == (5 * C, ecfg.n_poses, TINY_WAVLM["encoder_embed_dim"])
+    assert _rel(first, eager) < 1e-5
+    assert _rel(again, eager[::-1]) < 1e-5
+    assert _rel(one, eager[:C]) < 1e-5
 
 
 @pytest.mark.cuda

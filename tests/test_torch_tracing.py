@@ -7,8 +7,8 @@ recorded across threads has no thread. Spans are stamped on the clock of the
 profiler's host events: a `record_function` range opened inside a span lies
 within it. A `GestureServer` on a toy model records one `server.request` span
 a resolved request and a collect, dispatch and finalize span a batch, with
-its request ids; a dispatch's rows and windows add up, and its padding
-matches the server's always-on counters. `BeatTwhSampler.generate` records
+its request ids; a dispatch's rows and windows add up, and its padding and
+skipped windows match the server's always-on counters. `BeatTwhSampler.generate` records
 one `engine.window` a window with the schedule's steps; `TextMotionSampler.
 generate` one `t2m.generate` around `t2m.encode` and `t2m.sample`, which holds
 `t2m.steps`, and nothing while tracing is off. On the card each
@@ -160,13 +160,17 @@ def test_server_spans_and_counters(tracing):
     for name in ("server.collect", "server.finalize"):
         assert sorted(sp.attrs["batch"] for sp in by_name[name]) == \
             sorted(d.attrs["batch"] for d in dispatches)
-    padding = 0
+    padding = skipped = 0
     for d in dispatches:
         a = d.attrs
         assert a["batch"] == a["requests"][0]
         assert a["rows_real"] + a["rows_padded"] == MAX_BATCH == len(a["requests"]) + \
             a["rows_padded"]
-        assert a["windows_encoded"] == MAX_BATCH * a["bucket"]
+        # WavLM runs over the carried windows rounded up to whole chunks, at most the grid
+        grid, C = MAX_BATCH * a["bucket"], ZeggsSampler.ENCODE_CHUNK
+        assert a["windows_encoded"] == min(-(-a["windows_carried"] // C) * C, grid)
+        assert a["windows_skipped"] == grid - a["windows_encoded"]
+        skipped += a["windows_skipped"]
         real = [requests[r].attrs["windows"] for r in a["requests"]]
         assert a["windows_carried"] == sum(real) and a["windows_sampled"] == max(real)
         assert all(requests[r].attrs["bucket"] == a["bucket"] for r in a["requests"])
@@ -179,7 +183,7 @@ def test_server_spans_and_counters(tracing):
                                                      "engine.window": a["windows_sampled"]}
         enc = [sp for sp in inside if sp.name == "engine.encode"][0]
         assert enc.attrs == {"windows": a["windows_encoded"], "path": "eager"}
-    assert padding == server.windows_padding
+    assert padding == server.windows_padding and skipped == server.windows_skipped
     assert server.windows_encoded == sum(d.attrs["windows_encoded"] for d in dispatches)
     assert server.rows_padded == sum(d.attrs["rows_padded"] for d in dispatches)
     assert server.requests_by_bucket == dict(Counter(requests[r].attrs["bucket"]
