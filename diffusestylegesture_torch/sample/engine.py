@@ -12,8 +12,8 @@ correction (`:269-282`) and the crossfade over the n_seed overlap
 The JAX engine jits the whole clip into one XLA program (two nested
 `lax.scan`s) and the encoder into another. On a CUDA device this engine
 captures the loop's step functions and the encoder into CUDA graphs at
-first use and replays them (`utils/graphs.py`): one `replay()` a denoiser
-step, one for WavLM. One graph set is kept per (batch, model, CFG on or
+first use and replays them (`utils/graphs.py`, the loop's through
+`ProgramRun`): one `replay()` a denoiser step, one for WavLM. One graph set is kept per (batch, model, CFG on or
 off) of a sampler, which fixes the sampler kind, the step count and the
 model's dtype, as the JAX AOT key with its `program_tag` does. The
 conditioning (style, seed, the window's features, the local mask) lies in
@@ -27,8 +27,9 @@ A window function marked `host_side` (`make_mfcc_window_fn`: the Sphinx MFCC
 of an `audio_feat='mfcc'` MDM, reference `inference_mfcc`) runs on the host
 over numpy windows, outside every graph (JAX `engine.py:155-164,244-256,
 366-372`); its features go to the card once, and each window copies its row
-into the run's static audio buffer, which the captured steps read. The window runner, the graph bookkeeping and the per-window carry
-(`_WindowRun`, `_WindowSampler.window`) serve the BEAT/TWH engine
+into the run's static audio buffer, which the captured steps read. The
+window runner and the per-window carry (`_WindowRun`,
+`_WindowSampler.window`) serve the BEAT/TWH engine
 (`engine_beat.py`), the streams (`streaming.py`) and the server
 (`server.py`) too.
 
@@ -73,11 +74,11 @@ import torch
 
 from ..device import resolve_device
 from ..diffusion import SamplerConfig, Schedule, make_cfg_model_fn
-from ..diffusion.sampling import PROGRAMS, SampleProgram
+from ..diffusion.sampling import PROGRAMS
 from ..parallel.draws import GlobalDraws
 from ..parallel.mesh import row_bounds
 from ..utils import profiling
-from ..utils.graphs import GraphSet, capture_program, launch_counts
+from ..utils.graphs import GraphSet, ProgramRun, launch_counts, use_graphs
 
 
 def unnormalize_poses(seq, mean, std):
@@ -118,7 +119,6 @@ class ZeggsEngineConfig:
     # None replicates the reference's batch-axis crossfade quirk; an int
     # crossfades linearly over that many overlap frames
     crossfade_n: Optional[int] = None
-    root_delta_correction: bool = True
     sampler: str = "ddpm"  # ddpm | ddim | plms | dpmpp
     skip_timesteps: int = 0
 
@@ -146,71 +146,53 @@ def slice_audio_windows(audio: np.ndarray, cfg: ZeggsEngineConfig) -> np.ndarray
     return np.concatenate([prev_tails, main], axis=1)
 
 
-class _WindowRun:
-    """What one (batch, model) needs to sample windows: the conditioning
-    buffers `cond` (a tensor, or None for one sized at the first fill), the
-    loop's program over them, its generator and, on the graph path, one graph
-    per phase of the program."""
+class _WindowRun(ProgramRun):
+    """What one (batch, model) needs to sample windows: the loop's program
+    and its graphs (`ProgramRun`) over the conditioning buffers `cond` (the
+    local mask, and each other one made at its first fill)."""
 
-    def __init__(self, sampler: "_WindowSampler", params, cond: Dict[str, Optional[torch.Tensor]],
-                 shape: tuple, skip_timesteps: int = 0, rows: Optional[tuple] = None):
+    def __init__(self, sampler: "_WindowSampler", params, batch: int,
+                 rows: Optional[tuple] = None, skip_timesteps: int = 0):
         cfg, dev = sampler.cfg, sampler.device
-        batch = shape[0]
         # rows (start, stop, total): this run samples those rows of a batch of
         # `total` (a card of a serving mesh); draws and crossfade use `total`
         self.crossfade_batch = batch if rows is None else rows[2]
         self.params = params  # the graphs read these weights where they lie
-        self.generator = torch.Generator(device=dev)
-        self.cond = cond
+        self.cond = {"mask_local": torch.ones((batch, cfg.n_poses), dtype=torch.bool, device=dev)}
         if cfg.guidance_scale and cfg.guidance_scale != 1.0:
             model_fn = make_cfg_model_fn(sampler.model_apply, cfg.guidance_scale, batch,
                                          params=params, cond=self.cond)
         else:
             def model_fn(x, t):
                 return sampler.model_apply(params, x, t, self.cond)
-        self.program: SampleProgram = PROGRAMS[cfg.sampler](
-            sampler.schedule, model_fn, shape,
-            self.generator if rows is None else GlobalDraws(self.generator, *rows),
-            cfg=sampler.sampler_cfg, skip_timesteps=skip_timesteps)
-        self.graph_set = GraphSet(dev, [self.generator]) if sampler.graphs else None
-        self.graphs: Optional[list] = None
+        generator = torch.Generator(device=dev)
+        super().__init__(PROGRAMS[cfg.sampler](
+            sampler.schedule, model_fn, (batch, cfg.njoints, 1, cfg.n_poses),
+            generator if rows is None else GlobalDraws(generator, *rows),
+            cfg=sampler.sampler_cfg, skip_timesteps=skip_timesteps), sampler.graphs)
 
     def fill(self, **tensors: torch.Tensor) -> None:
         """Copy each tensor into its conditioning buffer (a float32 one is
-        allocated at the first fill where the buffer is None)."""
+        made at the tensor's first fill, which has to come before the first
+        `begin`: the graphs read each buffer where it lay at capture)."""
         for name, value in tensors.items():
-            if self.cond[name] is None:
+            if name not in self.cond:
                 self.cond[name] = torch.zeros(value.shape, device=value.device)
             self.cond[name].copy_(value)
 
     def begin(self, noise: Optional[torch.Tensor], **tensors: torch.Tensor) -> None:
-        """Refill the buffers (capturing the graphs at first use) and set x_T."""
+        """Refill the buffers, then `ProgramRun.begin`."""
         self.fill(**tensors)
-        if self.graph_set is not None and self.graphs is None:
-            self.graphs = capture_program(self.graph_set, self.program, self.generator)
-        self.program.init(noise)
-
-    def steps(self):
-        """The loop's steps, one at each `next` (a replay on the graph path)."""
-        for i, phase in enumerate(self.program.phases):
-            for _ in range(phase.count):
-                if self.graphs is None:
-                    phase.fn()
-                else:
-                    self.graphs[i].replay(1)
-                yield
-
-    def sample(self, noise: Optional[torch.Tensor], **tensors: torch.Tensor) -> torch.Tensor:
-        """One window: refill the buffers, run the loop, return a copy of x_0."""
-        self.begin(noise, **tensors)
-        for _ in self.steps():
-            pass
-        return self.program.img.clone()
+        super().begin(noise)
 
 
 class _WindowSampler:
     """What the ZEGGS and the BEAT/TWH samplers share: the device, the graph
     switch, the schedule and one `_WindowRun` per (batch, model)."""
+
+    # whether `finish_window` removes the root-translation delta (ref
+    # `sample.py:269-282`)
+    corrects_root_delta = False
 
     def __init__(self, model_apply: Callable, schedule: Schedule, cfg, sampler_cfg: SamplerConfig,
                  device: Union[str, torch.device], graphs: Optional[bool]):
@@ -219,27 +201,29 @@ class _WindowSampler:
             raise ValueError(f"schedule lives on {schedule.device}, engine on {self.device}")
         if cfg.sampler not in PROGRAMS:
             raise ValueError(f"unknown sampler {cfg.sampler!r} ({sorted(PROGRAMS)})")
-        self.graphs = self.device.type == "cuda" if graphs is None else bool(graphs)
-        if self.graphs and self.device.type != "cuda":
-            raise ValueError(f"CUDA graphs need a CUDA device, not {self.device}")
+        self.graphs = use_graphs(self.device, graphs)
         self.model_apply = model_apply
         self.schedule = schedule
         self.cfg = cfg
         self.sampler_cfg = sampler_cfg
+        self._reset_caches()
+        self.lane_launches: List[List[int]] = []
+
+    def _reset_caches(self) -> None:
+        """Empty the per-card caches: the runs, crossfade weights, replicas and
+        parameter copies (a replica starts with its own)."""
         self._runs: Dict[tuple, _WindowRun] = {}
         self._crossfades: Dict[int, tuple] = {}
         self._replicas: Dict[tuple, "_WindowSampler"] = {}
         self._params: Dict[tuple, tuple] = {}
-        self.lane_launches: List[List[int]] = []
 
     @property
     def capture_seconds(self) -> float:
         """Seconds spent warming up and capturing graphs so far."""
-        return sum(r.graph_set.capture_seconds for r in self._runs.values()
-                   if r.graph_set is not None)
+        return sum(r.capture_seconds for r in self._runs.values())
 
     def _new_run(self, params, batch: int, rows: Optional[tuple] = None) -> _WindowRun:
-        raise NotImplementedError
+        return _WindowRun(self, params, batch, rows)
 
     def _run(self, params, batch: int, rows: Optional[tuple] = None) -> _WindowRun:
         key = (batch, id(params), rows)
@@ -261,9 +245,7 @@ class _WindowSampler:
             rep.schedule = dataclasses.replace(self.schedule, **{
                 f.name: getattr(self.schedule, f.name).to(dev)
                 for f in dataclasses.fields(self.schedule)})
-            rep._runs, rep._crossfades, rep._replicas, rep._params = {}, {}, {}, {}
-            if hasattr(rep, "_encoders"):
-                rep._encoders = {}
+            rep._reset_caches()
             self._replicas[key] = rep
         return self._replicas[key]
 
@@ -278,20 +260,27 @@ class _WindowSampler:
             self._params[key] = (params, copy.deepcopy(params).to(dev))
         return self._params[key][1]
 
-    def _lanes(self, params, batch: int, mesh) -> List["_Lane"]:
-        """One lane a card of `mesh`'s data axis that gets rows (one lane on
-        this sampler's device without a mesh)."""
+    def _lanes(self, params, style: torch.Tensor, mesh) -> List["_Lane"]:
+        """One lane a card of `mesh`'s data axis that gets rows of the (B, …)
+        `style`'s batch (one lane on this sampler's device without a mesh),
+        each with its run, its rows of `style` filled in."""
+        batch = style.shape[0]
         if mesh is None:
-            return [_Lane(self, params, 0, batch, None)]
-        if "data" not in mesh.axis_names:
+            lanes = [_Lane(self, params, 0, batch, None)]
+        elif "data" not in mesh.axis_names:
             raise ValueError(f"a serving mesh needs a 'data' axis (axes {mesh.axis_names})")
-        lanes = []
-        for i, (dev, (lo, hi)) in enumerate(zip(mesh.axis_devices("data"),
-                                                row_bounds(batch, mesh.shape["data"]))):
-            if hi > lo:
-                rep = self._replica(i, torch.device(dev))
-                lanes.append(_Lane(rep, self._params_on(params, rep.device), lo, hi,
-                                   (lo, hi, batch)))
+        else:
+            lanes = []
+            for i, (dev, (lo, hi)) in enumerate(zip(mesh.axis_devices("data"),
+                                                    row_bounds(batch, mesh.shape["data"]))):
+                if hi > lo:
+                    rep = self._replica(i, torch.device(dev))
+                    lanes.append(_Lane(rep, self._params_on(params, rep.device), lo, hi,
+                                       (lo, hi, batch)))
+        for lane in lanes:
+            with lane.on_card():
+                lane.run = lane.sampler._run(lane.params, lane.hi - lane.lo, lane.rows)
+                lane.run.fill(style=style[lane.lo:lane.hi].to(lane.device))
         return lanes
 
     def _run_lanes(self, lanes: List["_Lane"], num_windows: int, generator,
@@ -378,17 +367,18 @@ class _WindowSampler:
                seed: torch.Tensor, **cond: torch.Tensor) -> tuple:
         """One window of the autoregressive loop: sample it under the carried
         seed, then (after window 0) remove the root-translation delta (ref
-        `sample.py:269-282`, where the config asks for it) and crossfade its
+        `sample.py:269-282`, where `corrects_root_delta`) and crossfade its
         first n_seed frames with the seed (`:284-288`). Returns (sample, the
         next window's seed). The batch engines and the streams share it."""
-        return self.finish_window(run, run.sample(noise, seed=seed, **cond), first, seed)
+        run.begin(noise, seed=seed, **cond)
+        return self.finish_window(run, run.run().clone(), first, seed)
 
     def finish_window(self, run: _WindowRun, sample: torch.Tensor, first: bool,
                       seed: torch.Tensor) -> tuple:
         """`window`'s step after the loop: root delta and crossfade."""
         cfg = self.cfg
         if not first:
-            if getattr(cfg, "root_delta_correction", False):
+            if self.corrects_root_delta:
                 delta = (sample[:, 0:3, :, 0] - seed[:, 0:3, :, 0])[..., None]
                 sample = torch.cat([sample[:, 0:3] - delta, sample[:, 3:]], dim=1)
             wa, wb = self._crossfade(run.crossfade_batch)
@@ -405,9 +395,8 @@ class ZeggsSampler(_WindowSampler):
     wavlm_apply: (wavlm_params, windows (W, S)) → (W, n_poses, D) features
       at the motion rate (`make_zeggs_wavlm_fn`).
     schedule: diffusion `Schedule`, on `device`.
-    graphs: None (default) captures CUDA graphs on a CUDA device and runs
-      eagerly on the CPU; False runs eagerly on the card too (the comparison
-      path); True on the CPU raises.
+    graphs: when to capture (`utils.graphs.use_graphs`); False on the card
+      is the comparison path.
     """
 
     # windows a replay of the chunked encoder runs over; divides the server's
@@ -416,6 +405,7 @@ class ZeggsSampler(_WindowSampler):
     # costs 5.30 ms a window in chunks of 8, 5.09 in chunks of 16 and 4.86 in
     # one graph of 80 windows; rounding up to 8 pads half as much as to 16
     ENCODE_CHUNK = 8
+    corrects_root_delta = True
 
     def __init__(self, model_apply: Callable, wavlm_apply: Callable, schedule: Schedule,
                  cfg: ZeggsEngineConfig = ZeggsEngineConfig(),
@@ -423,6 +413,9 @@ class ZeggsSampler(_WindowSampler):
                  device: Union[str, torch.device] = "cuda", graphs: Optional[bool] = None):
         super().__init__(model_apply, schedule, cfg, sampler_cfg, device, graphs)
         self.wavlm_apply = wavlm_apply
+
+    def _reset_caches(self) -> None:
+        super()._reset_caches()
         self._encoders: Dict[tuple, tuple] = {}
 
     @property
@@ -507,13 +500,7 @@ class ZeggsSampler(_WindowSampler):
         return grid.reshape((rows, bucket) + tuple(feats.shape[1:])), W
 
     def _new_run(self, params, batch: int, rows: Optional[tuple] = None) -> _WindowRun:
-        cfg, dev = self.cfg, self.device
-        cond = {"style": torch.zeros((batch, 6), device=dev),
-                "seed": torch.zeros((batch, cfg.njoints, 1, cfg.n_seed), device=dev),
-                "audio": None,  # sized at the first window, from the features' width
-                "mask_local": torch.ones((batch, cfg.n_poses), dtype=torch.bool, device=dev)}
-        return _WindowRun(self, params, cond, (batch, cfg.njoints, 1, cfg.n_poses),
-                          cfg.skip_timesteps, rows)
+        return _WindowRun(self, params, batch, rows, self.cfg.skip_timesteps)
 
     def sample_windows(self, params, window_feats: Callable[[int], torch.Tensor],
                        num_windows: int, style: torch.Tensor,
@@ -525,12 +512,7 @@ class ZeggsSampler(_WindowSampler):
         draw had been made from it. `mesh`: the rows spread over its cards
         (module docstring)."""
         cfg = self.cfg
-        B = style.shape[0]
-        lanes = self._lanes(params, B, mesh)
-        for lane in lanes:
-            with lane.on_card():
-                lane.run = lane.sampler._run(lane.params, lane.hi - lane.lo, lane.rows)
-                lane.run.cond["style"].copy_(style[lane.lo:lane.hi])
+        lanes = self._lanes(params, style, mesh)
         pieces = self._run_lanes(
             lanes, num_windows, self._generator(generator), noise_windows,
             lambda lane: torch.zeros((lane.hi - lane.lo, cfg.njoints, 1, cfg.n_seed),
@@ -545,11 +527,10 @@ class ZeggsSampler(_WindowSampler):
                  generator: Optional[torch.Generator] = None,
                  mean: Optional[np.ndarray] = None, std: Optional[np.ndarray] = None,
                  noise_windows: Optional[np.ndarray] = None,
-                 window_buckets: Optional[tuple] = None, device_out: bool = False,
-                 transfer_dtype: Optional[torch.dtype] = None, mesh=None):
+                 window_buckets: Optional[tuple] = None, mesh=None) -> np.ndarray:
         """audio (1-D 16 kHz, or already-sliced (W, S) windows) →
-        (B, T_frames, njoints) un-normalized poses, numpy (a tensor on the
-        device with `device_out=True`). `mesh` (`parallel.make_mesh`): the
+        (B, T_frames, njoints) un-normalized poses, numpy. `mesh`
+        (`parallel.make_mesh`): the
         batch's rows spread over its data axis's cards (module docstring);
         `noise_windows` are then cut by rows too.
 
@@ -557,9 +538,7 @@ class ZeggsSampler(_WindowSampler):
         `window_buckets` pads the window count up to the next bucket with
         zero audio for the encoder batch; padded windows are causally
         downstream of the real ones, so they are not sampled and the output
-        is that of the unpadded run. `transfer_dtype` (e.g. torch.float16)
-        casts the un-normalized result on the device before it is copied to
-        the host, halving the bytes moved; the returned array is float32.
+        is that of the unpadded run.
         """
         cfg = self.cfg
         dev = self.device
@@ -582,7 +561,7 @@ class ZeggsSampler(_WindowSampler):
         out = self.sample_windows(
             params, lambda i: feats[i][None].expand((B,) + tuple(feats.shape[1:])),
             real_windows, style_t, generator, noise_windows, mesh)
-        return _poses_out(out[:, :, 0].transpose(1, 2), mean, std, device_out, transfer_dtype)
+        return _poses_out(out, mean, std)
 
 
 class _Lane:
@@ -611,22 +590,16 @@ def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
     return t.pin_memory().to(device, non_blocking=True)
 
 
-def _poses_out(seq: torch.Tensor, mean, std, device_out: bool, transfer_dtype):
-    """(B, T, C) device poses → un-normalized: a device tensor, or numpy
-    (cast to `transfer_dtype` on the device first, when given)."""
-    if device_out:
-        return unnormalize_poses(seq, mean, std)
-    if transfer_dtype is not None:
-        small = unnormalize_poses(seq, mean, std).to(transfer_dtype)
-        return small.cpu().numpy().astype(np.float32)
-    return unnormalize_poses(seq.cpu().numpy(), mean, std)
+def _poses_out(out: torch.Tensor, mean, std) -> np.ndarray:
+    """(B, njoints, 1, T) device samples → (B, T, njoints) un-normalized
+    poses, numpy."""
+    return unnormalize_poses(out[:, :, 0].transpose(1, 2).cpu().numpy(), mean, std)
 
 
 @torch.inference_mode()
 def generate_multi_clip(sampler: ZeggsSampler, params, wavlm_params, audios: Sequence[np.ndarray],
                         styles: np.ndarray, generator: Optional[torch.Generator] = None,
-                        mean=None, std=None, noise_windows: Optional[np.ndarray] = None,
-                        transfer_dtype: Optional[torch.dtype] = None):
+                        mean=None, std=None, noise_windows: Optional[np.ndarray] = None):
     """Several clips as one batch (JAX `generate_multi_clip`, `engine.py:425-474`):
     the clips are padded to the largest window count, WavLM runs once over
     the windows that carry audio (`ZeggsSampler.encode_packed`), and window
@@ -645,7 +618,7 @@ def generate_multi_clip(sampler: ZeggsSampler, params, wavlm_params, audios: Seq
     styles_t = torch.as_tensor(np.asarray(styles, np.float32), device=dev)
     out = sampler.sample_windows(params, lambda w: feats[:, w], w_max, styles_t, generator,
                                  noise_windows)
-    seq = _poses_out(out[:, :, 0].transpose(1, 2), mean, std, False, transfer_dtype)
+    seq = _poses_out(out, mean, std)
     return [seq[i, : max(0, c * cfg.stride - cfg.n_seed)] for i, c in enumerate(counts)]
 
 

@@ -39,7 +39,7 @@ import torch
 
 from ..diffusion import SamplerConfig, Schedule
 from ..utils import profiling
-from .engine import _WindowRun, _WindowSampler
+from .engine import _WindowSampler
 
 VARIANTS = ("attention3", "attention4", "attention5")
 
@@ -82,9 +82,7 @@ class BeatTwhSampler(_WindowSampler):
     model_apply: (params, x, t, cond, uncond=None) → x0 prediction, where
       `params` is what `generate` receives (the `MDMPlus` module).
     schedule: diffusion `Schedule`, on `device`.
-    graphs: None (default) captures CUDA graphs on a CUDA device and runs
-      eagerly on the CPU; False runs eagerly on the card too; True on the CPU
-      raises.
+    graphs: when to capture (`utils.graphs.use_graphs`).
     """
 
     def __init__(self, model_apply: Callable, schedule: Schedule,
@@ -111,23 +109,11 @@ class BeatTwhSampler(_WindowSampler):
             return main, num, real_n
         return main[:, : stride - cfg.n_seed], num, real_n
 
-    def _new_run(self, params, batch: int, rows: Optional[tuple] = None) -> _WindowRun:
-        cfg, dev = self.cfg, self.device
-        seed_shape = (batch, cfg.njoints, 1, cfg.n_seed)
-        cond = {"style": None,  # sized by the first call's speaker vectors
-                "seed": torch.zeros(seed_shape, device=dev),
-                "audio": None,  # sized at the first window
-                "mask_local": torch.ones((batch, cfg.n_poses), dtype=torch.bool, device=dev)}
-        if cfg.variant == "attention5":
-            cond["seed_last"] = torch.zeros(seed_shape, device=dev)
-        return _WindowRun(self, params, cond, (batch, cfg.njoints, 1, cfg.n_poses), rows=rows)
-
     @torch.inference_mode()
     def generate(self, params, textaudio: np.ndarray, seed_gesture: np.ndarray,
                  style: np.ndarray, generator: Optional[torch.Generator], mean: np.ndarray,
                  std: np.ndarray, seed_last: Optional[np.ndarray] = None, max_len: int = 0,
-                 noise_windows: Optional[np.ndarray] = None, mesh=None,
-                 window_buckets: Optional[tuple] = None) -> np.ndarray:
+                 noise_windows: Optional[np.ndarray] = None, mesh=None) -> np.ndarray:
         """→ (B, real_n, motion_dim) un-normalized position block, numpy.
 
         `seed_gesture` (n_seed, njoints) from `prepare_seed_gesture`; `style`
@@ -137,11 +123,7 @@ class BeatTwhSampler(_WindowSampler):
         advances as if every draw had been made from it (the default generator
         of the device when None). `mesh` (`parallel.make_mesh`): the batch's
         rows spread over the cards of its data axis, as in
-        `ZeggsSampler.generate` (`engine.py`'s module docstring). `window_buckets` is taken for the
-        JAX signature: there it pads the window count to reuse a compiled
-        program, and the padded windows never reach the output; the graphs here
-        do not depend on the window count, so no padded window is sampled and
-        the output is the unpadded run's.
+        `ZeggsSampler.generate` (`engine.py`'s module docstring).
         """
         with profiling.span("beat.generate") as sp:
             cfg, dev = self.cfg, self.device
@@ -156,14 +138,12 @@ class BeatTwhSampler(_WindowSampler):
                 style_t = torch.as_tensor(np.atleast_2d(np.asarray(style, np.float32)),
                                           device=dev)
                 B = style_t.shape[0]
-                lanes = self._lanes(params, B, mesh)
-                for lane in lanes:
-                    with lane.on_card():
-                        rows = lane.hi - lane.lo
-                        lane.run = lane.sampler._run(lane.params, rows, lane.rows)
-                        lane.run.fill(style=style_t[lane.lo:lane.hi].to(lane.device))
-                        if cfg.variant == "attention5":
-                            lane.run.fill(seed_last=lane.sampler.seed_tensor(seed_last, rows))
+                lanes = self._lanes(params, style_t, mesh)
+                if cfg.variant == "attention5":
+                    for lane in lanes:
+                        with lane.on_card():
+                            lane.run.fill(seed_last=lane.sampler.seed_tensor(
+                                seed_last, lane.hi - lane.lo))
                 feats = torch.as_tensor(windows, device=dev)
             pieces = self._run_lanes(
                 lanes, num, self._generator(generator), noise_windows,

@@ -10,10 +10,10 @@ uncond passes run as one doubled batch (`make_cfg_model_fn`; guidance 1 runs
 the conditional model alone) → (rows, njoints, 1, frames) normalized hml_vec.
 
 The engine outlives a request. It keeps, per (rows, frames), the loop's
-program over a text buffer and a generator of its own; on a CUDA device the
-program's step functions are captured once, at that shape's first request
-(`utils/graphs.py::capture_program`), and every later request of the shape
-only replays them. A request writes its text embedding into the buffer and
+program over a text buffer and a generator of its own, in a
+`utils/graphs.py::ProgramRun`: on a CUDA device the program's step functions
+are captured once, at that shape's first request, and every later request of
+the shape only replays them. A request writes its text embedding into the buffer and
 its seed into the generator, whose state the graphs read at each replay, so
 two requests with one seed give the same motion, and the eager loop
 (`graphs=False`, the CPU's only path) gives the same numbers as the replays.
@@ -37,29 +37,7 @@ from ..diffusion import Schedule, make_cfg_model_fn
 from ..diffusion.sampling import PROGRAMS
 from ..models.mdm_text import TextMDM
 from ..utils import profiling
-from ..utils.graphs import GraphSet, capture_program
-
-
-class _ShapeRun:
-    """One (rows, frames): the text buffer, the program over it, its generator
-    and, on the graph path, its graph set and one graph a phase."""
-
-    def __init__(self, engine: "TextMotionSampler", rows: int, frames: int):
-        dev, model = engine.device, engine.model
-        self.text = torch.zeros((rows, model.cfg.clip_dim), device=dev)
-        self.generator = torch.Generator(device=dev)
-        cond = {"text_emb": self.text}
-        if engine.guidance != 1.0:
-            model_fn = make_cfg_model_fn(
-                lambda _params, x, t, c, uncond=None: model(x, t, c, uncond=uncond),
-                engine.guidance, rows, cond=cond)
-        else:
-            def model_fn(x, t):
-                return model(x, t, cond)
-        self.program = PROGRAMS[engine.sampler](
-            engine.schedule, model_fn, (rows, model.cfg.njoints, 1, frames), self.generator)
-        self.graph_set = GraphSet(dev, [self.generator]) if engine.graphs else None
-        self.graphs = None
+from ..utils.graphs import ProgramRun, use_graphs
 
 
 class TextMotionSampler:
@@ -70,9 +48,8 @@ class TextMotionSampler:
       or `caption_encoder_from_spec`), its tower on the same device.
     schedule: the diffusion `Schedule` (respaced for ddimN).
     sampler: ddpm | ddim | plms | dpmpp; guidance: the CFG scale.
-    graphs: None (default) captures on a CUDA device and runs eagerly on the
-      CPU; False runs eagerly on the card too (the comparison path); True on
-      the CPU raises.
+    graphs: when to capture (`utils.graphs.use_graphs`); False on the card
+      is the comparison path.
     """
 
     def __init__(self, model: TextMDM, encoder, schedule: Schedule, sampler: str = "ddpm",
@@ -80,13 +57,11 @@ class TextMotionSampler:
         if sampler not in PROGRAMS:
             raise ValueError(f"unknown sampler {sampler!r} ({sorted(PROGRAMS)})")
         self.device = schedule.device
-        self.graphs = self.device.type == "cuda" if graphs is None else bool(graphs)
-        if self.graphs and self.device.type != "cuda":
-            raise ValueError(f"CUDA graphs need a CUDA device, not {self.device}")
+        self.graphs = use_graphs(self.device, graphs)
         self.model, self.schedule, self.sampler = model, schedule, sampler
         self.guidance = float(guidance)
         self.clip, self.tokenize = encoder.encoder, encoder.tokenize
-        self._runs: Dict[Tuple[int, int], _ShapeRun] = {}
+        self._runs: Dict[Tuple[int, int], Tuple[torch.Tensor, ProgramRun]] = {}
         self._counts = {"requests": 0, "rows": 0, "captures": 0, "replays": 0}
 
     def counters(self) -> Dict[str, int]:
@@ -95,8 +70,26 @@ class TextMotionSampler:
     @property
     def capture_seconds(self) -> float:
         """Seconds spent warming up and capturing graphs so far."""
-        return sum(r.graph_set.capture_seconds for r in self._runs.values()
-                   if r.graph_set is not None)
+        return sum(run.capture_seconds for _, run in self._runs.values())
+
+    def _run(self, rows: int, frames: int) -> Tuple[torch.Tensor, ProgramRun]:
+        """The (rows, frames) text buffer and the run of the program over it."""
+        if (rows, frames) not in self._runs:
+            model = self.model
+            text = torch.zeros((rows, model.cfg.clip_dim), device=self.device)
+            cond = {"text_emb": text}
+            if self.guidance != 1.0:
+                model_fn = make_cfg_model_fn(
+                    lambda _params, x, t, c, uncond=None: model(x, t, c, uncond=uncond),
+                    self.guidance, rows, cond=cond)
+            else:
+                def model_fn(x, t):
+                    return model(x, t, cond)
+            program = PROGRAMS[self.sampler](self.schedule, model_fn,
+                                             (rows, model.cfg.njoints, 1, frames),
+                                             torch.Generator(device=self.device))
+            self._runs[(rows, frames)] = text, ProgramRun(program, self.graphs)
+        return self._runs[(rows, frames)]
 
     @torch.inference_mode()
     def encode(self, prompts: Sequence[str]) -> torch.Tensor:
@@ -111,34 +104,22 @@ class TextMotionSampler:
         """(rows, njoints, 1, frames) samples for the (rows, clip_dim) embeddings,
         their noise drawn from `seed`; a copy, on the device."""
         rows = int(text_emb.shape[0])
-        run = self._runs.get((rows, frames))
-        if run is None:
-            run = self._runs[(rows, frames)] = _ShapeRun(self, rows, frames)
-        prog = run.program
+        text, run = self._run(rows, frames)
         with profiling.span("t2m.sample") as sp:
-            run.text.copy_(text_emb)
+            text.copy_(text_emb)
             run.generator.manual_seed(seed)
-            if run.graph_set is None:
-                sp.set(path="eager")
-            elif run.graphs is None:
-                sp.set(path="capture")
-                run.graphs = capture_program(run.graph_set, prog, run.generator)
-                self._counts["captures"] += 1
-            else:
-                sp.set(path="replay")
-            prog.init()
-            with profiling.span("t2m.steps", steps=sum(ph.count for ph in prog.phases)):
-                if run.graphs is None:
-                    prog.run()
-                else:
-                    # one replay a step, as the windowed engines issue them
-                    for phase, graph in zip(prog.phases, run.graphs):
-                        for _ in range(phase.count):
-                            graph.replay(1)
-                    self._counts["replays"] += 1
+            path = ("eager" if run.graph_set is None else
+                    "capture" if run.graphs is None else "replay")
+            sp.set(path=path)
+            run.begin()
+            self._counts["captures"] += path == "capture"
+            with profiling.span("t2m.steps",
+                                steps=sum(ph.count for ph in run.program.phases)):
+                img = run.run()
+            self._counts["replays"] += path != "eager"
             self._counts["requests"] += 1
             self._counts["rows"] += rows
-            return prog.img.clone()
+            return img.clone()
 
     @torch.inference_mode()
     def generate(self, prompts: Sequence[str], frames: int, repetitions: int = 1,

@@ -31,7 +31,7 @@ import torch
 
 from ..device import resolve_device
 from ..models.zeroeggs import ZeroEGGS, ZeroEGGSDecoder, stats_to_device
-from ..utils.graphs import GraphSet
+from ..utils.graphs import GraphSet, use_graphs
 
 
 def example_feature_vec(root_vel, root_vrt, lpos, ltxy, lvel, lvrt, anim_input_mean,
@@ -149,15 +149,12 @@ class CapturedRollout:
 class ZeroEggsGenerator:
     """Style encoding and generation with a trained `ZeroEGGS` on `device`
     ("cuda" unless the caller asks for the CPU). `stats` are the stats.npz
-    arrays. `graphs`: None captures the rollout step on a CUDA device and runs
-    it eagerly on the CPU; False runs eagerly on the card too."""
+    arrays. `graphs`: when to capture the rollout step (`utils.graphs.use_graphs`)."""
 
     def __init__(self, model: ZeroEGGS, stats: Dict[str, np.ndarray],
                  device: Union[str, torch.device] = "cuda", graphs: Optional[bool] = None):
         self.device = resolve_device(device)
-        self.graphs = self.device.type == "cuda" if graphs is None else bool(graphs)
-        if self.graphs and self.device.type != "cuda":
-            raise ValueError(f"CUDA graphs need a CUDA device, not {self.device}")
+        self.graphs = use_graphs(self.device, graphs)
         self.cfg = model.cfg
         self.model = model.to(self.device).eval()
         self.stats = stats_to_device(stats, self.device)

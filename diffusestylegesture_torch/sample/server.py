@@ -67,12 +67,6 @@ class ServerConfig:
     # style-vector size; requests are validated against it at submit() so one
     # malformed request cannot fail its co-batched peers
     style_dim: int = 6
-    # pad every batch to max_batch with dummy requests so the engine captures
-    # one batch size. With the reference crossfade quirk (engine
-    # crossfade_n=None: the weights follow the batch size) the padding fixes
-    # the quirk's n at max_batch; an explicit crossfade_n blends
-    # independently of the batch.
-    pad_to_max_batch: bool = True
 
 
 @dataclasses.dataclass
@@ -301,9 +295,12 @@ class GestureServer:
             sampler, ecfg = self.sampler, self.sampler.cfg
             dev = sampler.device
             bucket = self._bucket_for(batch[0].num_windows)
-            B = self.cfg.max_batch if self.cfg.pad_to_max_batch else len(batch)
-            # dummy rows past len(batch) have no windows, zero features and
-            # styles, and their outputs are dropped
+            # every batch padded to max_batch, so the engine captures one batch
+            # size and the reference crossfade quirk (crossfade_n=None: the
+            # weights follow the batch size) takes its n at max_batch; dummy
+            # rows past len(batch) have no windows, zero features and styles,
+            # and their outputs are dropped
+            B = self.cfg.max_batch
             clips = [slice_audio_windows(req.audio, ecfg)[:bucket] for req in batch]
             styles = np.zeros((B, self.cfg.style_dim), np.float32)
             styles[: len(batch)] = [req.style for req in batch]

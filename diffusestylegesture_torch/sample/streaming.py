@@ -84,7 +84,7 @@ class ZeggsStreamSampler:
         B = self.style.shape[0]
         feats = sampler.encode(self.wavlm_params, window_audio[None])
         run = sampler._run(self.params, B)
-        run.cond["style"].copy_(self.style)  # sessions share the run: refill per window
+        run.fill(style=self.style)  # sessions share the run: refill per window
         run.generator.set_state(self._generator.get_state())
         first = self._window_index == 0
         sample, self._seed = sampler.window(run, None, first, self._seed,

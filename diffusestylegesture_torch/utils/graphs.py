@@ -5,7 +5,9 @@ JAX engine's `jax.jit`: the JAX package traces one XLA program per clip, so
 its denoising loop runs without Python between denoiser calls. Here each
 step function of a `diffusion.sampling.SampleProgram` (and the WavLM
 encoder at one window count) is captured once into a `torch.cuda.CUDAGraph`
-and replayed: a step's ~60 launches become one `replay()`.
+and replayed: a step's ~60 launches become one `replay()`. `ProgramRun`
+runs a sampling program so, for every sampling engine, and `use_graphs` is
+their rule for when to capture.
 
 A graph holds the kernels, their arguments and their memory addresses as
 they were at capture. So everything a step reads or writes between replays
@@ -42,6 +44,7 @@ import torch
 
 from ..ops import encoder_layer as _el
 from ..ops import local_attention as _la
+from ..parallel import draws
 from . import profiling
 
 
@@ -133,21 +136,68 @@ class GraphSet:
         return StepGraph(graph, launches), out
 
 
-def capture_program(graph_set: GraphSet, program, generator: torch.Generator) -> List[StepGraph]:
-    """One graph per phase of a `diffusion.sampling.SampleProgram`, each warmed
-    up from the step index it starts at. The warm-up calls' draws are given back
-    to `generator`, so replaying the phases in order from `program.init` draws
-    what the eager loop draws."""
-    graphs, step = [], program.t0
-    state = generator.get_state()
-    for phase in program.phases:
-        graph, _ = graph_set.capture(phase.fn, prepare=lambda s=step: program.idx.fill_(s),
-                                     what=f"{type(program).__name__} {phase.name}",
-                                     batch=program.shape[0])
-        graphs.append(graph)
-        step -= phase.count
-    generator.set_state(state)
-    return graphs
+def use_graphs(device: torch.device, graphs: Optional[bool]) -> bool:
+    """Whether an engine on `device` captures its programs: `graphs` None
+    captures on a CUDA device and runs eagerly elsewhere; True off a CUDA
+    device raises."""
+    on = device.type == "cuda" if graphs is None else bool(graphs)
+    if on and device.type != "cuda":
+        raise ValueError(f"CUDA graphs need a CUDA device, not {device}")
+    return on
+
+
+class ProgramRun:
+    """A `diffusion.sampling.SampleProgram` run a step at a time: with
+    `graphs`, one graph a phase, captured at the first `begin` and replayed;
+    without, the phases' functions called eagerly."""
+
+    def __init__(self, program, graphs: bool):
+        self.program = program
+        # what the graphs register: the generator under a `parallel.draws.GlobalDraws`
+        self.generator: torch.Generator = draws.local(program.generator)
+        self.graph_set = GraphSet(program.sched.device, [self.generator]) if graphs else None
+        self.graphs: Optional[List[StepGraph]] = None
+
+    @property
+    def capture_seconds(self) -> float:
+        return self.graph_set.capture_seconds if self.graph_set is not None else 0.0
+
+    def begin(self, noise: Optional[torch.Tensor] = None) -> None:
+        """Capture at first use, then set x_T (drawn unless `noise` is given).
+        Each phase is warmed up from the step index it starts at, and the
+        warm-up calls' draws are given back to the generator, so the replays
+        from `program.init` draw what the eager loop draws."""
+        prog = self.program
+        if self.graph_set is not None and self.graphs is None:
+            self.graphs, step = [], prog.t0
+            state = self.generator.get_state()
+            for phase in prog.phases:
+                graph, _ = self.graph_set.capture(
+                    phase.fn, prepare=lambda s=step: prog.idx.fill_(s),
+                    what=f"{type(prog).__name__} {phase.name}", batch=prog.shape[0])
+                self.graphs.append(graph)
+                step -= phase.count
+            self.generator.set_state(state)
+        prog.init(noise)
+
+    def steps(self):
+        """The loop's steps, one at each `next`: a replay, or the phase's `fn`."""
+        for i, phase in enumerate(self.program.phases):
+            for _ in range(phase.count):
+                if self.graphs is None:
+                    phase.fn()
+                else:
+                    self.graphs[i].replay(1)
+                yield
+
+    def run(self) -> torch.Tensor:
+        """Every step after `begin`, in a plain loop; returns the program's `img`."""
+        if self.graphs is None:
+            return self.program.run()
+        for phase, graph in zip(self.program.phases, self.graphs):
+            for _ in range(phase.count):
+                graph.replay(1)
+        return self.program.img
 
 
 class CapturedStep:

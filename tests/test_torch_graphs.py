@@ -20,7 +20,9 @@ bitwise over three steps; a step capture that fails raises. The BEAT/TWH
 engine (`BeatTwhSampler`) gives bitwise-equal poses on graphs and eagerly for
 each variant, with CFG, and attention5 reads a new `seed_last` at the next
 call on the same captured graphs.
-Elsewhere every test skips but the one of the collector's pause and restore.
+Elsewhere every test skips but these: the collector's pause and restore;
+`ProgramRun` with graphs off against its `run()` and the samplers' eager loop
+functions; `use_graphs` refusing graphs off a CUDA device.
 """
 import gc
 import os
@@ -222,6 +224,51 @@ def test_collector_paused_restores_the_collector():
         with graphs._collector_paused():
             raise KeyError("x")
     assert gc.isenabled()
+
+
+LOOPS = {"ddpm": D.p_sample_loop, "ddim": D.ddim_sample_loop, "plms": D.plms_sample_loop,
+         "dpmpp": D.dpmpp2m_sample_loop}
+
+
+@pytest.mark.parametrize("name", sorted(LOOPS))
+def test_program_run_steps_equal_run_and_the_eager_loop(name):
+    """`ProgramRun` with graphs off: `begin` + `steps()` takes one step a
+    `next`, Σ phase.count of them, and leaves what `run()` and the sampler's
+    loop function leave from the same generator state."""
+    from diffusestylegesture_torch.diffusion.sampling import PROGRAMS
+
+    sched = D.spaced_schedule(D.named_beta_schedule("cosine", 1000),
+                              D.space_timesteps(1000, "ddim10"), device="cpu")
+    shape = (2, NJ, 1, 8)
+    w = torch.randn(shape[1:], generator=torch.Generator().manual_seed(3))
+    cfg = D.SamplerConfig(eta=0.5)  # DDIM draws noise too
+
+    def model_fn(x, t):
+        return torch.tanh(0.7 * x + w) * (1.0 + t[:, None, None, None] / 1000.0)
+
+    def new_run():
+        return graphs.ProgramRun(PROGRAMS[name](sched, model_fn, shape,
+                                                torch.Generator().manual_seed(11), cfg=cfg),
+                                 False)
+
+    stepped, whole = new_run(), new_run()
+    stepped.begin()
+    taken = sum(1 for _ in stepped.steps())
+    assert taken == sum(ph.count for ph in stepped.program.phases) and len(stepped.program.phases) > 1
+    assert stepped.graph_set is None and stepped.graphs is None and stepped.capture_seconds == 0.0
+    whole.begin()
+    assert whole.run() is whole.program.img
+    loop = LOOPS[name](sched, model_fn, shape, torch.Generator().manual_seed(11), cfg=cfg)
+    assert torch.equal(stepped.program.img, whole.program.img)
+    assert torch.equal(stepped.program.img, loop)
+    assert torch.equal(stepped.generator.get_state(), whole.generator.get_state())
+
+
+def test_use_graphs_captures_only_on_a_cuda_device():
+    cpu = torch.device("cpu")
+    assert graphs.use_graphs(cpu, None) is False and graphs.use_graphs(cpu, False) is False
+    with pytest.raises(ValueError, match="CUDA graphs need a CUDA device"):
+        graphs.use_graphs(cpu, True)
 
 
 @pytest.mark.cuda
