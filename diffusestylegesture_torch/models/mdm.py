@@ -10,6 +10,10 @@ heads, window 11). Per step:
   h = local_attention(rope(heads(Linear([token | pose emb | audio emb]))))
   out = Linear(encoder_trunk(rope(heads([token ; h])))[1:])
 
+The style, seed and audio embeddings depend on the conditioning alone:
+`cond_invariants` computes them, and a `cond` that holds them (a window
+engine's buffers, refilled once a window) spares every step their products.
+
 The rest of the JAX `MDMConfig` matrix (`mdm.py:152-300`):
 
 * `cross_local_attention5`: the local block only; plain
@@ -172,7 +176,7 @@ class MDM(nn.Module):
     x: (B, njoints, nfeats, T) noisy window; timesteps: (B,) int;
     cond: {'style': (B, 6), 'seed': (B, njoints, nfeats, n_seed),
            'audio': (B, T, 1024 wavlm | 13 mfcc | 32 wav encoder),
-           'mask_local': (B, T) bool};
+           'mask_local': (B, T) bool}, and optionally `cond_invariants(cond)`'s entries;
     uncond: optional (B,) bool, per-example condition drop for CFG;
     train: the training forward (module docstring), which draws from
     `generator`; cond_drop: optional ((B,) style drops, (B,) seed drops) used
@@ -221,6 +225,25 @@ class MDM(nn.Module):
             self.gru = nn.GRU(D, D, cfg.num_layers, batch_first=True)
         self.output_process = OutputProcess(cfg.input_feats, D, cfg.njoints, cfg.nfeats)
 
+    def cond_invariants(self, cond: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """What `forward` computes from `cond` alone, the same at every
+        denoising step: the style embedding `style_emb` (before `mask_cond`),
+        the seed embedding `seed_emb` and the WavLM features through
+        `WavEncoder`, `audio_emb`, each where the configuration has it.
+        `forward` reads each from `cond` where it holds it instead of
+        computing it, so an engine computes them once a window
+        (`sample/engine.py::_WindowRun`); `seed_emb` only where no row is
+        dropped, since `mask_cond` drops the seed before its projection."""
+        out = {}
+        if hasattr(self, "embed_style"):
+            out["style_emb"] = self.embed_style(cond["style"])
+        if self.cfg.n_seed:
+            # from the seed itself, not from an entry an earlier window left in `cond`
+            out["seed_emb"] = seed_embedding(self.embed_text, {"seed": cond["seed"]})
+        if self.cfg.audio_feat == "wavlm":
+            out["audio_emb"] = self.WavEncoder(cond["audio"])
+        return out
+
     def forward(self, x: torch.Tensor, timesteps: torch.Tensor, cond: Dict[str, torch.Tensor],
                 uncond: Optional[torch.Tensor] = None, train: bool = False,
                 generator: Optional[torch.Generator] = None,
@@ -245,14 +268,18 @@ class MDM(nn.Module):
         emb_t = self.embed_timestep(timesteps)
         seed = None
         if cfg.n_seed:
-            seed = self.embed_text(mask_cond(cond["seed"].reshape(B, -1), uncond, seed_drop))
+            seed = seed_embedding(self.embed_text, cond, uncond, seed_drop)
         if "style1" in cfg.cond_mode:
-            style_emb = mask_cond(self.embed_style(cond["style"]), uncond, style_drop)
+            style_emb = mask_cond(style_embedding(self.embed_style, cond), uncond, style_drop)
             token = style_emb if seed is None else torch.cat([style_emb, seed], dim=-1)
         else:
             token = seed if seed is not None else torch.zeros(B, D, device=x.device)
         token = token + emb_t                                             # (B, D)
-        enc_audio = self.WavEncoder(cond["audio"]) if cfg.audio_feat == "wavlm" else cond["audio"]
+        if "audio_emb" in cond:
+            enc_audio = cond["audio_emb"]
+        else:
+            enc_audio = self.WavEncoder(cond["audio"]) if cfg.audio_feat == "wavlm" else \
+                cond["audio"]
         mxu_bf16 = cfg.dtype == torch.bfloat16
         aux = [] if train and cfg.moe_experts else None
         order = cfg.ordering
@@ -293,7 +320,7 @@ class MDM(nn.Module):
         if cfg.arch == "gru":
             feats.insert(1, token[:, None, :].expand(B, T, D))
         elif "style2" in cfg.cond_mode:
-            style2 = mask_cond(self.embed_style(cond["style"]), uncond, style_drop)
+            style2 = mask_cond(style_embedding(self.embed_style, cond), uncond, style_drop)
             feats.append(style2[:, None, :].expand(B, T, cfg.style_dim))
         h = self.input_process_plain(torch.cat(feats, dim=-1))
         if cfg.arch in ("trans_enc", "mytrans_enc"):
@@ -306,6 +333,24 @@ class MDM(nn.Module):
         if cfg.arch == "trans_dec":
             return self.seqTransDecoder(seq, token[:, None, :], mxu_bf16, train, generator)
         return self.gru(seq)[0]
+
+
+def style_embedding(embed_style: nn.Linear, cond: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The (B, ·) style embedding: `cond["style_emb"]` where `cond` holds
+    the window's invariants (`MDM.cond_invariants`), else computed."""
+    return cond["style_emb"] if "style_emb" in cond else embed_style(cond["style"])
+
+
+def seed_embedding(embed_text: nn.Linear, cond: Dict[str, torch.Tensor],
+                   uncond: Optional[torch.Tensor] = None,
+                   drop: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """`embed_text` over the flattened seed frames, rows of `uncond` or
+    `drop` zeroed before it: `cond["seed_emb"]` where `cond` holds the
+    window's invariants and no row is dropped, else computed."""
+    if "seed_emb" in cond and uncond is None and drop is None:
+        return cond["seed_emb"]
+    seed = cond["seed"]
+    return embed_text(mask_cond(seed.reshape(seed.shape[0], -1), uncond, drop))
 
 
 def validate_parallel(cfg) -> None:

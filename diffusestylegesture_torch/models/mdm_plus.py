@@ -18,6 +18,9 @@ Port of `diffusestylegesture_tpu/models/mdm_plus.py` (reference
   In variants 4 and 5 only the style embedding passes through `mask_cond`
   (CFG's `uncond` and the training drop); the seed path is never dropped.
 
+As in `MDM`, `cond_invariants` computes the embeddings that depend on the
+conditioning alone, and `forward` reads them from a `cond` that holds them.
+
 The local block and the trunk are the ZEGGS `MDM`'s (`models/mdm.py`): the
 local attention runs kernel A and each trunk layer kernel B on a CUDA tensor
 (`impl="kernel"`), their plain PyTorch versions with `impl="plain"`.
@@ -43,7 +46,8 @@ from torch import nn
 
 from .embeddings import InputProcess, OutputProcess, TimestepEmbedder, WavEncoder, mask_cond
 from ..parallel import draws
-from .mdm import local_block, seq_group, trunk, trunk_pipe, validate_parallel
+from .mdm import (local_block, seed_embedding, seq_group, style_embedding, trunk, trunk_pipe,
+                  validate_parallel)
 from .transformer import TorchTransformerEncoder
 
 VARIANTS = ("cross_local_attention3", "cross_local_attention4", "cross_local_attention5")
@@ -112,7 +116,8 @@ class MDMPlus(nn.Module):
     x: (B, njoints, nfeats, T) noisy window; timesteps: (B,) int;
     cond: {'style': (B, style_dim_in), 'seed': (B, njoints, nfeats, n_seed),
            'audio': (B, T_a, source_audio_dim), 'mask_local': (B, T) bool and,
-           for cross_local_attention5, 'seed_last': (B, njoints, nfeats, n_seed)},
+           for cross_local_attention5, 'seed_last': (B, njoints, nfeats, n_seed)} and
+           optionally `cond_invariants(cond)`'s entries,
     T_a = T (variant 3), T − n_seed (4), T − 2·n_seed (5);
     uncond: optional (B,) bool, per-example condition drop for CFG;
     train / generator / cond_drop: as `MDM.forward` (the seed drop acts in
@@ -144,6 +149,31 @@ class MDMPlus(nn.Module):
             cfg.moe_experts, cfg.moe_capacity_factor, cfg.split_qkv)
         self.output_process = OutputProcess(cfg.input_feats, D, cfg.njoints, cfg.nfeats)
 
+    def cond_invariants(self, cond: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """What `forward` computes from `cond` alone, the same at every
+        denoising step, as `MDM.cond_invariants`: the style embedding
+        `style_emb` (before `mask_cond`), the per-frame conditioning
+        `audio_emb` (variant 3: the features through `WavEncoder`; 4 and 5:
+        the projected seed frames, the features and, in 5, the projected
+        `seed_last` along time) and, in variant 3, the seed embedding
+        `seed_emb`."""
+        out = {"style_emb": self.embed_style(cond["style"]), "audio_emb": self._frames(cond)}
+        if self.cfg.variant == "cross_local_attention3":
+            # from the seed itself, not from an entry an earlier window left in `cond`
+            out["seed_emb"] = seed_embedding(self.embed_text, {"seed": cond["seed"]})
+        return out
+
+    def _frames(self, cond: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The per-frame conditioning the local block reads beside the poses."""
+        enc_audio = self.WavEncoder(cond["audio"])                        # (B, T_a, A)
+        if self.cfg.variant == "cross_local_attention3":
+            return enc_audio
+        # each seed frame projected and prepended along time; ++ appends seed_last
+        parts = [self.embed_text(cond["seed"][:, :, 0].transpose(1, 2)), enc_audio]
+        if self.cfg.variant == "cross_local_attention5":
+            parts.append(self.embed_text_last(cond["seed_last"][:, :, 0].transpose(1, 2)))
+        return torch.cat(parts, dim=1)
+
     def forward(self, x: torch.Tensor, timesteps: torch.Tensor, cond: Dict[str, torch.Tensor],
                 uncond: Optional[torch.Tensor] = None, train: bool = False,
                 generator: Optional[torch.Generator] = None,
@@ -166,18 +196,12 @@ class MDMPlus(nn.Module):
                 draws.rand((B,), generator, x.device) < cfg.cond_mask_prob for _ in range(2))
 
         emb_t = self.embed_timestep(timesteps)
-        style_emb = mask_cond(self.embed_style(cond["style"]), uncond, style_drop)
-        enc_audio = self.WavEncoder(cond["audio"])                        # (B, T_a, A)
+        style_emb = mask_cond(style_embedding(self.embed_style, cond), uncond, style_drop)
+        enc_text = cond["audio_emb"] if "audio_emb" in cond else self._frames(cond)  # (B, T, A)
         if variant == "cross_local_attention3":
-            seed_emb = self.embed_text(mask_cond(cond["seed"].reshape(B, -1), uncond, seed_drop))
+            seed_emb = seed_embedding(self.embed_text, cond, uncond, seed_drop)
             token = torch.cat([style_emb, seed_emb], dim=-1) + emb_t
-            enc_text = enc_audio
         else:
-            # each seed frame projected and prepended along time; ++ appends seed_last
-            parts = [self.embed_text(cond["seed"][:, :, 0].transpose(1, 2)), enc_audio]
-            if variant == "cross_local_attention5":
-                parts.append(self.embed_text_last(cond["seed_last"][:, :, 0].transpose(1, 2)))
-            enc_text = torch.cat(parts, dim=1)                            # (B, T, A)
             token = style_emb + emb_t
         if enc_text.shape[1] != T:
             raise ValueError(f"{variant}: the conditioning spans {enc_text.shape[1]} frames, "

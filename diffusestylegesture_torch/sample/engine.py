@@ -58,9 +58,11 @@ features into the batch's (rows, windows) grid: what the server and
 
 Tracing (`utils/profiling.py`, off by default): `ZeggsSampler.encode` is an
 `engine.encode` span, and each window of the loop an `engine.window` span
-holding `engine.begin` (buffers refilled, graphs captured at first use),
-`engine.steps` (the step loop; `steps` replayed) and `engine.finish` (root
-delta and crossfade).
+holding `engine.begin` (buffers refilled, the model's conditioning
+invariants computed, graphs captured at first use; `cond`: `precomputed` or
+`per_step`), `engine.steps` (the step loop; `steps` replayed) and
+`engine.finish` (root delta and crossfade). `cond_encodes` counts the
+windows, a lane each, whose invariants were computed at their start.
 """
 from __future__ import annotations
 
@@ -149,7 +151,10 @@ def slice_audio_windows(audio: np.ndarray, cfg: ZeggsEngineConfig) -> np.ndarray
 class _WindowRun(ProgramRun):
     """What one (batch, model) needs to sample windows: the loop's program
     and its graphs (`ProgramRun`) over the conditioning buffers `cond` (the
-    local mask, and each other one made at its first fill)."""
+    local mask, and each other one made at its first fill). Where the model
+    computes part of a step from the conditioning alone (`cond_invariants`,
+    `models/mdm.py`), `begin` computes that part once a window into buffers
+    of `cond` as well, and the steps read it there."""
 
     def __init__(self, sampler: "_WindowSampler", params, batch: int,
                  rows: Optional[tuple] = None, skip_timesteps: int = 0):
@@ -159,7 +164,11 @@ class _WindowRun(ProgramRun):
         self.crossfade_batch = batch if rows is None else rows[2]
         self.params = params  # the graphs read these weights where they lie
         self.cond = {"mask_local": torch.ones((batch, cfg.n_poses), dtype=torch.bool, device=dev)}
-        if cfg.guidance_scale and cfg.guidance_scale != 1.0:
+        guided = bool(cfg.guidance_scale) and cfg.guidance_scale != 1.0
+        # a guided step drops the seed of its unconditional rows before the seed's
+        # projection, so it computes its conditioning itself
+        self.invariants = None if guided else getattr(params, "cond_invariants", None)
+        if guided:
             model_fn = make_cfg_model_fn(sampler.model_apply, cfg.guidance_scale, batch,
                                          params=params, cond=self.cond)
         else:
@@ -180,10 +189,16 @@ class _WindowRun(ProgramRun):
                 self.cond[name] = torch.zeros(value.shape, device=value.device)
             self.cond[name].copy_(value)
 
-    def begin(self, noise: Optional[torch.Tensor], **tensors: torch.Tensor) -> None:
-        """Refill the buffers, then `ProgramRun.begin`."""
+    def begin(self, noise: Optional[torch.Tensor], **tensors: torch.Tensor) -> bool:
+        """Refill the buffers and, where the model has them, compute the
+        window's invariants into theirs; then `ProgramRun.begin`. Returns
+        whether the invariants were computed here (else every step does)."""
         self.fill(**tensors)
+        if self.invariants is not None:
+            with torch.no_grad():
+                self.fill(**self.invariants(self.cond))
         super().begin(noise)
+        return self.invariants is not None
 
 
 class _WindowSampler:
@@ -208,6 +223,8 @@ class _WindowSampler:
         self.sampler_cfg = sampler_cfg
         self._reset_caches()
         self.lane_launches: List[List[int]] = []
+        # windows (a lane each) whose invariants `_WindowRun.begin` computed
+        self.cond_encodes = 0
 
     def _reset_caches(self) -> None:
         """Empty the per-card caches: the runs, crossfade weights, replicas and
@@ -314,8 +331,9 @@ class _WindowSampler:
         rows = sum(lane.hi - lane.lo for lane in lanes)
         for i in range(num_windows):
             with profiling.span("engine.window", window=i, rows=rows):
-                with profiling.span("engine.begin"):
+                with profiling.span("engine.begin") as sp:
                     cond = window_cond(i)
+                    encodes = 0
                     for j, lane in enumerate(lanes):
                         noise = None
                         if noise_windows is not None:
@@ -324,7 +342,10 @@ class _WindowSampler:
                                 device=lane.device)
                         cond_l = ({k: v[lane.lo:lane.hi].to(lane.device) for k, v in cond.items()}
                                   if meshed else cond)
-                        on_lane(j, lambda: lane.run.begin(noise, seed=seeds[j], **cond_l))
+                        encodes += on_lane(
+                            j, lambda: lane.run.begin(noise, seed=seeds[j], **cond_l))
+                    self.cond_encodes += encodes
+                    sp.set(cond="precomputed" if encodes else "per_step")
                 # one step of every card's loop in turn: each card's queue stays short
                 # and the cards run at once
                 with profiling.span("engine.steps") as sp:
@@ -370,7 +391,7 @@ class _WindowSampler:
         `sample.py:269-282`, where `corrects_root_delta`) and crossfade its
         first n_seed frames with the seed (`:284-288`). Returns (sample, the
         next window's seed). The batch engines and the streams share it."""
-        run.begin(noise, seed=seed, **cond)
+        self.cond_encodes += run.begin(noise, seed=seed, **cond)
         return self.finish_window(run, run.run().clone(), first, seed)
 
     def finish_window(self, run: _WindowRun, sample: torch.Tensor, first: bool,

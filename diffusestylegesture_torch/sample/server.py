@@ -37,7 +37,9 @@ sampled) and `server.finalize`; a batch's id is its first request's. Beside
 `rows_padded`, `windows_encoded` (windows WavLM ran over),
 `windows_padding` (encoded windows that carry no request's audio),
 `windows_skipped` (windows of the batch's rows × bucket grid that WavLM did
-not run over) and `requests_by_bucket` over the batches it dispatched.
+not run over) and `requests_by_bucket` over the batches it dispatched;
+`counters()` adds the sampler's `cond_encodes` (windows whose conditioning
+invariants were computed once, at the window's start).
 """
 from __future__ import annotations
 
@@ -172,7 +174,8 @@ class GestureServer:
                 "rows_padded": self.rows_padded, "windows_encoded": self.windows_encoded,
                 "windows_padding": self.windows_padding,
                 "windows_skipped": self.windows_skipped,
-                "requests_by_bucket": dict(sorted(self.requests_by_bucket.items()))}
+                "requests_by_bucket": dict(sorted(self.requests_by_bucket.items())),
+                "cond_encodes": self.sampler.cond_encodes}
 
     def start(self) -> "GestureServer":
         self._stop.clear()

@@ -7,7 +7,9 @@ per-window x_T: final un-normalized poses agree within 2e-3 relative (the
 DPM-Solver++(2M) over 5 steps, at guidance 0 and 2. Window slicing and
 crossfade weights are exact; window buckets leave the output unchanged.
 `generate_multi_clip` (3 clips of unequal length, one shorter than a stride)
-agrees per clip at the same bar.
+agrees per clip at the same bar. Computing the model's conditioning
+invariants once a window is bitwise the per-step path, for `generate`,
+`generate_multi_clip` and a two-card mesh; a guided run keeps them per step.
 """
 import numpy as np
 import pytest
@@ -30,7 +32,7 @@ from diffusestylegesture_torch.models.mdm import MDM, MDMConfig
 from diffusestylegesture_torch.models.wavlm import WavLM, WavLMConfig, make_zeggs_wavlm_fn
 from diffusestylegesture_torch.sample import engine as torch_engine
 
-from torch_port_utils import randomize_flax_params
+from torch_port_utils import PerStep, randomize_flax_params
 
 NJ, N_POSES, N_SEED, WINDOWS = 32, 88, 8, 2
 MDM_KW = dict(njoints=NJ, latent_dim=96, ff_size=64, num_layers=2, n_seed=N_SEED)
@@ -163,3 +165,35 @@ def test_generate_multi_clip_matches_jax(shared):
         scale = max(float(np.abs(r).mean()), 1.0)
         err = float(np.abs(o - r).max())
         assert err < 2e-3 * scale, f"max abs err {err} (scale {scale})"
+
+
+@pytest.mark.parametrize("call", ["generate", "multi_clip", "mesh", "guided"])
+def test_precomputed_conditioning_equals_the_per_step_path(shared, call):
+    """Two windows with the conditioning invariants computed once a window
+    (`_WindowRun.begin`) give bitwise the poses of the path that computes
+    them every step (the model behind `PerStep`), so the carried seed and
+    each window's audio reach the next window's invariants; `cond_encodes`
+    counts a window a lane (two lanes on the mesh), and none where guidance
+    masks the conditioning per step."""
+    from diffusestylegesture_torch.parallel import make_mesh
+
+    s = shared
+    styles = np.eye(6, dtype=np.float32)[[0, 4]]
+    poses, encodes = {}, {}
+    for path, model in (("precomputed", s["mdm"]), ("per_step", PerStep(s["mdm"]))):
+        sampler = _torch_sampler("ddim", 10, 2.0 if call == "guided" else 0.0)
+        gen = torch.Generator().manual_seed(5)
+        if call == "multi_clip":
+            audios = [s["audio"], s["audio"][: 80 * 800 + 4000] * 0.5]
+            poses[path] = torch_engine.generate_multi_clip(sampler, model, s["wavlm"], audios,
+                                                           styles, gen, **s["stats"])
+        else:
+            mesh = make_mesh(devices=[torch.device("cpu")] * 2) if call == "mesh" else None
+            poses[path] = [sampler.generate(model, s["wavlm"], s["audio"], styles, gen,
+                                            mesh=mesh, **s["stats"])]
+        encodes[path] = sampler.cond_encodes
+    lanes = {"generate": 1, "multi_clip": 1, "mesh": 2, "guided": 0}[call]
+    assert encodes == {"precomputed": WINDOWS * lanes, "per_step": 0}
+    for a, b in zip(poses["precomputed"], poses["per_step"]):
+        assert a.shape[0] > 0
+        np.testing.assert_array_equal(a, b)

@@ -7,7 +7,9 @@ ancestral DDPM loop the JAX loop's own per-step draws are replayed into the
 port's programs. Final un-normalized poses agree within 2e-3 relative (the
 `PARITY.md` windowed-engine bar) for DDPM and DDIM over a 10-step respaced
 schedule, and DDIM at guidance 2. Window slicing and the seed preparation
-are exact; attention5 reads its `seed_last` afresh on every call.
+are exact; attention5 reads its `seed_last` afresh on every call. Computing
+the model's conditioning invariants once a window is bitwise the per-step
+path for each variant.
 """
 import functools
 
@@ -27,7 +29,7 @@ from diffusestylegesture_torch.models.convert import mdm_plus_state_dict_from_fl
 from diffusestylegesture_torch.models.mdm_plus import MDMPlus, MDMPlusConfig
 from diffusestylegesture_torch.sample import engine_beat as torch_engine
 
-from torch_port_utils import randomize_flax_params
+from torch_port_utils import PerStep, randomize_flax_params
 
 NJ, N_POSES, N_SEED, AUDIO, STYLE, REAL_N, STEPS = 36, 30, 5, 40, 4, 60, 10
 MDM_KW = dict(njoints=NJ, latent_dim=96, ff_size=64, num_layers=2, source_audio_dim=AUDIO,
@@ -157,6 +159,26 @@ def test_seed_last_is_read_on_every_call():
     np.testing.assert_array_equal(second, fresh)
     with pytest.raises(ValueError, match="seed_last"):
         sampler.generate(*args)
+
+
+def test_precomputed_conditioning_equals_the_per_step_path(shared):
+    """Three windows of two rows with the conditioning invariants (style,
+    features, the carried seed frames and attention5's `seed_last`)
+    computed once a window give bitwise the poses of the path that computes
+    them every step (the model behind `PerStep`); `cond_encodes` counts the
+    three windows."""
+    s = shared
+    style = np.eye(STYLE, dtype=np.float32)[[1, 3]]
+    poses, encodes = {}, {}
+    for path, model in (("precomputed", s["model"]), ("per_step", PerStep(s["model"]))):
+        sampler = _torch_sampler(s["variant"], "ddpm")
+        poses[path] = sampler.generate(model, s["textaudio"], s["seed"], style,
+                                       torch.Generator().manual_seed(4), s["mean"], s["std"],
+                                       seed_last=_seed_last(s))
+        encodes[path] = sampler.cond_encodes
+    assert poses["precomputed"].shape == (2, REAL_N, NJ // 3)
+    np.testing.assert_array_equal(poses["precomputed"], poses["per_step"])
+    assert encodes == {"precomputed": WINDOWS, "per_step": 0}
 
 
 @pytest.mark.parametrize("variant", VARIANTS)

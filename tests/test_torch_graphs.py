@@ -12,7 +12,9 @@ for every sampler, with and without classifier-free guidance, and for
 counters read the same after replays as after eager calls; a capture that
 fails raises; a capture survives finished graphs turning into cyclic garbage
 while it runs (the collector is paused); `--serve_fast` stays within the bench
-gate's 2e-2 of float32.
+gate's 2e-2 of float32. The graphs read the conditioning invariants each
+window computes once; they equal, bitwise, the eager path that computes them
+at every step (the model behind `PerStep`) in each of these comparisons.
 The training-style steps captured by `graphs.CapturedStep` (the device-cache
 train step in float32 and bf16, the distillation step with its teacher
 through kernels A and B, the autoencoder step) equal their eager steps
@@ -43,6 +45,7 @@ from diffusestylegesture_torch.sample import (BeatEngineConfig, BeatTwhSampler, 
 from diffusestylegesture_torch.utils import graphs
 
 from test_torch_isolation import TINY_WAVLM
+from torch_port_utils import PerStep
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NJ = 64
@@ -83,15 +86,18 @@ def _sampler(dev, sampler, steps, guidance=0.0, graphs_on=None, **kw):
 
 
 def _both(card, sampler, steps, guidance=0.0, styles=(0,), model="f32"):
-    """(graph poses, eager poses, launch counts of each, final generator states)."""
+    """Per path, (poses, launch counts, final generator state, sampler): the
+    graphs, the eager loop, and the eager loop that computes the conditioning
+    invariants at every step (`per_step`)."""
     mdm, wavlm = card["models"][model]
     style = np.eye(6, dtype=np.float32)[list(styles)]
     out = {}
-    for path, flag in (("graph", None), ("eager", False)):
+    for path, flag in (("graph", None), ("eager", False), ("per_step", False)):
         s = _sampler(card["dev"], sampler, steps, guidance, graphs_on=flag)
         gen = torch.Generator(device=card["dev"]).manual_seed(42)
         before = graphs.launch_counts()
-        poses = s.generate(mdm, wavlm, card["audio"], style, gen)
+        poses = s.generate(PerStep(mdm) if path == "per_step" else mdm, wavlm, card["audio"],
+                           style, gen)
         counts = tuple(b - a for a, b in zip(before, graphs.launch_counts()))
         out[path] = (poses, counts, gen.get_state(), s)
     return out
@@ -103,11 +109,12 @@ def _both(card, sampler, steps, guidance=0.0, styles=(0,), model="f32"):
                                            ("dpmpp", 5)])
 def test_cuda_graph_equals_eager(card, sampler, steps, guidance):
     out = _both(card, sampler, steps, guidance)
-    g, e = out["graph"], out["eager"]
+    g, e, p = out["graph"], out["eager"], out["per_step"]
     assert g[3].graphs and not e[3].graphs and g[3].capture_seconds > 0
     assert np.isfinite(g[0]).all() and g[0].shape == (1, 3 * 80 - 8, NJ)
-    assert np.array_equal(g[0], e[0])
-    assert torch.equal(g[2], e[2])  # the generator advanced alike
+    assert np.array_equal(g[0], e[0]) and np.array_equal(g[0], p[0])
+    assert torch.equal(g[2], e[2]) and torch.equal(g[2], p[2])  # the generator advanced alike
+    assert (g[3].cond_encodes, p[3].cond_encodes) == (0 if guidance else 3, 0)
     calls = 3 * (steps + (1 if sampler == "plms" else 0))
     assert g[1] == e[1] and g[1][:3] == (calls, 2 * calls, 0)
 
@@ -116,6 +123,8 @@ def test_cuda_graph_equals_eager(card, sampler, steps, guidance):
 def test_cuda_graph_equals_eager_ddpm1000_batched(card):
     out = _both(card, "ddpm", 1000, styles=(0, 4))
     assert np.array_equal(out["graph"][0], out["eager"][0])
+    assert np.array_equal(out["graph"][0], out["per_step"][0])
+    assert out["graph"][3].cond_encodes == 3
     assert out["graph"][1] == out["eager"][1] and out["graph"][1][:3] == (3000, 6000, 0)
 
 
@@ -125,13 +134,14 @@ def test_cuda_graph_equals_eager_multi_clip(card):
     audios = [card["audio"], card["audio"][: 80 * 800 + 100], card["audio"][:9000]]
     styles = np.eye(6, dtype=np.float32)[[1, 2, 3]]
     res = {}
-    for path, flag in (("graph", None), ("eager", False)):
+    for path, flag in (("graph", None), ("eager", False), ("per_step", False)):
         gen = torch.Generator(device=card["dev"]).manual_seed(7)
-        res[path] = generate_multi_clip(_sampler(card["dev"], "dpmpp", 5, graphs_on=flag), mdm,
+        res[path] = generate_multi_clip(_sampler(card["dev"], "dpmpp", 5, graphs_on=flag),
+                                        PerStep(mdm) if path == "per_step" else mdm,
                                         wavlm, audios, styles, gen)
     assert [r.shape for r in res["graph"]] == [(232, NJ), (72, NJ), (0, NJ)]
-    for a, b in zip(res["graph"], res["eager"]):
-        assert np.array_equal(a, b)
+    for a, b, c in zip(res["graph"], res["eager"], res["per_step"]):
+        assert np.array_equal(a, b) and np.array_equal(a, c)
 
 
 @pytest.mark.cuda
@@ -457,8 +467,9 @@ def test_cuda_failed_step_capture_raises(card):
 
 
 def _beat_both(card, variant, guidance=0.0, seed_lasts=(None,)):
-    """Graph and eager poses of a small MDMPlus (njoints 72, latent 128, 2 layers)
-    over 3 windows, dpmpp5, one call a seed_last; with the launch counts."""
+    """Graph, eager and per-step eager (`PerStep`) poses of a small MDMPlus
+    (njoints 72, latent 128, 2 layers) over 3 windows, dpmpp5, one call a
+    seed_last; with the launch counts."""
     dev = card["dev"]
     torch.manual_seed(0)
     mcfg = MDMPlusConfig(njoints=72, latent_dim=128, ff_size=256, num_layers=2,
@@ -472,7 +483,7 @@ def _beat_both(card, variant, guidance=0.0, seed_lasts=(None,)):
     betas = D.named_beta_schedule("cosine", 1000)
     sched = D.spaced_schedule(betas, D.space_timesteps(1000, "ddim5"), device=dev)
     out = {}
-    for path, flag in (("graph", None), ("eager", False)):
+    for path, flag in (("graph", None), ("eager", False), ("per_step", False)):
         s = BeatTwhSampler(lambda m, x, t, c, uncond=None: m(x, t, c, uncond=uncond), sched,
                            BeatEngineConfig(njoints=72, audio_dim=40, variant=variant,
                                             sampler="dpmpp",
@@ -482,7 +493,8 @@ def _beat_both(card, variant, guidance=0.0, seed_lasts=(None,)):
         before = graphs.launch_counts()
         for seed_last in seed_lasts:
             gen = torch.Generator(device=dev).manual_seed(5)
-            poses.append(s.generate(model, textaudio, seed, np.eye(4, dtype=np.float32)[[2]],
+            poses.append(s.generate(PerStep(model) if path == "per_step" else model,
+                                    textaudio, seed, np.eye(4, dtype=np.float32)[[2]],
                                     gen, *stats, seed_last=seed_last))
         counts = tuple(b - a for a, b in zip(before, graphs.launch_counts()))
         out[path] = (poses, counts, s)
@@ -494,11 +506,12 @@ def _beat_both(card, variant, guidance=0.0, seed_lasts=(None,)):
 @pytest.mark.parametrize("variant", ["attention3", "attention4"])
 def test_cuda_beat_graph_equals_eager(card, variant, guidance):
     out = _beat_both(card, variant, guidance)
-    (g, gc, gs), (e, ec, es) = out["graph"], out["eager"]
+    (g, gc, gs), (e, ec, es), (p, pc, _) = out["graph"], out["eager"], out["per_step"]
     assert gs.graphs and not es.graphs and gs.capture_seconds > 0
     assert g[0].shape == (1, 300, 24) and np.isfinite(g[0]).all()
-    assert np.array_equal(g[0], e[0])
-    assert gc == ec and gc[:3] == (3 * 5, 2 * 3 * 5, 0)
+    assert np.array_equal(g[0], e[0]) and np.array_equal(g[0], p[0])
+    assert gc == ec == pc and gc[:3] == (3 * 5, 2 * 3 * 5, 0)
+    assert gs.cond_encodes == (0 if guidance else 3)
 
 
 @pytest.mark.cuda
@@ -506,7 +519,7 @@ def test_cuda_beat_graph_reads_each_seed_last(card):
     rng = np.random.default_rng(4)
     lasts = tuple(rng.standard_normal((30, 72)).astype(np.float32) for _ in range(2))
     out = _beat_both(card, "attention5", seed_lasts=lasts)
-    g, e = out["graph"][0], out["eager"][0]
-    assert all(np.array_equal(a, b) for a, b in zip(g, e))
+    g, e, p = out["graph"][0], out["eager"][0], out["per_step"][0]
+    assert all(np.array_equal(a, b) and np.array_equal(a, c) for a, b, c in zip(g, e, p))
     assert np.abs(g[0] - g[1]).max() > 1e-3  # the second call's seed_last reached the graph
     assert out["graph"][2].capture_seconds > 0 and len(out["graph"][2]._runs) == 1

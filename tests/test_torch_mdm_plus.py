@@ -170,6 +170,42 @@ def test_training_drops_match_uncond(models):
         model(torch.from_numpy(x), torch.from_numpy(t), _torch(cond), train=True)
 
 
+@pytest.mark.parametrize("uncond", [None, [False, True]], ids=["cond", "cfg_mixed"])
+def test_precomputed_invariants_equal_the_per_step_forward(models, uncond):
+    """`forward` on a `cond` that holds `cond_invariants(cond)` is bitwise the
+    forward that computes them; without `uncond` it reads neither the style,
+    the features nor the seed frames (poisoned with NaN, nothing changes)."""
+    mode, _, _, model = models
+    x, t, cond = _inputs(mode, 6)
+    x, t, cond = torch.from_numpy(x), torch.from_numpy(t), _torch(cond)
+    tu = None if uncond is None else torch.tensor(uncond)
+    with torch.no_grad():
+        inv = model.cond_invariants(cond)
+        want = model(x, t, cond, uncond=tu)
+        got = model(x, t, {**cond, **inv}, uncond=tu)
+        poisoned = {k: v if k == "mask_local" else torch.full_like(v, float("nan"))
+                    for k, v in cond.items()}
+        blind = model(x, t, {**poisoned, **inv}) if uncond is None else want
+    assert set(inv) == {"style_emb", "audio_emb"} | (
+        {"seed_emb"} if "attention3" in mode else set())
+    assert inv["audio_emb"].shape == (B, T, KW["audio_feat_dim"])
+    assert torch.equal(got, want) and torch.equal(blind, want)
+
+
+def test_train_forward_is_unchanged_by_invariants(models):
+    """The training forward (drops drawn from the generator, dropout on)
+    gives the same prediction whether `cond` holds the invariants or not."""
+    mode, _, _, model = models
+    x, t, cond = _inputs(mode, 7)
+    x, t, cond = torch.from_numpy(x), torch.from_numpy(t), _torch(cond)
+    plain = _with(model, impl="plain", cond_mask_prob=0.5)
+    with torch.no_grad():
+        inv = plain.cond_invariants(cond)
+        outs = [plain(x, t, c, train=True, generator=torch.Generator().manual_seed(3))
+                for c in (cond, {**cond, **inv})]
+    assert torch.equal(outs[0], outs[1])
+
+
 def test_bf16_mode_within_gate_of_jax_bf16(models):
     mode, fmodel, params, model = models
     x, t, cond = _inputs(mode, 5)

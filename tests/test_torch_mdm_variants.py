@@ -156,6 +156,58 @@ def test_train_forward_with_replayed_drops_matches_flax(name, monkeypatch):
         1.0, float(np.abs(np.asarray(ref)).max())))
 
 
+# the input each invariant is computed from: a forward that reads the invariant
+# does not read it
+SOURCES = {"style_emb": "style", "seed_emb": "seed", "audio_emb": "audio"}
+
+
+@pytest.mark.parametrize("uncond", [None, [False, True]], ids=["cond", "cfg_mixed"])
+@pytest.mark.parametrize("name", list(VARIANTS))
+def test_precomputed_invariants_equal_the_per_step_forward(name, uncond):
+    """`forward` on a `cond` that holds `cond_invariants(cond)` is bitwise the
+    forward that computes them; without `uncond` it reads no input they came
+    from (those inputs poisoned with NaN change nothing)."""
+    _, _, model = _models(name)
+    kw = _kw(name)
+    x, t, cond = _inputs(name)
+    x, t, cond = torch.from_numpy(x), torch.from_numpy(t), _torch(cond)
+    tu = None if uncond is None else torch.tensor(uncond)
+    with torch.no_grad():
+        inv = model.cond_invariants(cond)
+        want = model(x, t, cond, uncond=tu)
+        got = model(x, t, {**cond, **inv}, uncond=tu)
+        read = {SOURCES[k] for k in inv}
+        poisoned = {k: torch.full_like(v, float("nan")) if k in read else v
+                    for k, v in cond.items()}
+        blind = model(x, t, {**poisoned, **inv}) if uncond is None else want
+    assert set(inv) == ({"style_emb"} if hasattr(model, "embed_style") else set()) | (
+        {"seed_emb"} if kw["n_seed"] else set()) | (
+        {"audio_emb"} if kw.get("audio_feat", "wavlm") == "wavlm" else set())
+    assert torch.equal(got, want) and torch.equal(blind, want)
+
+
+@pytest.mark.parametrize("name", ["cla3_wavlm", "style2_trans_enc", "cla3_moe"])
+def test_train_forward_is_unchanged_by_invariants(name):
+    """The training forward (condition drops drawn from the generator,
+    dropout on) gives the same prediction and aux loss whether `cond` holds
+    the invariants or not: a dropped seed is masked before its projection,
+    so the drawn drops send the seed back to the per-step path."""
+    _, _, model = _models(name)
+    tmodel = MDM(MDMConfig(**_kw(name), cond_mask_prob=0.5, audio_in_dim=AUDIO_IN["wavlm"],
+                           impl="plain"))
+    tmodel.load_state_dict(model.state_dict())
+    x, t, cond = _inputs(name, 5)
+    x, t, cond = torch.from_numpy(x), torch.from_numpy(t), _torch(cond)
+    with torch.no_grad():
+        inv = tmodel.cond_invariants(cond)
+        outs = [tmodel(x, t, c, train=True, generator=torch.Generator().manual_seed(3))
+                for c in (cond, {**cond, **inv})]
+    if _kw(name).get("moe_experts"):
+        assert torch.equal(outs[0][1], outs[1][1])
+        outs = [o[0] for o in outs]
+    assert torch.equal(outs[0], outs[1])
+
+
 @pytest.mark.parametrize("name", ["style2_trans_dec", "cla_wavlm"])
 def test_gradients_match_flax(name):
     fmodel, params, model = _models(name)

@@ -112,10 +112,12 @@ def test_serve_cli_matches_jax_cli(tmp_path, capsys, monkeypatch):
         assert len(closing) == 1
         assert {k: closing[0][k] for k in ("served", "batches")} == {"served": 2, "batches": 1}
     # the port's closing line adds its server's counters: one batch of 16 rows, two of them
-    # real, at the 2-window bucket; WavLM ran over their 4 windows rounded up to a chunk of 8
+    # real, at the 2-window bucket; WavLM ran over their 4 windows rounded up to a chunk of 8;
+    # the conditioning invariants were computed once for each of the 2 windows sampled
     assert [l for l in tl if "served" in l] == [
         {"served": 2, "batches": 1, "rows_padded": 14, "windows_encoded": 8,
-         "windows_padding": 4, "windows_skipped": 24, "requests_by_bucket": {"2": 2}}]
+         "windows_padding": 4, "windows_skipped": 24, "requests_by_bucket": {"2": 2},
+         "cond_encodes": 2}]
     jok = [l for l in jl if "out" in l]
     tok = [l for l in tl if "out" in l]
     assert [sorted(l) for l in jok] == [sorted(l) for l in tok]
@@ -182,5 +184,5 @@ def test_serve_cli_options_on_cpu(tmp_path, capsys, extra):
     assert [l["frames"] for l in ok] == [152, 152]
     assert res == {"served": 2, "batches": 1, "rows_padded": 2, "windows_encoded": 8,
                    "windows_padding": 4, "windows_skipped": 0, "requests_by_bucket": {2: 2},
-                   "capture_seconds": 0.0}
+                   "cond_encodes": 2, "capture_seconds": 0.0}
     assert os.path.getsize(tmp_path / "blend.bvh") > 0

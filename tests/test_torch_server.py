@@ -39,7 +39,7 @@ from diffusestylegesture_torch.sample import (
 )
 from diffusestylegesture_torch.sample.server import _Request
 
-from torch_port_utils import ZEGGS_TINY_NJ, rel_err, replay_draws, zeggs_tiny_pair
+from torch_port_utils import PerStep, ZEGGS_TINY_NJ, rel_err, replay_draws, zeggs_tiny_pair
 
 NJ = 16
 
@@ -144,10 +144,12 @@ def test_counters_of_a_two_bucket_run():
     assert [r.future.result(timeout=0).shape[0] for b in batches for r in b] == \
         [ecfg.stride - ecfg.n_seed] * 2 + [3 * ecfg.stride - ecfg.n_seed]
     # bucket 1: 2 windows carry audio, rounded up to a chunk of 8 but at most the grid of
-    # 4 rows × 1 window; bucket 4: 3 carry audio, rounded up to 8 of the grid's 4 × 4
+    # 4 rows × 1 window; bucket 4: 3 carry audio, rounded up to 8 of the grid's 4 × 4; the
+    # conditioning invariants computed once a window sampled, 1 + 3
     assert server.counters() == {"served": 3, "batches": 2, "rows_padded": 2 + 3,
                                  "windows_encoded": 4 + 8, "windows_padding": 2 + 5,
-                                 "windows_skipped": 0 + 8, "requests_by_bucket": {1: 2, 4: 1}}
+                                 "windows_skipped": 0 + 8, "requests_by_bucket": {1: 2, 4: 1},
+                                 "cond_encodes": 1 + 3}
 
 
 @pytest.mark.parametrize("max_batch,clips,encoded", [(16, (3, 5, 3), 16), (2, (5, 3), 8),
@@ -173,7 +175,32 @@ def test_counters_of_a_packed_bucket_five_batch(max_batch, clips, encoded):
                                  "rows_padded": max_batch - len(clips),
                                  "windows_encoded": encoded, "windows_padding": encoded - carried,
                                  "windows_skipped": grid - encoded,
-                                 "requests_by_bucket": {5: len(clips)}}
+                                 "requests_by_bucket": {5: len(clips)},
+                                 "cond_encodes": max(clips)}
+
+
+def test_precomputed_conditioning_equals_the_per_step_server():
+    """A batch of a 3- and a 1-window clip served with the conditioning
+    invariants computed once a window gives bitwise the poses of the path
+    that computes them every step (the model behind `PerStep`);
+    `counters()` reports `cond_encodes`, a window each on the first path
+    and none on the second."""
+    rng = np.random.default_rng(9)
+    audios = [rng.standard_normal(w * 64000 + 70).astype(np.float32) for w in (3, 1)]
+    poses, encodes = {}, {}
+    for path in ("precomputed", "per_step"):
+        server, _ = make_server(max_batch=4, buckets=(1, 2, 4))
+        if path == "per_step":
+            server.params = PerStep(server.params)
+        batch = [_Request(audio=a, style=np.eye(6, dtype=np.float32)[2 * i], seed=5,
+                          num_windows=a.shape[0] // 64000, future=Future(), id=i)
+                 for i, a in enumerate(audios)]
+        server._run_batch(batch)
+        poses[path] = [r.future.result(timeout=0) for r in batch]
+        encodes[path] = server.counters()["cond_encodes"]
+    assert encodes == {"precomputed": 3, "per_step": 0}
+    for a, b in zip(poses["precomputed"], poses["per_step"]):
+        np.testing.assert_array_equal(a, b)
 
 
 def test_encode_packed_matches_the_grid_encode(pair):

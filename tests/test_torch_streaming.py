@@ -8,7 +8,9 @@ one draw a step) are replayed into the port's loop, and the concatenated
 motion agrees within 2e-3 relative (the windowed engine's bar). For one
 generator the port's stream equals the port's batch engine within 1e-5.
 Sessions over one sampler share one window run and interleave without
-disturbing each other; `flush()` without a push is empty; a host-side
+disturbing each other, each window's refilled style (ZEGGS) or seed_last
+(BEAT/TWH) reaching its conditioning invariants, computed once a window:
+bitwise the per-step path; `flush()` without a push is empty; a host-side
 window function is taken (`test_torch_mfcc_engine.py` holds that mode
 against the JAX stream).
 """
@@ -41,6 +43,7 @@ from diffusestylegesture_torch.sample import (
 )
 
 from torch_port_utils import (
+    PerStep,
     ZEGGS_TINY_NJ,
     jax_loop_draws,
     randomize_flax_params,
@@ -129,6 +132,31 @@ def test_zeggs_stream_equals_batch_engine_and_sessions_share_one_run(zeggs):
         got = np.concatenate(out, 1)
         assert got.shape == ref.shape == (1, 152, ZEGGS_TINY_NJ)
         np.testing.assert_allclose(got, ref, atol=1e-5 * max(float(np.abs(ref).mean()), 1.0))
+
+
+def test_zeggs_sessions_refill_the_precomputed_style(zeggs):
+    """Two sessions of different styles interleaved over one run: each
+    window's `fill(style=…)` reaches the invariants `begin` computes, so each
+    session equals the per-step path (the model behind `PerStep`) bitwise;
+    `cond_encodes` counts 2 sessions × 2 windows."""
+    z = zeggs
+    styles = np.eye(6, dtype=np.float32)[[1, 5]]
+    outs, encodes = {}, {}
+    for path, model in (("precomputed", z["mdm"]), ("per_step", PerStep(z["mdm"]))):
+        sampler = _zeggs_sampler()
+        streams = [ZeggsStreamSampler(sampler, model, z["wavlm"], s,
+                                      torch.Generator().manual_seed(7 + i), mean=z["mean"],
+                                      std=z["std"]) for i, s in enumerate(styles)]
+        got = [[], []]
+        for i in range(0, len(z["audio"]), CHUNK):
+            for k, stream in enumerate(streams):
+                got[k] += stream.push(z["audio"][i: i + CHUNK])
+        outs[path] = [np.concatenate(g, 1) for g in got]
+        encodes[path] = sampler.cond_encodes
+    assert encodes == {"precomputed": 4, "per_step": 0}
+    for a, b in zip(outs["precomputed"], outs["per_step"]):
+        assert a.shape == (1, 152, ZEGGS_TINY_NJ)
+        np.testing.assert_array_equal(a, b)
 
 
 def test_zeggs_stream_keeps_short_tails_and_refuses_host_features(zeggs):
@@ -230,6 +258,26 @@ def test_beat_stream_equals_batch_engine(variant):
     assert got.shape == ref.shape == (1, 60, NJ // 3)
     np.testing.assert_allclose(got, ref, atol=1e-5 * max(float(np.abs(ref).mean()), 1.0))
     assert len(sampler._runs) == 1
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_beat_stream_precomputed_equals_per_step(variant):
+    """A BEAT/TWH stream whose windows (each refilling its style and, in
+    attention5, its `seed_last`) compute their conditioning invariants once
+    equals the per-step path (`PerStep`) bitwise, a count a window."""
+    b = _beat(variant)
+    style = np.eye(STYLE, dtype=np.float32)[[3]]
+    outs, encodes = {}, {}
+    for path, model in (("precomputed", b["model"]), ("per_step", PerStep(b["model"]))):
+        sampler = _beat_sampler(variant)
+        stream = BeatTwhStreamSampler(sampler, model, b["seed"], style,
+                                      torch.Generator().manual_seed(2), b["mean"], b["std"],
+                                      seed_last=b["seed_last"])
+        outs[path] = np.concatenate(_push_all(stream, b["textaudio"], [13]) + stream.flush(), 1)
+        encodes[path] = sampler.cond_encodes
+    assert outs["precomputed"].shape == (1, 60, NJ // 3)
+    np.testing.assert_array_equal(outs["precomputed"], outs["per_step"])
+    assert encodes == {"precomputed": 3, "per_step": 0}
 
 
 def test_beat_flush_without_push_is_empty_and_attention5_needs_seed_last():

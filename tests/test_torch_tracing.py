@@ -9,10 +9,13 @@ within it. A `GestureServer` on a toy model records one `server.request` span
 a resolved request and a collect, dispatch and finalize span a batch, with
 its request ids; a dispatch's rows and windows add up, and its padding and
 skipped windows match the server's always-on counters. `BeatTwhSampler.generate` records
-one `engine.window` a window with the schedule's steps; `TextMotionSampler.
+one `engine.window` a window with the schedule's steps, its `engine.begin`
+saying whether the conditioning invariants were computed there (`cond`:
+`precomputed`, or `per_step` in a guided run); `TextMotionSampler.
 generate` one `t2m.generate` around `t2m.encode` and `t2m.sample`, which holds
 `t2m.steps`, and nothing while tracing is off. On the card each
-graph capture is a `graphs.capture` span that says what it captured.
+graph capture is a `graphs.capture` span that says what it captured: the
+server's encoder one graph a packed window count.
 
 Imports neither jax nor the JAX package: on a machine with a card and no JAX,
 run the card's case with
@@ -183,12 +186,17 @@ def test_server_spans_and_counters(tracing):
                                                      "engine.window": a["windows_sampled"]}
         enc = [sp for sp in inside if sp.name == "engine.encode"][0]
         assert enc.attrs == {"windows": a["windows_encoded"], "path": "eager"}
+        begins = [sp for w in inside if w.name == "engine.window" for sp in spans
+                  if sp.parent == w.id and sp.name == "engine.begin"]
+        assert [sp.attrs for sp in begins] == [{"cond": "precomputed"}] * a["windows_sampled"]
     assert padding == server.windows_padding and skipped == server.windows_skipped
     assert server.windows_encoded == sum(d.attrs["windows_encoded"] for d in dispatches)
     assert server.rows_padded == sum(d.attrs["rows_padded"] for d in dispatches)
     assert server.requests_by_bucket == dict(Counter(requests[r].attrs["bucket"]
                                                      for r in requests))
     assert server.counters()["served"] == len(windows)
+    assert server.counters()["cond_encodes"] == sum(
+        d.attrs["windows_sampled"] for d in dispatches)
 
 
 def test_beat_generate_spans_a_window_each(tracing):
@@ -217,7 +225,25 @@ def test_beat_generate_spans_a_window_each(tracing):
     for w in windows:
         kids = sorted((sp for sp in spans if sp.parent == w.id), key=lambda sp: sp.start_ns)
         assert [k.name for k in kids] == ["engine.begin", "engine.steps", "engine.finish"]
-        assert kids[1].attrs == {"steps": steps}
+        assert kids[0].attrs == {"cond": "precomputed"} and kids[1].attrs == {"steps": steps}
+    assert sampler.cond_encodes == 3
+
+
+def test_guided_windows_span_their_per_step_conditioning(tracing):
+    """A guided ZEGGS run computes its conditioning at every step: each
+    window's `engine.begin` says `per_step` and `cond_encodes` stays 0."""
+    torch.manual_seed(0)
+    model = MDM(MDMConfig(njoints=NJ, latent_dim=96, ff_size=64, num_layers=1, n_seed=8,
+                          audio_in_dim=FEAT)).eval()
+    sched = D.Schedule.create(D.named_beta_schedule("cosine", STEPS), device="cpu")
+    sampler = ZeggsSampler(_apply, _wavlm_stub, sched,
+                           ZeggsEngineConfig(njoints=NJ, guidance_scale=2.0), device="cpu")
+    audio = np.random.default_rng(1).standard_normal(2 * 64000 + 9).astype(np.float32)
+    sampler.generate(model, {}, audio, np.eye(6, dtype=np.float32)[[2]],
+                     torch.Generator().manual_seed(0))
+    begins = [sp for sp in profiling.spans() if sp.name == "engine.begin"]
+    assert [sp.attrs for sp in begins] == [{"cond": "per_step"}] * 2
+    assert sampler.cond_encodes == 0
 
 
 def test_t2m_generate_spans_encode_and_sample():
@@ -273,12 +299,16 @@ def test_graph_captures_are_spans_on_the_card(tracing):
     spans = profiling.spans()
     caps = [sp for sp in spans if sp.name == "graphs.capture"]
     encoders = sorted(sp.attrs["shape"][0] for sp in caps if sp.attrs["what"] == "encoder")
-    assert encoders == [MAX_BATCH * b for b in (1, 2, 4)]  # one graph a bucket
+    # one graph a packed window count: bucket 1's grid of 4 windows, then 8 (a chunk) for
+    # the 2- and 3-window clips of buckets 2 and 4, whose second batch replays it
+    assert encoders == [MAX_BATCH * 1, ZeggsSampler.ENCODE_CHUNK]
     steps = [sp for sp in caps if sp.attrs["what"] != "encoder"]
     assert steps and all(sp.attrs["batch"] == MAX_BATCH and sp.end_ns > sp.start_ns
                          for sp in steps)
     enc = [sp for sp in spans if sp.name == "engine.encode"]
-    assert Counter(sp.attrs["path"] for sp in enc) == {"capture": 3}
+    assert Counter(sp.attrs["path"] for sp in enc) == {"capture": 2, "replay": 1}
+    begins = [sp for sp in spans if sp.name == "engine.begin"]
+    assert len(begins) == 1 + 3 + 2 and all(sp.attrs == {"cond": "precomputed"} for sp in begins)
     # each capture nests in the span that needed it
     ids = {sp.id: sp.name for sp in spans}
     assert {ids[sp.parent] for sp in caps} == {"engine.encode", "engine.begin"}

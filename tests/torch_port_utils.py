@@ -221,3 +221,15 @@ def jax_single_loop_draws(key, steps: int, shape):
         key, nkey = jax.random.split(key)
         draws.append(np.array(jax.random.normal(nkey, shape, dtype=jnp.float32)))
     return draws
+
+
+class PerStep:
+    """A denoiser called as itself but without its `cond_invariants`: a
+    window engine handed it computes the conditioning at every step, the
+    path a model without invariants takes."""
+
+    def __init__(self, model):
+        self.model = model
+
+    def __call__(self, *args, **kwargs):
+        return self.model(*args, **kwargs)
